@@ -1,0 +1,457 @@
+"""Declarative power-policy layer and the PyTorch spelling of rules 6-7.
+
+The declarative half — the :class:`PowerPolicy` stacks, :class:`PolicyParams`,
+:func:`static_bool`, the ``from_label`` registry and the ``PSMVariant`` shim —
+is a copy of the JAX reference's ``core/policy.py``: a label names a point on
+the policy axis, and both engines read the same flags.
+
+The rule half is the PyTorch counterpart of the reference's rule functions for
+the slice of the policy axis this engine runs: rule 6 (idle-timeout switch-off,
+with the IPM demand cap) and rule 7 (IPM proactive wake), plus the DVFS-off
+branches of the node-speed helpers used at job start. The engine only runs a
+single configuration, so flags are always concrete Python bools
+(``PolicyParams.static()``) and every gate is a Python branch. Rules 8-10 (RL
+commands, DVFS, Forecast) belong to a later slice of the port; the engine
+refuses their labels (``core/engine.py::check_supported``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import (
+    IDLE,
+    INF_TIME,
+    SLEEP,
+    SWITCHING_OFF,
+    SWITCHING_ON,
+    WAITING,
+    BasePolicy,
+    PSMVariant,
+    did_you_mean,
+)
+
+I32 = torch.int32
+INF = int(INF_TIME)
+
+
+class PolicyParams(NamedTuple):
+    """The policy axis: per-scenario behaviour flags (all bool).
+
+    The PyTorch engine runs one configuration at a time and carries these as
+    concrete Python bools (:meth:`static`); the traced spelling of the JAX
+    reference's sweeps has no counterpart here yet.
+    """
+
+    backfill: Any  # EASY backfilling; False = FCFS stop-at-head (rule 4)
+    eager_ready: Any  # scheduling ignores power states (ready-time table)
+    sleep_enabled: Any  # rule 6 active (idle-timeout switch-off)
+    ipm_enabled: Any  # rule 6 demand cap + rule 7 proactive wake
+    rl_enabled: Any  # rule 8 active (agent power commands)
+    rl_grouped: Any  # rule 8 selects per node group
+    dvfs_enabled: Any  # rule 9 active (runtime per-group DVFS switching)
+    dvfs_rl: Any  # rule 9 modes from agent commands (else pressure ladder)
+    forecast_enabled: Any  # rule 10 active (EWMA forecast, proactive wake)
+    forecast_dvfs: Any  # rule 10 also pre-ramps DVFS modes (needs rule 9)
+
+    def static(self) -> "PolicyParams":
+        """The concrete Python-bool spelling (single-config specialization)."""
+        return PolicyParams(*[bool(v) for v in self])
+
+
+def static_bool(flag) -> Optional[bool]:
+    """Python bool when ``flag`` is concrete, None otherwise (the reference's
+    flag accessor; the PyTorch engine only ever sees concrete flags)."""
+    if isinstance(flag, (bool, np.bool_)):
+        return bool(flag)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# rules 6-7 (SEMANTICS.md), on tensors
+# ---------------------------------------------------------------------------
+
+def queued_demand(s) -> torch.Tensor:
+    """i32 total nodes asked by arrived WAITING jobs."""
+    waiting = (s.job_status == WAITING) & (s.job_subtime <= s.t)
+    return torch.where(waiting, s.job_res, 0).sum(dtype=I32)
+
+
+def _available(s) -> torch.Tensor:
+    """i32 unreserved IDLE or SWITCHING_ON nodes (capacity for the queue)."""
+    return (
+        (s.node_job < 0)
+        & ((s.node_state == IDLE) | (s.node_state == SWITCHING_ON))
+    ).sum(dtype=I32)
+
+
+def timeout_switch_off(s, const, ipm_cap: bool):
+    """Rule 6: switch off expired idle nodes, longest-idle first (ties by id).
+
+    ``ipm_cap`` (PSAS+IPM) caps the count so available capacity never drops
+    below queued demand. Without the cap every candidate is selected, so the
+    k-longest-idle sort is skipped (the same pruning as the reference).
+    """
+    cand = (
+        (s.node_job < 0)
+        & (s.node_state == IDLE)
+        & (s.t - s.node_idle_since >= const.timeout)
+    )
+    if not ipm_cap:
+        sel = cand
+    else:
+        n_cand = cand.sum(dtype=I32)
+        allowed = torch.clamp(_available(s) - queued_demand(s), min=0)
+        k = torch.minimum(n_cand, allowed)
+        key = torch.where(cand, s.node_idle_since, INF)  # longest idle first
+        order = torch.argsort(key, stable=True)
+        n = key.shape[0]
+        sel_sorted = torch.arange(n, device=key.device, dtype=I32) < k
+        sel = torch.empty_like(cand)
+        sel[order] = sel_sorted
+        sel = sel & cand
+    return s._replace(
+        node_state=torch.where(sel, SWITCHING_OFF, s.node_state),
+        node_until=torch.where(sel, s.t + const.t_off, s.node_until),
+        n_switch_off=s.n_switch_off + sel.sum(dtype=I32),
+    )
+
+
+def ipm_wake(s, const):
+    """Rule 7: wake sleeping nodes (lowest id first) to cover queued demand."""
+    deficit = queued_demand(s) - _available(s)
+    cand = (s.node_job < 0) & (s.node_state == SLEEP)
+    sel = cand & (torch.cumsum(cand, 0, dtype=I32) <= deficit)
+    return s._replace(
+        node_state=torch.where(sel, SWITCHING_ON, s.node_state),
+        node_until=torch.where(sel, s.t + const.t_on, s.node_until),
+        n_switch_on=s.n_switch_on + sel.sum(dtype=I32),
+    )
+
+
+def effective_node_speed(const, mode, enabled: bool) -> torch.Tensor:
+    """f32[N] node speed; the base ``const.speed`` with DVFS off (the DVFS
+    mode-table branch is ported with rule 9)."""
+    if enabled:
+        raise NotImplementedError(
+            "DVFS node speeds are not ported yet (ROADMAP Queue 1 item 7)"
+        )
+    return const.speed
+
+
+def alloc_min_speed(node_job, node_speed, n_jobs: int) -> torch.Tensor:
+    """f32[J] min node speed over each job's allocated nodes (inf when the
+    job holds none) — the cross-engine realized-runtime contract's scatter.
+    A scatter-min is exact in any order, so it is deterministic on CUDA."""
+    cj = torch.clamp(node_job, min=0).long()
+    src = torch.where(node_job >= 0, node_speed, float("inf"))
+    out = torch.full(
+        (n_jobs,), float("inf"), dtype=torch.float32, device=node_job.device
+    )
+    return out.scatter_reduce(0, cj, src, reduce="amin", include_self=True)
+
+
+
+# ---------------------------------------------------------------------------
+# the declarative policy stacks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PowerPolicy:
+    """Base declarative policy: a no-op power manager (never sleeps anything).
+
+    A policy names a point on the traced policy axis via :meth:`params`;
+    the engines contain the (flag-gated) rule implementations. Policies are
+    hashable frozen dataclasses, so an ``EngineConfig`` remains a valid jit
+    cache key; they carry no trace structure except an optional in-graph
+    ``controller`` (RL).
+
+    ``dvfs=True`` composes runtime per-group DVFS mode switching (rule 9,
+    §DVFS) onto any stack: the queue-pressure ladder by default, agent
+    commands under :class:`RLController`. ``forecast=True`` composes the
+    EWMA arrival-pressure forecaster (rule 10, §Forecast) the same way —
+    proactive wake-ups, plus DVFS pre-ramp when rule 9 is also on.
+    """
+
+    dvfs: bool = False
+    forecast: bool = False
+
+    @property
+    def eager_ready(self) -> bool:
+        """True: scheduling treats every non-ACTIVE node as ready at t."""
+        return True
+
+    def flags(self) -> dict:
+        """Rule-enable flags this stack contributes (see PolicyParams)."""
+        return dict(
+            sleep_enabled=False,
+            ipm_enabled=False,
+            rl_enabled=False,
+            rl_grouped=False,
+            dvfs_enabled=self.dvfs,
+            dvfs_rl=False,
+            forecast_enabled=self.forecast,
+            forecast_dvfs=self.forecast and self.dvfs,
+        )
+
+    def params(self, base: BasePolicy = BasePolicy.EASY) -> PolicyParams:
+        """Lower (base, self) onto the traced policy axis."""
+        return PolicyParams(
+            backfill=(BasePolicy(base) == BasePolicy.EASY),
+            eager_ready=self.eager_ready,
+            **self.flags(),
+        )
+
+    def _base_label(self) -> str:
+        return "AlwaysOn"
+
+    def psm_label(self) -> str:
+        lbl = self._base_label()
+        if self.dvfs:
+            lbl += "+DVFS"
+        if self.forecast:
+            lbl += "+Forecast"
+        return lbl
+
+
+@dataclasses.dataclass(frozen=True)
+class AlwaysOn(PowerPolicy):
+    """Classic always-on baseline: nodes never sleep (legacy PSM ``NONE``)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DVFS(PowerPolicy):
+    """Queue-pressure DVFS ladder on always-on nodes (rule 9, §DVFS): each
+    decision point sets every group's mode to
+    ``min(n_modes - 1, demand * n_modes // N)`` — slowest when the queue is
+    empty, fastest when demand saturates the cluster. Compose DVFS onto a
+    sleeping stack with e.g. ``TimeoutSleep(dvfs=True)`` ("PSUS+DVFS")."""
+
+    dvfs: bool = True
+
+    def psm_label(self) -> str:
+        return "DVFS+Forecast" if self.forecast else "DVFS"
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeoutSleep(PowerPolicy):
+    """Idle-timeout switch-off (legacy PSUS / PSAS).
+
+    ``transition_aware=False`` (PSUS): scheduling ignores power states — jobs
+    simply wait for rule-5 wake-ups. ``transition_aware=True`` (PSAS
+    "Auto On"): ready times account for transition delays (the SEMANTICS.md
+    variant table's right column).
+    """
+
+    transition_aware: bool = False
+
+    @property
+    def eager_ready(self) -> bool:
+        return not self.transition_aware
+
+    def flags(self) -> dict:
+        return {**super().flags(), "sleep_enabled": True}
+
+    def _base_label(self) -> str:
+        return "PSAS(AutoOn)" if self.transition_aware else "PSUS"
+
+
+@dataclasses.dataclass(frozen=True)
+class IPM(TimeoutSleep):
+    """TimeoutSleep + intelligent power management (legacy PSAS+IPM):
+    switch-offs are capped by queued demand and sleeping nodes are woken
+    proactively when demand exceeds available capacity."""
+
+    transition_aware: bool = True
+
+    def flags(self) -> dict:
+        return {**super().flags(), "ipm_enabled": True}
+
+    def _base_label(self) -> str:
+        return "PSAS+IPM"
+
+
+@dataclasses.dataclass(frozen=True)
+class Forecast(PowerPolicy):
+    """EWMA arrival-pressure forecaster (rule 10, §Forecast) as a
+    standalone stack: proactive wake-ups on otherwise always-on nodes.
+    Compose it onto a reactive stack with ``"<PSM>+Forecast"`` labels
+    (e.g. ``"EASY PSUS+Forecast"`` = ``TimeoutSleep(forecast=True)``),
+    exactly like ``"+DVFS"``.
+
+    ``horizon``/``alpha`` are *defaults* for the traced EngineConst
+    operands: ``EngineConfig.forecast_horizon``/``forecast_alpha`` win when
+    set, and horizon sweeps override per scenario (the numbers ride the
+    traced axis; only the ``forecast`` enable flag is policy structure,
+    mirroring how ``TimeoutSleep`` declares rule 6 while ``timeout``
+    carries the number).
+    """
+
+    forecast: bool = True
+    horizon: Optional[int] = None
+    alpha: Optional[float] = None
+
+    def psm_label(self) -> str:
+        return "DVFS+Forecast" if self.dvfs else "Forecast"
+
+
+@dataclasses.dataclass(frozen=True)
+class RLController(PowerPolicy):
+    """Agent-controlled power commands (legacy PSM ``RL``).
+
+    ``grouped=False``: commands are global counts (sum over the ``[G]``
+    command vectors) — the checkpoint-compatible default. ``grouped=True``:
+    commands target node groups individually (see ``apply_rl_commands``).
+
+    ``controller``: optional in-graph policy ``f(s, const) -> (on[G], off[G])``
+    — or ``(on[G], off[G], mode[G])`` when ``dvfs=True`` (mode -1 = no
+    change) — evaluated inside the engine's power step; this is how a
+    checkpointed network drives ``run_sim`` end-to-end as one compiled
+    program (``launch/sim.py``). When None, pending commands set externally
+    (the RL env path) are applied. The controller is the one piece of policy
+    structure that stays *static*: a network cannot be a traced flag.
+
+    ``dvfs=True`` ("RL:dvfs"): rule 9's per-group modes come from the
+    agent's mode commands instead of the queue-pressure ladder.
+    """
+
+    grouped: bool = False
+    controller: Optional[Callable] = None
+
+    def flags(self) -> dict:
+        return {
+            **super().flags(),
+            "rl_enabled": True,
+            "rl_grouped": self.grouped,
+            "dvfs_rl": self.dvfs,
+        }
+
+    def psm_label(self) -> str:
+        base = "RL:groups" if self.grouped else "RL"
+        if self.dvfs:
+            base = "RL:dvfs" if not self.grouped else f"{base}+DVFS"
+        return f"{base}+Forecast" if self.forecast else base
+
+
+# ---------------------------------------------------------------------------
+# deprecation shim: PSMVariant <-> PowerPolicy
+# ---------------------------------------------------------------------------
+
+_PSM_TO_POLICY = {
+    PSMVariant.NONE: AlwaysOn(),
+    PSMVariant.PSUS: TimeoutSleep(),
+    PSMVariant.PSAS: TimeoutSleep(transition_aware=True),
+    PSMVariant.PSAS_IPM: IPM(),
+    PSMVariant.RL: RLController(),
+}
+
+
+def policy_from_psm(psm: PSMVariant) -> PowerPolicy:
+    """Legacy ``EngineConfig(psm=...)`` -> the equivalent policy stack."""
+    return _PSM_TO_POLICY[PSMVariant(psm)]
+
+
+def psm_of(policy: PowerPolicy) -> Optional[PSMVariant]:
+    """Best-effort reverse map (None for policies with no legacy twin)."""
+    if getattr(policy, "dvfs", False) or getattr(policy, "forecast", False):
+        return None  # runtime DVFS / forecast postdate the PSMVariant enum
+    if isinstance(policy, RLController):
+        return PSMVariant.RL
+    if isinstance(policy, IPM):
+        return PSMVariant.PSAS_IPM
+    if isinstance(policy, TimeoutSleep):
+        return (
+            PSMVariant.PSAS if policy.transition_aware else PSMVariant.PSUS
+        )
+    if isinstance(policy, AlwaysOn):
+        return PSMVariant.NONE
+    return None
+
+
+# ---------------------------------------------------------------------------
+# scheduler-label registry (single source of truth for launch/benchmarks)
+# ---------------------------------------------------------------------------
+
+_BASE_TOKENS = {"FCFS": BasePolicy.FCFS, "EASY": BasePolicy.EASY}
+_PSM_TOKENS = {
+    "PSUS": TimeoutSleep(),
+    "PSAS": TimeoutSleep(transition_aware=True),
+    "PSAS(AUTOON)": TimeoutSleep(transition_aware=True),  # alias
+    "PSAS+IPM": IPM(),
+    "ALWAYSON": AlwaysOn(),
+    "DVFS": DVFS(),
+    "FORECAST": Forecast(),
+    "RL": RLController(),
+    "RL:GROUPS": RLController(grouped=True),
+    "RL:DVFS": RLController(dvfs=True),
+}
+_CANONICAL_PSM = ("PSUS", "PSAS", "PSAS+IPM", "AlwaysOn")
+_CANONICAL_RL = ("RL", "RL:groups")
+_CANONICAL_DVFS = ("DVFS",)
+_CANONICAL_FORECAST = ("Forecast", "PSUS+Forecast")
+
+
+def _resolve_psm_token(token: str) -> Optional[PowerPolicy]:
+    psm = _PSM_TOKENS.get(token)
+    if psm is not None:
+        return psm
+    # generic rule composition: "<PSM>+DVFS" / "<PSM>+Forecast" turn rules
+    # 9 / 10 on over any registered stack, recursively so the suffixes
+    # stack in either order ("PSUS+DVFS+FORECAST", "PSAS+IPM+FORECAST+DVFS")
+    for suffix, field in (("+DVFS", "dvfs"), ("+FORECAST", "forecast")):
+        if token.endswith(suffix):
+            base = _resolve_psm_token(token[: -len(suffix)])
+            if base is not None:
+                return dataclasses.replace(base, **{field: True})
+    return None
+
+
+def from_label(label: str) -> Tuple[BasePolicy, PowerPolicy]:
+    """Parse ``"<FCFS|EASY> <PSM>"`` into a (base, policy) pair.
+
+    PSM tokens: PSUS | PSAS | PSAS(AutoOn) | PSAS+IPM | AlwaysOn | DVFS |
+    Forecast | RL | RL:groups | RL:dvfs, plus ``<PSM>+DVFS`` /
+    ``<PSM>+Forecast`` suffixes (stackable, either order) for any of them
+    (case-insensitive).
+    """
+    parts = label.split()
+    if len(parts) == 2 and parts[0].upper() in _BASE_TOKENS:
+        psm = _resolve_psm_token(parts[1].upper())
+        if psm is not None:
+            return _BASE_TOKENS[parts[0].upper()], psm
+    known = scheduler_labels(
+        include_rl=True, include_dvfs=True, include_forecast=True
+    )
+    raise KeyError(
+        f"unknown scheduler label {label!r}{did_you_mean(label, known)}; "
+        f"expected one of {', '.join(known)} "
+        "(alias: 'PSAS(AutoOn)' for PSAS; '<PSM>+DVFS' / '<PSM>+Forecast' "
+        "compose rules 9 / 10 onto any stack)"
+    )
+
+
+def scheduler_labels(
+    include_rl: bool = False,
+    include_dvfs: bool = False,
+    include_forecast: bool = False,
+) -> Tuple[str, ...]:
+    """Canonical labels, in the order the paper's figures use."""
+    psms = (
+        _CANONICAL_PSM
+        + (_CANONICAL_DVFS if include_dvfs else ())
+        + (_CANONICAL_FORECAST if include_forecast else ())
+        + (_CANONICAL_RL if include_rl else ())
+        + (("RL:dvfs",) if include_rl and include_dvfs else ())
+    )
+    return tuple(
+        f"{base} {psm}" for psm in psms for base in ("FCFS", "EASY")
+    )
+
+
+def label_of(base: BasePolicy, policy: PowerPolicy) -> str:
+    b = "FCFS" if base == BasePolicy.FCFS else "EASY"
+    p = policy.psm_label().replace("PSAS(AutoOn)", "PSAS")
+    return f"{b} {p}"

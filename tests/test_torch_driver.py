@@ -1,0 +1,134 @@
+"""The PyTorch port's single-run driver against the reference's: the golden
+heterogeneous config of ``tests/test_sim_driver.py`` gives the same
+``metrics.json`` keys and values and the same ``jobs.csv``; a rerun is
+byte-identical; the gantt path writes the same ``gantt.csv``; and the
+configurations the port does not run yet fail loudly.
+"""
+import json
+import os
+
+import pytest
+
+from repro.launch.sim import run as run_ref
+from repro_torch.launch import sim as tsim
+
+HETERO_PLATFORM_JSON = {
+    "node_groups": [
+        {
+            "name": "fast",
+            "count": 6,
+            "compute_speed": 2.0,
+            "states": {
+                "sleep": {"power": 12.0},
+                "idle": {"power": 250.0},
+                "active": {"power": 300.0},
+                "switching_on": {"power": 300.0, "transition_time": 600},
+                "switching_off": {"power": 12.0, "transition_time": 900},
+            },
+        },
+        {
+            "name": "eco",
+            "count": 10,
+            "compute_speed": 0.5,
+            "states": {
+                "sleep": {"power": 4.0},
+                "idle": {"power": 80.0},
+                "active": {"power": 100.0},
+                "switching_on": {"power": 100.0, "transition_time": 120},
+                "switching_off": {"power": 4.0, "transition_time": 180},
+            },
+        },
+    ]
+}
+
+
+def _config(tmp_path, **kw):
+    plat = tmp_path / "platform.json"
+    plat.write_text(json.dumps(HETERO_PLATFORM_JSON))
+    return {
+        "workload": "preset:fig3_small",
+        "platform": str(plat),
+        "scheduler": "EASY PSAS",
+        "timeout": 300,
+        "terminate_overrun": True,
+        **kw,
+    }
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_golden_run_matches_reference_and_reruns_byte_identical(tmp_path):
+    cfg = _config(tmp_path, gantt=False)
+    ref = run_ref({**cfg, "out": str(tmp_path / "ref")})
+    port = tsim.run({**cfg, "out": str(tmp_path / "port")}, device="cpu")
+    assert set(port) == set(ref)
+    for k, v in ref.items():
+        if isinstance(v, float):
+            assert port[k] == pytest.approx(v, rel=1e-5), k
+        else:
+            assert port[k] == v, k
+    assert _read(tmp_path / "port" / "jobs.csv") == _read(
+        tmp_path / "ref" / "jobs.csv"
+    )
+    with open(tmp_path / "port" / "metrics.json") as f:
+        assert json.load(f) == port
+
+    again = tsim.run({**cfg, "out": str(tmp_path / "again")}, device="cpu")
+    assert again == port
+    assert _read(tmp_path / "again" / "metrics.json") == _read(
+        tmp_path / "port" / "metrics.json"
+    )
+
+
+def test_gantt_run_writes_the_reference_outputs(tmp_path):
+    cfg = _config(
+        tmp_path, scheduler="FCFS PSAS+IPM",
+        workload={"preset": "fig3_small", "n_jobs": 60},
+    )
+    run_ref({**cfg, "out": str(tmp_path / "ref")})
+    tsim.run({**cfg, "out": str(tmp_path / "port")}, device="cpu")
+    for name in ("jobs.csv", "gantt.csv"):
+        assert _read(tmp_path / "port" / name) == _read(
+            tmp_path / "ref" / name
+        ), name
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(
+        os.listdir(tmp_path / "ref")
+    )
+
+
+def test_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):
+    out = tmp_path / "cli"
+    result = tsim.main([
+        "--workload", "preset:fig3_small", "--platform", "16",
+        "--scheduler", "FCFS PSUS", "--timeout", "900",
+        "--out", str(out), "--device", "cpu",
+    ])
+    assert json.loads(capsys.readouterr().out) == result
+    for name in ("metrics.json", "jobs.csv", "gantt.csv"):
+        assert (out / name).exists(), name
+
+
+@pytest.mark.parametrize(
+    "config",
+    [
+        {"scheduler": "EASY RL"},
+        {"rl": {"checkpoint": "x"}},
+        {"grouped_tables": True},
+        {"workload": "swf:trace.swf"},
+        {"workload": "profiles"},
+    ],
+)
+def test_unported_configs_fail_loudly(tmp_path, config):
+    cfg = {"workload": "preset:fig3_small", "out": str(tmp_path / "o"), **config}
+    with pytest.raises(NotImplementedError):
+        tsim.run(cfg, device="cpu")
+
+
+def test_unknown_keys_and_experiments_are_refused(tmp_path):
+    with pytest.raises(ValueError, match="did you mean 'timeout'"):
+        tsim.run({"workload": "preset:fig3_small", "timout": 3}, device="cpu")
+    with pytest.raises(NotImplementedError, match="sweep"):
+        tsim.main(["--experiment", str(tmp_path / "exp.json")])
