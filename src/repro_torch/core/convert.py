@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.engine import EngineConst, SimState
 from repro_torch.core.policy import PolicyParams
+from repro_torch.core.tables import GroupTables
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -49,12 +50,10 @@ def const_from_arrays(
     """An :class:`EngineConst` on ``device`` from numpy arrays keyed by
     field. ``policy`` is the ten policy flags (a ``PolicyParams`` of either
     engine, or any sequence of bools, in the reference's field order);
-    ``tables`` must be absent or None (grouped tables are not ported yet)."""
+    ``tables`` is absent or None (the dense path), or the grouped tables as
+    arrays keyed by :class:`GroupTables` field (a mapping, or the
+    reference's ``GroupTables``)."""
     dev = resolve_device(device)
-    if d.get("tables") is not None:
-        raise NotImplementedError(
-            "grouped tables are not ported yet (ROADMAP Queue 1 item 6)"
-        )
     arrays = [k for k in EngineConst._fields if k not in ("policy", "tables")]
     _require(d, arrays + ["policy"])
     flags = [bool(np.asarray(v)) for v in d["policy"]]
@@ -63,9 +62,17 @@ def const_from_arrays(
             f"policy: expected {len(PolicyParams._fields)} flags, got "
             f"{len(flags)}"
         )
+    tables = d.get("tables")
+    if tables is not None:
+        if not isinstance(tables, Mapping):
+            tables = tables._asdict()
+        _require(tables, GroupTables._fields)
+        tables = GroupTables(
+            **{k: _tensor(k, tables[k], dev) for k in GroupTables._fields}
+        )
     return EngineConst(
         policy=PolicyParams(*flags),
-        tables=None,
+        tables=tables,
         **{k: _tensor(k, d[k], dev) for k in arrays},
     )
 

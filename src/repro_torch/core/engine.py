@@ -9,12 +9,15 @@ reference's names, so each one's JAX counterpart is easy to find. Times are
 int32 tensors (``INF_TIME = 2**30`` means never); energy is a
 Kahan-compensated float32 ``[G, 5]`` group x state ledger.
 
-What runs here: one configuration at a time, on the dense per-node tables,
-with the policy flags as concrete Python bools (the reference's static
-specialization), the FCFS/EASY scheduler under ``node_order`` "id", "cheap"
-or "idle-watts", and power rules 6-7 (PSUS, PSAS, PSAS+IPM, AlwaysOn).
-Everything else raises ``NotImplementedError`` naming the ROADMAP item that
-ports it (:func:`check_supported`).
+What runs here: one configuration at a time, with the policy flags as
+concrete Python bools (the reference's static specialization), the FCFS/EASY
+scheduler under every ``node_order`` ("id", "cheap", "idle-watts", "pack")
+and both ``allocation`` scopes ("any", "partition"), with or without
+``merge_bursts``, on the dense per-node tables or the grouped tables
+(``grouped_tables``, :mod:`repro_torch.core.tables`), and power rules 6-7
+(PSUS, PSAS, PSAS+IPM, AlwaysOn). Everything else raises
+``NotImplementedError`` naming the ROADMAP item that ports it
+(:func:`check_supported`).
 
 Loop structure and host syncs. The reference runs the whole simulation
 inside one ``lax.while_loop`` on the device. Eager PyTorch needs a host read
@@ -35,14 +38,23 @@ batch (counted in :data:`HOST_SYNCS`):
   ``while_loop`` over the window and its ``lax.cond`` around the EASY
   shadow computation, attempt for attempt.
 
+Two options add reads. Under ``allocation="partition"`` feasibility is per
+group and the winning group depends on the ready-time order on the device,
+so each head-phase attempt that the node count does not rule out reads its
+outcome (one read per such attempt). Under ``merge_bursts`` each repeat of
+the pass that attempted an allocation reads the repeat condition together
+with the next pass's window (one read per repeat).
+
 No other operation in the loop reads the device: indices are Python ints or
 tensors, never 0-d tensors used as Python numbers, no boolean-mask indexing
 is used, and device scalars are made by fill kernels, never copied from the
 host. Capturing chunks of batches in a CUDA graph is later work.
 
-Kernel routing (:func:`event_horizon`): on a single-group platform (with DVFS
-off, as always here) the per-state power histogram and the next-transition
-min run through ``kernels/event_fuse.py::event_fuse_ledger`` — the CUDA
+Kernel routing (:func:`event_horizon`): on the grouped path the
+per-(group, state) occupancy histogram and the next-transition min run
+through ``kernels/event_fuse.py::event_fuse_occ``; on the dense path of a
+single-group platform (with DVFS off, as always here) the per-state power
+histogram and the min run through ``event_fuse_ledger`` — each the CUDA
 kernel on a CUDA device. ``EngineConfig.fused_kernel=None`` means "the kernel
 on CUDA, the plain per-node route on the CPU"; ``False`` selects the
 per-node route anywhere, ``True`` the kernel's wrapper anywhere (its plain
@@ -67,8 +79,10 @@ from repro_torch.core.policy import (
     alloc_min_speed,
     effective_node_speed,
     ipm_wake,
+    pack_key,
     timeout_switch_off,
 )
+from repro_torch.core.tables import GroupTables, group_tables
 from repro_torch.core.types import (
     ACTIVE,
     ALLOCATED,
@@ -102,7 +116,7 @@ class EngineConst(NamedTuple):
 
     Node-indexed members are per-node tensors; a homogeneous platform's are
     broadcast views of one row. ``policy`` holds concrete Python bools.
-    ``tables`` (the grouped lowering) is always None in this slice.
+    ``tables`` is the grouped lowering under ``grouped_tables``, else None.
     """
 
     power: torch.Tensor  # f32[N, 5] per-node per-state watts
@@ -119,7 +133,7 @@ class EngineConst(NamedTuple):
     dvfs_n_modes: torch.Tensor  # i32[G] live modes per group
     forecast_horizon: torch.Tensor  # i32 look-ahead seconds
     forecast_alpha: torch.Tensor  # f32 EWMA smoothing weight
-    tables: Optional[object] = None
+    tables: Optional[GroupTables] = None
 
 
 class SimState(NamedTuple):
@@ -166,7 +180,7 @@ class SimState(NamedTuple):
     mode_time: torch.Tensor  # f32[G, M]
     mode_energy: torch.Tensor  # f32[G, M]
     truncated: torch.Tensor  # bool: the batch cap stopped the run
-    occ: torch.Tensor  # i32[G, 5] (grouped-path cache; dense path leaves it)
+    occ: torch.Tensor  # i32[G, 5] occupancy (set by the grouped path only)
     fc_gap: torch.Tensor  # f32
     fc_res: torch.Tensor  # f32
     fc_last_arr: torch.Tensor  # i32
@@ -189,14 +203,6 @@ def check_supported(config: EngineConfig) -> None:
     """Raise NotImplementedError for a configuration this slice does not run,
     naming the ROADMAP item (Queue 1) that ports it."""
     later = []
-    if config.grouped_tables:
-        later.append("grouped_tables (item 6)")
-    if config.merge_bursts:
-        later.append("merge_bursts (item 6)")
-    if config.node_order == "pack":
-        later.append('node_order="pack" (item 6)')
-    if config.allocation == "partition":
-        later.append('allocation="partition" (item 6)')
     if config.devices is not None:
         later.append("devices / sharded sweeps (item 8)")
     if not config.fused_events:
@@ -240,6 +246,9 @@ def make_const(
         speed = _t(platform.node_speed(), F32, dev)
         if config.node_order == "idle-watts":
             order_key = power[:, IDLE]
+        elif config.node_order == "pack":
+            # the pack key is per-pass state (policy.pack_key); unused here
+            order_key = torch.zeros(N, dtype=F32, device=dev)
         else:
             order_key = _t(platform.node_order_key(), F32, dev)
         group_id = _t(platform.node_group_id(), I32, dev)
@@ -251,6 +260,8 @@ def make_const(
         speed = _t(platform.speed(), F32, dev).expand(N)
         if config.node_order == "idle-watts":
             key = np.float32(platform.power_idle)
+        elif config.node_order == "pack":
+            key = np.float32(0.0)  # per-pass state, as above
         else:
             # same f32 expression as PlatformSpec.node_order_key()
             key = np.float32(platform.power_active) / np.float32(
@@ -280,7 +291,10 @@ def make_const(
         dvfs_n_modes=_t(dvfs_n, I32, dev),
         forecast_horizon=_t(int(horizon), I32, dev),
         forecast_alpha=_t(float(alpha), F32, dev),
-        tables=None,
+        tables=(
+            group_tables(platform, config, device=dev)
+            if config.grouped_tables else None
+        ),
     )
 
 
@@ -391,6 +405,24 @@ def _ready_times(s: SimState, const: EngineConst) -> torch.Tensor:
     return torch.where(st == IDLE, s.t, ready)
 
 
+def _occupancy(s: SimState, const: EngineConst) -> torch.Tensor:
+    """i32[G, 5] per-(group, state) node histogram — the grouped path's one
+    O(N) reduction (the plain route of ``event_fuse_occ``). An int32
+    ``index_add_`` is exact in any order, so it is deterministic on CUDA."""
+    G = s.energy.shape[0]
+    cell = (const.group_id * N_STATES + s.node_state).long()
+    return torch.zeros(G * N_STATES, dtype=I32, device=cell.device).index_add_(
+        0, cell, torch.ones_like(s.node_state)
+    ).view(G, N_STATES)
+
+
+def _group_draw(s: SimState, occ: torch.Tensor, const: EngineConst) -> torch.Tensor:
+    """f32[G, 5] instantaneous draw from the occupancy histogram (DVFS off:
+    the reference's ACTIVE-column override by the DVFS mode watts is ported
+    with rule 9)."""
+    return occ.to(F32) * const.tables.power
+
+
 def _kahan_add(energy, comp, delta):
     y = delta - comp
     t = energy + y
@@ -457,39 +489,122 @@ def _queue_window(s: SimState, W: int) -> torch.Tensor:
     return window[:W]
 
 
-def _try_allocate(s, const, cfg, j: int, ready, shadow=None, extra=None):
+class PassInputs(NamedTuple):
+    """Allocation inputs computed once per scheduler pass (the reference's
+    ``pass_inputs``); they are loop-invariant for every node an attempt reads
+    (an unreserved node): an allocation only reserves nodes, or wakes SLEEP
+    -> SWITCHING_ON with ``until = t + t_on``, whose transition-aware ready
+    time ``t + t_on`` is the one it had asleep."""
+
+    ready: Optional[torch.Tensor]  # i32[N] ready times; None on the grouped
+    # path under an eager policy (every eligible node is ready at t)
+    order: Optional[torch.Tensor]  # i64[N] allocation order (grouped only)
+    okey: Optional[torch.Tensor]  # f32[N] pack key (node_order="pack" only)
+
+
+def _pass_inputs(s: SimState, const: EngineConst, cfg: EngineConfig) -> PassInputs:
+    """Hoist the allocation inputs of one scheduler pass. On the grouped
+    path the node order is ``tables.perm`` (or the stable order of the pack
+    key), stably re-sorted by ready time unless the policy is eager — one
+    sort per pass, or none, instead of two per attempt."""
+    okey = pack_key(s, const) if cfg.node_order == "pack" else None
+    if not cfg.grouped_tables:
+        return PassInputs(_ready_times(s, const), None, okey)
+    if okey is not None:
+        base = torch.argsort(okey, stable=True)
+    else:
+        base = const.tables.perm.long()
+    if const.policy.eager_ready:
+        return PassInputs(None, base, okey)
+    ready = _ready_times(s, const)
+    return PassInputs(ready, base[torch.argsort(ready[base], stable=True)], okey)
+
+
+def _partition_pick(es, gid, res_j, n_groups: int):
+    """Per-group masked-cumsum pick (``allocation="partition"``): ``es`` and
+    ``gid`` are node eligibility and group id in allocation order. A group
+    is feasible iff it has ``res_j`` eligible nodes; the winner is the group
+    whose ``res_j``-th eligible node comes earliest in the order (positions
+    are distinct nodes, so there are no ties). Returns the in-order selection
+    mask and the any-group-fits predicate. Oracle twin:
+    ``PyDES._partition_select``."""
+    N = es.shape[0]
+    groups = torch.arange(n_groups, dtype=gid.dtype, device=gid.device)
+    onehot = (gid[None, :] == groups[:, None]) & es[None, :]
+    csum = torch.cumsum(onehot, dim=1, dtype=I32)  # [G, N] running counts
+    feasible_g = csum[:, -1] >= res_j
+    # argmax/argmin take no bools and return the first extremum, as in JAX
+    pos = torch.argmax((csum >= res_j).to(I32), dim=1)
+    best = torch.argmin(torch.where(feasible_g, pos, N)).view(1)
+    feasible = feasible_g.any()
+    sel = (
+        onehot.index_select(0, best)[0]
+        & (csum.index_select(0, best)[0] <= res_j)
+        & feasible
+    )
+    return sel, feasible
+
+
+def _try_allocate(s, const, cfg, j: int, inputs: PassInputs,
+                  shadow=None, extra=None):
     """Attempt to allocate job ``j`` (a Python int). Returns (ok, new_state);
     a failed attempt returns a state equal to ``s``.
 
     ``shadow``/``extra`` (device scalars) impose the EASY backfill test;
-    None means head phase (no backfill constraint). ``ready`` is the
-    pass-hoisted :func:`_ready_times` vector (see :func:`_scheduler_pass`).
+    None means head phase (no backfill constraint). ``inputs`` are the
+    pass-hoisted :class:`PassInputs`.
 
-    Node order (SEMANTICS.md §Heterogeneity): nodes are taken by ``(ready,
+    Dense path (SEMANTICS.md §Heterogeneity): nodes are taken by ``(ready,
     order_key, nid)`` with stable argsorts; ``node_order == "id"`` drops the
-    ``order_key`` term.
+    ``order_key`` term, and ``"pack"`` uses the pass's pack key. Grouped
+    path: the first ``res_j`` eligible nodes of the hoisted order, by a
+    masked cumsum — the same nodes, because a stable sort keeps the relative
+    order of the eligible nodes, whose keys are frozen within the pass.
+    Under ``allocation="partition"`` the nodes come from one group
+    (:func:`_partition_pick`), and the attempt fails when no group fits.
     """
     eligible = s.node_job < 0
     res_j = s.job_res[j]
     N = eligible.shape[0]
-    key = torch.where(eligible, ready, INF)
-    if cfg.node_order != "id":
-        # lexicographic (ready, order_key, nid): stable argsort by the
-        # secondary key first, then by ready over that permutation
-        perm1 = torch.argsort(
-            torch.where(eligible, const.order_key, float("inf")), stable=True
-        )
-        aorder = perm1[torch.argsort(key[perm1], stable=True)]
+    G = s.energy.shape[0]
+    partition = cfg.allocation == "partition"
+    if inputs.order is not None:
+        order = inputs.order
+        es = eligible[order]
+        if partition:
+            sel_sorted, ok = _partition_pick(es, const.group_id[order], res_j, G)
+        else:
+            sel_sorted = es & (torch.cumsum(es, 0, dtype=I32) <= res_j)
+            ok = eligible.sum(dtype=I32) >= res_j
+        if inputs.ready is None:  # eager policy: chosen nodes are ready now
+            ready_max = s.t
+        else:
+            ready_max = torch.where(sel_sorted, inputs.ready[order], -1).amax()
     else:
-        aorder = torch.argsort(key, stable=True)  # ties -> lowest node id
-    sorted_sel = torch.arange(N, device=key.device, dtype=I32) < res_j
-    ok = eligible.sum(dtype=I32) >= res_j  # feasible
-    ready_max = torch.where(sorted_sel, key[aorder], -1).amax()
+        key = torch.where(eligible, inputs.ready, INF)
+        if cfg.node_order != "id":
+            # lexicographic (ready, order_key, nid): stable argsort by the
+            # secondary key first, then by ready over that permutation
+            k2 = const.order_key if inputs.okey is None else inputs.okey
+            perm1 = torch.argsort(
+                torch.where(eligible, k2, float("inf")), stable=True
+            )
+            order = perm1[torch.argsort(key[perm1], stable=True)]
+        else:
+            order = torch.argsort(key, stable=True)  # ties -> lowest node id
+        if partition:
+            sel_sorted, ok = _partition_pick(
+                eligible[order], const.group_id[order], res_j, G
+            )
+        else:
+            sel_sorted = torch.arange(N, device=key.device, dtype=I32) < res_j
+            ok = eligible.sum(dtype=I32) >= res_j  # feasible
+        ready_max = torch.where(sel_sorted, key[order], -1).amax()
     if shadow is not None:
         pred_completion = ready_max + s.job_reqtime[j]
         ok = ok & ((pred_completion <= shadow) | (res_j <= extra))
-    chosen = torch.empty_like(eligible)
-    chosen[aorder] = sorted_sel
+    # order is a permutation: the scatter writes every node once
+    chosen = torch.empty_like(eligible).scatter_(0, order, sel_sorted)
     chosen = chosen & eligible & ok
     # reserve + auto-wake chosen sleeping nodes
     wake = chosen & (s.node_state == SLEEP)
@@ -532,12 +647,52 @@ def _shadow(s: SimState, head: int, ready):
     return S, E
 
 
+def _window_values(s: SimState, W: int):
+    """The device values a scheduler pass reads: the queue window (live
+    slots packed first), the node counts its jobs ask for, and the number of
+    unreserved nodes."""
+    window = _queue_window(s, W)
+    return window, s.job_res[_clamp_job(window)], (s.node_job < 0).sum(dtype=I32)
+
+
+def _run_pass(s: SimState, const: EngineConst, cfg: EngineConfig, host):
+    """One scheduler pass over the window read into ``host``. Returns
+    (state, whether any allocation was attempted)."""
+    W = cfg.window
+    jobs = [(j, r) for j, r in zip(host[:W], host[W:2 * W]) if j >= 0]
+    n_free = host[2 * W]
+    if all(r > n_free for _, r in jobs):  # nothing can be allocated
+        return s, False
+    inputs = _pass_inputs(s, const, cfg)
+    partition = cfg.allocation == "partition"
+    for k, (j, res_j) in enumerate(jobs):
+        if res_j <= n_free:
+            # head phase: under "any" a job that fits the unreserved nodes
+            # is allocated; under "partition" the outcome is read
+            ok, s = _try_allocate(s, const, cfg, j, inputs)
+            if not partition or _read(ok)[0]:
+                n_free -= res_j
+                continue
+        if not const.policy.backfill:  # FCFS: stop at the first blocked head
+            return s, True
+        ready = inputs.ready if inputs.ready is not None else _ready_times(s, const)
+        shadow, extra = _shadow(s, j, ready)
+        for b, res_b in jobs[k + 1:]:
+            if res_b > n_free:  # infeasible whatever the backfill test says
+                continue
+            ok, s = _try_allocate(s, const, cfg, b, inputs, shadow, extra)
+            # backfill consumed part of the extra pool
+            extra = torch.where(ok, extra - res_b, extra)
+        return s, True
+    return s, True
+
+
 def _scheduler_pass(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimState:
     """Rule 4: FCFS (stop at the first blocked head) or EASY backfilling.
 
-    One host read per pass fetches the queue window (live slots packed
-    first), the node counts the window's jobs ask for, and the number of
-    unreserved nodes. That decides the head phase on the host: a head-phase
+    One host read per pass fetches the queue window, the node counts the
+    window's jobs ask for, and the number of unreserved nodes. That decides
+    the head phase on the host: under ``allocation="any"`` a head-phase
     attempt succeeds exactly when the job asks for no more than the
     unreserved nodes (there is no backfill test yet), and then reserves
     exactly that many. So heads that fit are allocated, and at the first
@@ -548,40 +703,28 @@ def _scheduler_pass(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimSt
     cannot be feasible (the count only shrinks within the pass), so it is
     not attempted. This is the reference's early-exit scan, attempt for
     attempt: a skipped attempt is one whose outcome is known to be a
-    failure, which changes nothing.
+    failure, which changes nothing. Under ``allocation="partition"`` the
+    node count is a necessary condition only, so each head attempt it
+    allows reads its outcome.
 
-    The ready times are computed once per pass: they are loop-invariant for
-    every node whose ready time an attempt reads (an unreserved node). An
-    allocation only reserves nodes, or wakes SLEEP -> SWITCHING_ON with
-    ``until = t + t_on``, whose transition-aware ready time ``t + t_on`` is
-    the one it had asleep; nothing else changes node states within a pass.
+    Burst merging (``cfg.merge_bursts``): the pass repeats at the same
+    timestamp while it allocates and arrived jobs are still WAITING, so a
+    burst wider than the window drains in one batch. The repeat condition is
+    read together with the next pass's window.
     """
     W = cfg.window
-    window = _queue_window(s, W)
-    host = _read(
-        window,
-        s.job_res[_clamp_job(window)],
-        (s.node_job < 0).sum(dtype=I32),
-    )
-    jobs = [(j, r) for j, r in zip(host[:W], host[W:2 * W]) if j >= 0]
-    n_free = host[2 * W]
-    ready = _ready_times(s, const)
-    for k, (j, res_j) in enumerate(jobs):
-        if res_j <= n_free:  # head phase: feasible is the whole test
-            _, s = _try_allocate(s, const, cfg, j, ready)
-            n_free -= res_j
-            continue
-        if not const.policy.backfill:  # FCFS: stop at the first blocked head
+    host = _read(*_window_values(s, W))
+    while True:
+        before = s.n_allocs
+        s, attempted = _run_pass(s, const, cfg, host)
+        if not (cfg.merge_bursts and attempted):
             return s
-        shadow, extra = _shadow(s, j, ready)
-        for b, res_b in jobs[k + 1:]:
-            if res_b > n_free:  # infeasible whatever the backfill test says
-                continue
-            ok, s = _try_allocate(s, const, cfg, b, ready, shadow, extra)
-            # backfill consumed part of the extra pool
-            extra = torch.where(ok, extra - res_b, extra)
-        return s
-    return s
+        more = (s.n_allocs > before) & (
+            (s.job_status == WAITING) & (s.job_subtime <= s.t)
+        ).any()
+        more_h, *host = _read(more, *_window_values(s, W))
+        if not more_h:
+            return s
 
 
 def _start_jobs(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimState:
@@ -702,10 +845,12 @@ def _node_power_draw(s: SimState, const: EngineConst) -> torch.Tensor:
 class EventAux(NamedTuple):
     """Byproducts of the fused event pass, consumed by :func:`accrue_energy`
     and the quiet-batch dispatch. Exactly one of ``node_power`` (per-node
-    route) and ``draw`` (kernel route, per-state watts) is set."""
+    route) and ``draw`` (kernel or grouped route, per-state watts) is set;
+    ``occ`` accompanies ``draw`` on the grouped path only."""
 
     node_power: Optional[torch.Tensor]  # f32[N] per-node draw
     draw: Optional[torch.Tensor]  # f32[G, 5] per-state draw
+    occ: Optional[torch.Tensor]  # i32[G, 5] occupancy (grouped path only)
     quiet: torch.Tensor  # bool: next batch is transitions/expiries only
 
 
@@ -757,15 +902,34 @@ def event_horizon(
     next-event time AND the power draw for the coming accrual interval, plus
     the quiet-batch classification.
 
-    On a single-group platform the histogram and the next-transition min go
-    through ``event_fuse_ledger`` (the CUDA kernel on a CUDA device; see the
-    module docstring for ``fused_kernel``), fed ``const.power[0]`` — the
+    On the grouped path the node arrays reduce to the [G, 5] occupancy
+    histogram and the next-transition min through ``event_fuse_occ`` (the
+    CUDA kernel on a CUDA device; see the module docstring for
+    ``fused_kernel``) or the plain :func:`_occupancy`; the counts are exact
+    either way, and the draw is their contraction with the group power
+    table. On the dense path of a single-group platform the histogram and
+    the min go through ``event_fuse_ledger``, fed ``const.power[0]`` — the
     per-state table of the one group. The i32 min is exact either way; the
-    kernel's per-state sums differ from the per-node route only in reduction
-    order, so the schedule is bit-exact and energy equal to rounding.
+    ledger kernel's per-state sums differ from the per-node route only in
+    reduction order, so the schedule is bit-exact and energy equal to
+    rounding.
     """
     G = s.energy.shape[0]
-    if G == 1 and _fused_kernel_on(cfg, s.t.device):
+    aux_occ = None
+    if cfg.grouped_tables:
+        if _fused_kernel_on(cfg, s.t.device):
+            occ8, tr_v = event_fuse.event_fuse_occ(
+                s.node_state[None], s.node_until[None], s.t.view(1),
+                const.group_id, G,
+            )
+            # the f32 counts are exact integers
+            aux_occ = occ8[0, :, :N_STATES].to(I32)
+            tr = tr_v[0]
+        else:
+            aux_occ = _occupancy(s, const)
+            tr = _next_transition(s)
+        aux_power, aux_draw = None, _group_draw(s, aux_occ, const)
+    elif G == 1 and _fused_kernel_on(cfg, s.t.device):
         draw8, tr_v = event_fuse.event_fuse_ledger(
             s.node_state[None], s.node_until[None], s.t.view(1),
             const.power[0],
@@ -785,7 +949,9 @@ def event_horizon(
         quiet = (arr > nt) & (fin > nt) & ~busy
     else:
         quiet = torch.zeros((), dtype=torch.bool, device=nt.device)
-    return nt, EventAux(node_power=aux_power, draw=aux_draw, quiet=quiet)
+    return nt, EventAux(
+        node_power=aux_power, draw=aux_draw, occ=aux_occ, quiet=quiet
+    )
 
 
 def _ledger(s: SimState, const: EngineConst, node_power: torch.Tensor) -> torch.Tensor:
@@ -806,9 +972,20 @@ def accrue_energy(
     const: EngineConst,
     aux: Optional[EventAux] = None,
 ) -> SimState:
-    """Accrue energy and the waiting integral over ``[s.t, t_next)``."""
+    """Accrue energy and the waiting integral over ``[s.t, t_next)``.
+
+    On the grouped path the draw is the contraction of the occupancy
+    histogram (from the event pass, or computed here by the gantt loop,
+    which runs without one) and the histogram is stored in ``SimState.occ``.
+    """
     dt = torch.clamp(t_next - s.t, min=0).to(F32)
-    if aux is not None and aux.draw is not None:
+    occ = s.occ
+    if aux is not None and aux.occ is not None:
+        occ, draw = aux.occ, aux.draw
+    elif const.tables is not None:
+        occ = _occupancy(s, const)
+        draw = _group_draw(s, occ, const)
+    elif aux is not None and aux.draw is not None:
         draw = aux.draw  # kernel route: already [G=1, 5]
     else:
         node_power = (
@@ -823,7 +1000,9 @@ def accrue_energy(
         | (s.job_status == ALLOCATED)
     ).sum(dtype=F32)
     w, wc = _kahan_add(s.wait_integral, s.wait_c, n_waiting * dt)
-    return s._replace(energy=e, energy_c=c, wait_integral=w, wait_c=wc)
+    return s._replace(
+        energy=e, energy_c=c, wait_integral=w, wait_c=wc, occ=occ
+    )
 
 
 def all_done(s: SimState) -> torch.Tensor:

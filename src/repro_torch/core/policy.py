@@ -7,12 +7,13 @@ the policy axis, and both engines read the same flags.
 
 The rule half is the PyTorch counterpart of the reference's rule functions for
 the slice of the policy axis this engine runs: rule 6 (idle-timeout switch-off,
-with the IPM demand cap) and rule 7 (IPM proactive wake), plus the DVFS-off
-branches of the node-speed helpers used at job start. The engine only runs a
-single configuration, so flags are always concrete Python bools
-(``PolicyParams.static()``) and every gate is a Python branch. Rules 8-10 (RL
-commands, DVFS, Forecast) belong to a later slice of the port; the engine
-refuses their labels (``core/engine.py::check_supported``).
+with the IPM demand cap) and rule 7 (IPM proactive wake), the ``"pack"``
+node-order key, plus the DVFS-off branches of the node-speed helpers used at
+job start. The engine only runs a single configuration, so flags are always
+concrete Python bools (``PolicyParams.static()``) and every gate is a Python
+branch. Rules 8-10 (RL commands, DVFS, Forecast) belong to a later slice of
+the port; the engine refuses their labels
+(``core/engine.py::check_supported``).
 """
 from __future__ import annotations
 
@@ -130,6 +131,30 @@ def ipm_wake(s, const):
         node_until=torch.where(sel, s.t + const.t_on, s.node_until),
         n_switch_on=s.n_switch_on + sel.sum(dtype=I32),
     )
+
+
+def pack_key(s, const) -> torch.Tensor:
+    """f32[N] queue-aware allocation key for ``node_order="pack"``.
+
+    Groups with the FEWEST idle unreserved nodes come first, so jobs pack
+    into nearly-full groups and lightly used groups drain to empty (and can
+    sleep whole under rule 6). Idle unreserved nodes sort before every other
+    eligible node (the others carry an ``N + 1`` band offset), so packing
+    never wakes a sleeper while idle capacity remains. Computed once per
+    scheduler pass and frozen across its attempts. The per-group counts are
+    summed in int32 (exact in any order, so the CUDA ``index_add_``'s atomics
+    are deterministic) and the key is exact in f32: integer counts plus one
+    band, at most 2N + 1 < 2**24.
+    """
+    G = s.energy.shape[0]
+    N = s.node_state.shape[0]
+    gid = const.group_id.long()
+    idle_unres = (s.node_job < 0) & (s.node_state == IDLE)
+    counts = torch.zeros(G, dtype=I32, device=gid.device).index_add_(
+        0, gid, idle_unres.to(I32)
+    )
+    band = torch.where(idle_unres, 0.0, float(N + 1))
+    return counts[gid].to(torch.float32) + band
 
 
 def effective_node_speed(const, mode, enabled: bool) -> torch.Tensor:

@@ -2,8 +2,8 @@
 ``experiments/spec.py`` that ``launch/sim.py`` needs.
 
 The declarative ``Experiment`` grid spec rides on the batched sweep, which a
-later slice of the port brings (ROADMAP Queue 1 items 8-9). SWF trace replay
-and the model-training ``profiles`` workload are not ported yet and raise.
+later slice of the port brings (ROADMAP Queue 1 items 8-9). The
+model-training ``profiles`` workload is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Mapping
 
 from repro_torch.workloads.generator import PRESETS, GeneratorConfig, generate_workload
 from repro_torch.workloads.platform import PlatformSpec, load_platform
+from repro_torch.workloads.traces import replay_workload
 from repro_torch.workloads.workload import Workload, load_workload
 
 
@@ -42,6 +43,20 @@ def check_workload_keys(spec: Mapping) -> None:
     check_unknown_keys(spec, known, "workload spec")
 
 
+_KNOWN_SWF_KEYS = {
+    "swf", "nb_nodes", "procs_per_node", "oversize", "max_jobs", "rebase",
+}
+
+
+def _no_replications(spec, replication: int) -> None:
+    if replication:
+        raise ValueError(
+            f"workload spec {spec!r} is a trace replay; replications "
+            "require a preset/generator spec (the seed is the "
+            "replicate axis)"
+        )
+
+
 def resolve_workload(spec, replication: int = 0) -> Workload:
     """Workload from a declarative spec.
 
@@ -49,17 +64,26 @@ def resolve_workload(spec, replication: int = 0) -> Workload:
     * ``{"preset": <name>, ...GeneratorConfig overrides}`` — preset with
       overrides (e.g. ``n_jobs``),
     * ``{...GeneratorConfig fields}`` — a full generator config,
+    * ``"swf:<path>"`` — SWF trace replay with the default adaptation
+      (``traces.replay_workload``: platform sized from the trace header,
+      submit times rebased to 0),
+    * ``{"swf": <path>, ...replay_workload kwargs}`` — replay with
+      explicit ``nb_nodes``/``procs_per_node``/``oversize``/``max_jobs``/
+      ``rebase``,
     * a path to a workload JSON file, or an in-memory :class:`Workload`.
 
     ``replication`` offsets the generator seed (replication r uses
-    ``seed + r``); file-backed and in-memory workloads reject r > 0.
+    ``seed + r``); file-backed, trace-replay and in-memory workloads reject
+    r > 0.
     """
-    if (isinstance(spec, str) and spec.startswith("swf:")) or (
-        isinstance(spec, Mapping) and "swf" in spec
-    ):
-        raise NotImplementedError(
-            "SWF trace replay is not ported yet (ROADMAP Queue 1 item 6)"
-        )
+    if isinstance(spec, str) and spec.startswith("swf:"):
+        _no_replications(spec, replication)
+        return replay_workload(spec.split(":", 1)[1])
+    if isinstance(spec, Mapping) and "swf" in spec:
+        _no_replications(spec, replication)
+        check_unknown_keys(spec, _KNOWN_SWF_KEYS, "swf workload spec")
+        kw = dict(spec)
+        return replay_workload(kw.pop("swf"), **kw)
     if spec == "profiles":
         raise NotImplementedError(
             "the 'profiles' workload is not ported yet (ROADMAP Queue 1 "

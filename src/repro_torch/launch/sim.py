@@ -13,10 +13,19 @@ Runs on the CUDA device unless ``--device cpu`` (or ``run(..., device=
 
 Config keys: the reference's (workload, platform, scheduler, timeout,
 terminate_overrun, node_order, allocation, gantt, out, grouped_tables,
-merge_bursts, forecast_horizon, forecast_alpha, rl). Configurations the
-port does not run yet — RL labels and the ``rl`` block, ``--experiment``
-grids, grouped tables, burst merging, partition allocation, DVFS and
-Forecast labels — raise ``NotImplementedError``.
+merge_bursts, forecast_horizon, forecast_alpha, rl), with its defaults.
+``workload`` also takes ``"swf:<path>"`` and ``{"swf": <path>, ...}`` trace
+replays. For example, the first 1000 jobs of a Curie-class trace on a
+3-group Curie platform written as a ``node_groups`` JSON::
+
+    {"workload": {"swf": "curie.swf", "nb_nodes": 11200,
+                  "oversize": "clamp", "max_jobs": 1000},
+     "platform": "curie_platform.json", "scheduler": "EASY PSUS",
+     "timeout": 1800, "grouped_tables": true, "gantt": false}
+
+Configurations the port does not run yet — RL labels and the ``rl`` block,
+``--experiment`` grids, DVFS and Forecast labels, the ``profiles``
+workload — raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The PyTorch port's single-run driver against the reference's: the golden
 heterogeneous config of ``tests/test_sim_driver.py`` gives the same
 ``metrics.json`` keys and values and the same ``jobs.csv``; a rerun is
-byte-identical; the gantt path writes the same ``gantt.csv``; and the
+byte-identical; the gantt path writes the same ``gantt.csv``; a grouped
+Curie-class SWF replay writes a byte-identical ``metrics.json``; and the
 configurations the port does not run yet fail loudly.
 """
 import json
@@ -9,8 +10,11 @@ import os
 
 import pytest
 
+from repro.launch.sim import main as main_ref
 from repro.launch.sim import run as run_ref
 from repro_torch.launch import sim as tsim
+from repro_torch.workloads.platform import curie_platform
+from repro_torch.workloads.traces import synthesize_curie_swf
 
 HETERO_PLATFORM_JSON = {
     "node_groups": [
@@ -111,13 +115,39 @@ def test_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):
         assert (out / name).exists(), name
 
 
+def test_grouped_swf_replay_metrics_are_byte_identical(tmp_path):
+    """The grouped Curie-class replay (3-group Curie platform, SWF trace,
+    grouped tables, burst merging) through both packages' command lines:
+    ``metrics.json`` byte for byte. The grouped ledger is elementwise f32
+    (no reduction whose order could differ), so the energies agree
+    exactly."""
+    swf = synthesize_curie_swf(str(tmp_path / "curie.swf"), n_jobs=300)
+    curie_platform(40).save(str(tmp_path / "curie.json"))
+    cfg = {
+        "workload": {"swf": swf, "nb_nodes": 40, "oversize": "clamp",
+                     "max_jobs": 80},
+        "platform": str(tmp_path / "curie.json"),
+        "scheduler": "EASY PSAS", "timeout": 600, "grouped_tables": True,
+        "merge_bursts": True, "gantt": False,
+    }
+    outs = {}
+    for name, main, extra in (("ref", main_ref, []),
+                              ("port", tsim.main, ["--device", "cpu"])):
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps({**cfg, "out": str(tmp_path / name)}))
+        main(["--config", str(path), *extra])
+        outs[name] = _read(tmp_path / name / "metrics.json")
+    assert outs["port"] == outs["ref"]
+    assert json.loads(outs["port"])["n_jobs"] == 80
+
+
 @pytest.mark.parametrize(
     "config",
     [
         {"scheduler": "EASY RL"},
         {"rl": {"checkpoint": "x"}},
-        {"grouped_tables": True},
-        {"workload": "swf:trace.swf"},
+        {"scheduler": "EASY PSUS+DVFS", "grouped_tables": True},
+        {"scheduler": "FCFS PSUS+Forecast", "merge_bursts": True},
         {"workload": "profiles"},
     ],
 )

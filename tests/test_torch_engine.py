@@ -1,7 +1,7 @@
 """The PyTorch port's engine modules against the JAX reference, field by
 field: the copied workload/platform/policy layers, ``make_const`` and
 ``init_state``, one event batch continued from a mid-run JAX state through
-``core/convert.py``, the configurations this slice refuses, the device rule,
+``core/convert.py``, the configurations the port still refuses, the device rule,
 and the package's isolation from ``jax`` and ``repro``.
 """
 import dataclasses
@@ -213,10 +213,10 @@ def test_convert_rejects_incomplete_or_mistyped_arrays():
 @pytest.mark.parametrize(
     "label,kw",
     [
-        ("EASY PSUS", {"grouped_tables": True}),
-        ("EASY PSUS", {"merge_bursts": True}),
-        ("EASY PSUS", {"node_order": "pack"}),
-        ("EASY PSUS", {"allocation": "partition"}),
+        ("EASY RL:groups", {"grouped_tables": True}),
+        ("EASY PSUS+DVFS", {"grouped_tables": True}),
+        ("FCFS PSAS+IPM+Forecast", {"node_order": "pack"}),
+        ("EASY PSUS", {"devices": 1}),
         ("EASY PSUS", {"devices": 2}),
         ("EASY PSUS", {"fused_events": False}),
         ("EASY RL", {}),
@@ -253,6 +253,8 @@ def test_package_imports_neither_jax_nor_reference():
         "import repro_torch, repro_torch.core.engine, repro_torch.launch.sim\n"
         "import repro_torch.core.convert, repro_torch.core.metrics\n"
         "import repro_torch.core.ref.pydes, repro_torch.kernels.event_fuse\n"
+        "import repro_torch.core.tables, repro_torch.workloads.traces\n"
+        "import repro_torch.experiments\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"
