@@ -7,12 +7,16 @@ Phases (each prints a line; any failed check exits non-zero):
 
 1. device: the card and its power limit (``nvidia-smi``); no CUDA, no run;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   source, one ``nvcc``), with the build seconds and each kernel's ptxas
-   register, shared-memory and spill lines;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   bit for bit, at the engine's shapes and more; the device time of each
-   (``torch.profiler``: the kernels' own durations), the host time per
-   call back to back (CUDA events), and the card's bound for the same work;
+   ``nvcc`` per source, all started together), with the build seconds and
+   each kernel's ptxas register, shared-memory and spill lines;
+3. kernels: each event kernel against its plain PyTorch version on the
+   card, bit for bit, at the engine's shapes and more; ``flash_attention``
+   against its plain version at the serve path's prefill shape in bf16 and
+   f32 and at MQA, Sq > Sk, a ragged KV tail, non-causal Sk > Sq, a ragged
+   Sq and head dims 64 and 16 (f32 atol and rtol 2e-5, bf16 3e-2); the
+   device time of each (``torch.profiler``: the kernels' own durations),
+   the host time per call, the card's bound for the same work, and for
+   flash attention the time of ``scaled_dot_product_attention``;
 4. labels: the paper's seven schedulers on a 16-node homogeneous and a
    16-node mixed platform on the card; then, on the grouped path, the seven
    on a 280-node Curie platform replaying a Curie-class SWF trace, and
@@ -29,7 +33,14 @@ Phases (each prints a line; any failed check exits non-zero):
    once per event batch, and the schedule must equal the oracle's and a
    dense port run's of the same inputs; a second run is timed;
 7. command line: ``python -m repro_torch.launch.sim`` on the card writes
-   its outputs.
+   its outputs;
+8. LM serve: ``repro_torch.launch.serve`` serves the full-width
+   internlm2-1.8b in bf16 (16 requests of 1024 tokens, 4 slots, 32 new
+   tokens, cache 1280) — the flash kernel must have launched once per
+   layer per request (384); one prefill (flash kernel against matmuls)
+   and one decode step are profiled; then, in f32, two 1024-token prompts
+   go through ``prefill`` by the kernel route and by the plain route, whose
+   last-position logits must agree.
 
 Then it prints the kernels' JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It imports
@@ -39,9 +50,11 @@ of the JAX reference package.
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -57,6 +70,29 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # the event kernels' work is int32 compares and adds outside the tensor
 # cores; the closest published scalar peak is the 67 TFLOP/s of float32
 SCALAR_OPS_PER_S = 67e12
+# H100 SXM dense bf16 tensor-core peak: flash attention's bound
+TENSOR_BF16_FLOPS_PER_S = 989e12
+ARCH = "internlm2-1.8b"
+# (B, Sq, Sk, H, KH, hd, causal): the serve path's prefill shape first
+FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
+FLASH_SHAPES = [
+    FLASH_MAIN,
+    (1, 256, 256, 8, 1, 128, True),    # MQA
+    (1, 384, 256, 2, 2, 128, True),    # Sq > Sk
+    (1, 128, 320, 4, 2, 64, True),     # KV tail not a tile multiple
+    (2, 128, 384, 4, 4, 64, False),    # non-causal, Sk > Sq
+    (1, 100, 100, 2, 2, 64, True),     # ragged Sq
+    (1, 64, 64, 4, 2, 16, True),       # hd 16
+    (2, 256, 256, 4, 2, 64, True),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # atol and rtol, as the tests
+SERVE_ARGS = ["--arch", ARCH, "--requests", "16", "--slots", "4",
+              "--prompt-len", "1024", "--max-new", "32", "--cache-len", "1280",
+              "--device", "cuda"]
+# f32 kernel route against plain route, last-position logits of the full
+# model: the two differ only in f32 summation order, which 24 layers
+# amplify; atol = 1e-3 of the logits' largest magnitude
+LOGITS_REL_TOL = 1e-3
 INF_TIME = 2**30
 EXACT_SHAPES = [(1, 16), (1, 131), (13, 131), (1, 11200), (64, 11200)]
 ZERO_SHAPES = [(0, 16), (4, 0), (0, 0)]
@@ -221,6 +257,77 @@ def ptxas_report(log: str, kernels):
     return out
 
 
+def flash_ptxas(log: str):
+    """{"<dtype> hd<=<n>": [lines]}: the ptxas registers, shared-memory and
+    spill lines of each instantiation of the flash kernel (dtype x columns
+    per lane)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d)E", line)
+            cur = (f"{'f32' if m.group(1) == 'f' else 'bf16'} hd<={32 * int(m.group(2))}"
+                   if m else None)
+            if cur:
+                out.setdefault(cur, [])
+        elif cur and any(w in line for w in ("registers", "spill", "smem")):
+            out[cur].append(line.strip())
+    return out
+
+
+def flash_bound(b, sq, sk, h, kh, hd, causal, itemsize):
+    """(ms, "bytes" or "operations") for flash attention: q, k, v read once
+    and o written once, against the products of the pairs the mask keeps
+    (2 flops a multiply-add, for QK^T and for P.V) at the bf16 tensor-core
+    peak."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    flops = 4 * hd * pairs * h * b
+    bytes_moved = itemsize * (2 * b * sq * h * hd + 2 * b * sk * kh * hd)
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    by_ops = flops / TENSOR_BF16_FLOPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), (
+        "bytes" if by_bytes >= by_ops else "operations"
+    )
+
+
+def flash_inputs(torch, np, shape, dtype, seed=0):
+    """q, k, v on the card: standard normal draws from a seed."""
+    b, sq, sk, h, kh, hd, _ = shape
+    rng = np.random.default_rng(seed + sq + 7 * sk + 31 * hd)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to("cuda", dtype)
+            for s in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd))]
+
+
+def host_ms(torch, fn, args, calls=100, warmup=10):
+    """Host ms per call: the time to enqueue ``calls`` calls back to back,
+    read before the synchronisation that ends them."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / calls
+
+
+def top_level_ops(torch, prof) -> int:
+    """The host operations a profiled region dispatched: CPU events with
+    no parent (each a PyTorch call from Python)."""
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None)
+
+
+def kernel_class(name: str) -> str:
+    """flash, matmul or other, for a device kernel's name."""
+    if "flash_attention_kernel" in name:
+        return "flash"
+    low = name.lower()
+    if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "matmul", "cublas")):
+        return "matmul"
+    return "other"
+
+
 def held_against_oracle(metrics, run_pydes, np, plat, wl, cfg, s):
     """Schedule exact and energy to rel 1e-5 against the port's oracle."""
     m_o, des = run_pydes(plat, wl, cfg)
@@ -286,7 +393,13 @@ def main() -> None:
     from repro_torch.core.policy import from_label
     from repro_torch.core.ref.pydes import run_pydes
     from repro_torch.core.types import EngineConfig
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
     from repro_torch.workloads.generator import (
         PRESETS, GeneratorConfig, generate_workload,
     )
@@ -304,16 +417,31 @@ def main() -> None:
           f"nvidia-smi: {smi}", flush=True)
 
     # ---- 2. build ----
+    def timed_load(src):
+        t = time.perf_counter()
+        _build.load(src)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    _build.load("event_fuse")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {src: pool.submit(timed_load, src)
+                  for src in ("event_fuse", "flash_attention")}
+        build_each = {src: f.result() for src, f in builds.items()}
     build_s = time.perf_counter() - t0
     print(f"phase 2 build: event_fuse.cu with {', '.join(event_fuse.KERNELS)} "
+          f"({build_each['event_fuse']:.1f} s) and flash_attention.cu "
+          f"({build_each['flash_attention']:.1f} s), one nvcc each, together "
           f"(wall {build_s:.1f} s)", flush=True)
     report = ptxas_report(_build.build_log("event_fuse"), event_fuse.KERNELS)
     for kname in event_fuse.KERNELS:
         check(report[kname], f"ptxas reported nothing for {kname}")
         for line in report[kname]:
             print(f"  ptxas {kname}: {line}")
+    flash_report = flash_ptxas(_build.build_log("flash_attention"))
+    check(len(flash_report) == 16, f"ptxas reported {sorted(flash_report)} "
+          "for flash_attention (16 instantiations expected)")
+    for inst, lines in sorted(flash_report.items()):
+        print(f"  ptxas flash_attention {inst}: {'; '.join(lines)}")
 
     # ---- 3. kernels against their plain versions ----
     def empty_pair(cols):
@@ -361,7 +489,69 @@ def main() -> None:
         torch, "event_fuse", event_fuse.event_fuse, event_fuse.event_fuse_plain,
         kernel_inputs(torch, np, *MAIN_SHAPE), draw_bound(*MAIN_SHAPE),
         "E={} N={}".format(*MAIN_SHAPE))
-    print(f"phase 3 kernels: each kernel == its plain version bit for bit: "
+    # flash attention: tolerance, not bits (f32 sums in another order)
+    flash_err, flash_cases = 0.0, []
+    for dname, tol in FLASH_TOL.items():
+        for shape in FLASH_SHAPES:
+            q, k, v = flash_inputs(torch, np, shape, getattr(torch, dname))
+            before = fa.LAUNCHES["flash_attention"]
+            got = fa.flash_attention(q, k, v, causal=shape[-1])
+            torch.cuda.synchronize()
+            check(fa.LAUNCHES["flash_attention"] == before + 1,
+                  f"flash_attention launch count at {shape} {dname}")
+            want = fa.flash_attention_plain(q, k, v, causal=shape[-1])
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"flash_attention output shape/dtype at {shape} {dname}")
+            e = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got.float(), want.float(), atol=tol, rtol=tol),
+                f"flash_attention == plain at {shape} {dname}: max abs err {e}")
+            flash_err = max(flash_err, e)
+            flash_cases.append(f"{dname} {shape[:6]}{'' if shape[-1] else ' full'}: {e:.3g}")
+    zq = torch.zeros((1, 0, 2, 16), device="cuda", dtype=torch.bfloat16)
+    zk = torch.zeros((1, 8, 2, 16), device="cuda", dtype=torch.bfloat16)
+    before = fa.LAUNCHES["flash_attention"]
+    zo = fa.flash_attention(zq, zk, zk)
+    check(zo.shape == zq.shape and fa.LAUNCHES["flash_attention"] == before,
+          "flash_attention zero size: zeros, no launch")
+    print(f"phase 3 kernels: flash_attention == plain (atol and rtol "
+          f"{FLASH_TOL}) at (B, Sq, Sk, H, KH, hd) max abs err: "
+          f"{'; '.join(flash_cases)}", flush=True)
+
+    def flash_kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def flash_plain(q, k, v):
+        return fa.flash_attention_plain(q, k, v, causal=True)
+
+    def sdpa(q, k, v):  # timed only: the port never calls it
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    flash_time = {}
+    for dname in ("bfloat16", "float32"):
+        args = flash_inputs(torch, np, FLASH_MAIN, getattr(torch, dname))
+        k_ms, k_ops, k_names, k_seen = device_ms(torch, flash_kernel, args, calls=100)
+        check(k_ops == 1 and "flash_attention_kernel" in k_names[0],
+              f"flash_attention ran {k_ops} device ops a call: {k_names}")
+        p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=50)
+        l_ms, l_ops, l_names, l_seen = device_ms(torch, sdpa, args, calls=100)
+        l_err = float((sdpa(*args).float() - flash_plain(*args).float()).abs().max())
+        k_host = host_ms(torch, flash_kernel, args)
+        b_ms, b_by = flash_bound(*FLASH_MAIN, itemsize=args[0].element_size())
+        flash_time[dname] = (k_ms, p_ms, l_ms, b_ms, b_by)
+        print(f"phase 3 kernels: flash_attention {dname} (B, Sq, Sk, H, KH, hd) "
+              f"{FLASH_MAIN[:6]} causal: device time kernel {1e3 * k_ms:.3f} us, "
+              f"plain {1e3 * p_ms:.3f} us ({p_ops} device ops), "
+              f"scaled_dot_product_attention {1e3 * l_ms:.3f} us ({l_ops} device "
+              f"ops: {', '.join(n[:60] for n in l_names)}; max abs diff from plain "
+              f"{l_err:.3g}); bound {1e3 * b_ms:.3f} us ({b_by}); kernel wrapper "
+              f"host time {1e3 * k_host:.2f} us per call; profiler records seen: "
+              f"kernel {k_seen:.3f}, plain {p_seen:.3f}, sdpa {l_seen:.3f}",
+              flush=True)
+
+    print(f"phase 3 kernels: each event kernel == its plain version bit for bit: "
           f"event_fuse_ledger and event_fuse at {EXACT_SHAPES}, "
           f"event_fuse_occ at (E, N, G) {OCC_SHAPES}, with dead lanes at "
           f"{OCC_DEAD_SHAPES}, and zero sizes; "
@@ -424,6 +614,7 @@ def main() -> None:
     base, pol = from_label("EASY PSUS")
     cfg = EngineConfig(base=base, policy=pol, timeout=1800)
     event_fuse.reset_launches()
+    fa.reset_launches()
     engine.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -438,6 +629,7 @@ def main() -> None:
           f"ledger kernel launches {launches} != n_batches {n_batches}")
     check(launches["event_fuse_occ"] == 0, "dense path launched the occ kernel")
     check(launches["event_fuse"] == 0, "dense path launched event_fuse")
+    check(fa.LAUNCHES["flash_attention"] == 0, "dense path launched flash_attention")
     draw_launches = launches["event_fuse"]
     check(not bool(s.truncated), "main path hit its batch cap")
     t0 = time.perf_counter()
@@ -467,6 +659,7 @@ def main() -> None:
     wl = replay_workload(swf, nb_nodes=11200, oversize="clamp", max_jobs=1000)
     cfg = EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True)
     event_fuse.reset_launches()
+    fa.reset_launches()
     engine.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -482,6 +675,7 @@ def main() -> None:
     check(launches["event_fuse_ledger"] == 0,
           "grouped path launched the ledger kernel")
     check(launches["event_fuse"] == 0, "grouped path launched event_fuse")
+    check(fa.LAUNCHES["flash_attention"] == 0, "grouped path launched flash_attention")
     draw_launches += launches["event_fuse"]
     check(not bool(s.truncated), "grouped main path hit its batch cap")
     occ_launches = launches["event_fuse_occ"]
@@ -549,6 +743,137 @@ def main() -> None:
     print(f"phase 7 command line: python -m repro_torch.launch.sim wrote "
           f"{wrote} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 8. LM serve on the card ----
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    t8 = time.perf_counter()
+    lm = get_arch(ARCH)
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    event_fuse.reset_launches()
+    fa.reset_launches()
+    result = serve.main(SERVE_ARGS, stats=stats)
+    flash_launches = fa.LAUNCHES["flash_attention"]
+    serve_events = dict(event_fuse.LAUNCHES)
+    serve_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_req, max_new = 16, 32
+    check(flash_launches == n_req * lm.n_layers,
+          f"serve: flash_attention launches {flash_launches} != "
+          f"{n_req} requests x {lm.n_layers} layers")
+    check(not any(serve_events.values()), f"serve launched {serve_events}")
+    check((result["requests"], result["decode_steps"], result["total_tokens"])
+          == (n_req, 4 * (max_new - 1), n_req * max_new),
+          f"serve counts {result}")
+    toks = [t for ts in stats["tokens"].values() for t in ts]
+    check(len(toks) == n_req * max_new and all(0 <= t < lm.padded_vocab for t in toks),
+          "serve tokens")
+    pre_ms = [1e3 * x for x in stats["prefill_s"]]
+    dec_ms = [1e3 * x for x in stats["decode_s"]]
+    print(f"phase 8 serve: {ARCH} full width bf16 on cuda, 16 requests x 1024 "
+          f"tokens, 4 slots, 32 new tokens, cache 1280: flash_attention "
+          f"launches {flash_launches} (= 16 x {lm.n_layers} layers); prefill "
+          f"first {pre_ms[0]:.2f} ms, median of the rest "
+          f"{statistics.median(pre_ms[1:]):.2f} ms per request; decode median "
+          f"{statistics.median(dec_ms):.3f} ms, mean {statistics.fmean(dec_ms):.3f} "
+          f"ms per step ({len(dec_ms)} steps); peak device memory "
+          f"{serve_peak_gib:.2f} GiB", flush=True)
+
+    # one prefill of the serve path, profiled: flash kernel against matmuls
+    model = build_model(lm, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, lm.vocab_size, (1, 1024))).cuda()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        for _ in range(2):
+            model.prefill(prompt, cache_len=1280)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            model.prefill(prompt, cache_len=1280)
+            torch.cuda.synchronize()
+            prefill_wall = time.perf_counter() - t0
+    by_class, by_name = {"flash": 0.0, "matmul": 0.0, "other": 0.0}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_class[kernel_class(e.name)] += e.device_time_total / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    dev_total = sum(by_class.values())
+    check(by_class["flash"] > 0 and by_class["matmul"] > 0,
+          f"profiled prefill: device ms by class {by_class}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"phase 8 serve: one bf16 prefill (1 x 1024 tokens) profiled: wall "
+          f"{1e3 * prefill_wall:.2f} ms, {top_level_ops(torch, prof)} top-level "
+          f"host ops, device {dev_total:.3f} ms (busy "
+          f"{100 * dev_total / (1e3 * prefill_wall):.1f} %); flash kernel "
+          f"{by_class['flash']:.3f} ms ({100 * by_class['flash'] / dev_total:.1f} %), "
+          f"matmuls {by_class['matmul']:.3f} ms "
+          f"({100 * by_class['matmul'] / dev_total:.1f} %), other "
+          f"{by_class['other']:.3f} ms; top kernels: "
+          + "; ".join(f"{n[:50]} {ms:.3f} ms" for n, ms in top), flush=True)
+    # one decode step of the 4-slot batch at position 1100, profiled
+    cache = model.init_cache(4, 1280)
+    step_tok = torch.zeros((4, 1), dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        for _ in range(2):
+            model.decode_step(step_tok, cache, 1100)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as dprof:
+            t0 = time.perf_counter()
+            model.decode_step(step_tok, cache, 1100)
+            torch.cuda.synchronize()
+            decode_wall = time.perf_counter() - t0
+    dec_dev = [e.device_time_total / 1e3 for e in dprof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dec_host_ops = top_level_ops(torch, dprof)
+    del cache
+    print(f"phase 8 serve: one bf16 decode step (4 slots, position 1100) "
+          f"profiled: wall {1e3 * decode_wall:.2f} ms, {dec_host_ops} top-level "
+          f"host ops, {len(dec_dev)} device ops, device {sum(dec_dev):.3f} ms (busy "
+          f"{100 * sum(dec_dev) / (1e3 * decode_wall):.1f} %)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernel route against the plain route, full width, f32
+    model = build_model(lm.replace(dtype_name="float32"), "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, lm.vocab_size, (2, 1024))).cuda()
+    with torch.inference_mode():
+        fa.reset_launches()
+        model.attn_impl = "auto"
+        logits_k, _ = model.prefill(prompts)
+        torch.cuda.synchronize()
+        check(fa.LAUNCHES["flash_attention"] == lm.n_layers,
+              f"f32 prefill: flash launches {fa.LAUNCHES} != {lm.n_layers}")
+        model.attn_impl = "naive"
+        logits_p, _ = model.prefill(prompts)
+        check(fa.LAUNCHES["flash_attention"] == lm.n_layers,
+              "the plain route launched the kernel")
+    logits_k, logits_p = logits_k[:, -1], logits_p[:, -1]
+    scale = float(logits_p.abs().max())
+    diff = float((logits_k - logits_p).abs().max())
+    check(bool(torch.isfinite(logits_k).all()) and logits_k.shape == (2, lm.padded_vocab),
+          "f32 kernel-route logits finite, [2, V]")
+    check(diff <= LOGITS_REL_TOL * max(scale, 1.0),
+          f"f32 logits: kernel route vs plain route max abs diff {diff} > "
+          f"{LOGITS_REL_TOL} x {scale}")
+    tok_k = logits_k.argmax(-1).tolist()
+    tok_p = logits_p.argmax(-1).tolist()
+    top2 = logits_p.topk(2, dim=-1).values
+    for i in range(2):  # a greedy token may differ only inside the error
+        margin = float(top2[i, 0] - top2[i, 1])
+        check(tok_k[i] == tok_p[i] or margin <= 2 * diff,
+              f"f32 greedy token {i}: kernel {tok_k[i]} vs plain {tok_p[i]}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 8 serve: f32 full width, 2 x 1024-token prompts, prefill by "
+          f"the kernel route ({lm.n_layers} launches) vs the plain route: "
+          f"last-position logits max abs diff {diff:.3g} (largest |logit| "
+          f"{scale:.3g}, tolerance {LOGITS_REL_TOL} of it); greedy first "
+          f"tokens kernel {tok_k}, plain {tok_p}; phase wall "
+          f"{time.perf_counter() - t8:.1f} s", flush=True)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms = timing[key]
         b_ms, b_by = bound
@@ -571,6 +896,19 @@ def main() -> None:
         entry("event_fuse", "src/repro/kernels/event_fuse.py:47", draw_launches,
               ("event_fuse", 1), draw_bound(*MAIN_SHAPE),
               note="no engine path calls it; timed at [1, 11200]"),
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:45",
+            "launches": flash_launches, "max_abs_err": flash_err,
+            "ms": flash_time["bfloat16"][0], "plain_ms": flash_time["bfloat16"][1],
+            "bound_ms": flash_time["bfloat16"][3],
+            "bound_by": flash_time["bfloat16"][4],
+            "library_ms": flash_time["bfloat16"][2],
+            "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
+                    "hd 128) in bf16, causal; library: "
+                    "scaled_dot_product_attention(is_causal, enable_gqa)",
+        },
     ]}))
     print(f"script wall {time.perf_counter() - t_script:.1f} s")
     print(nvidia_smi())

@@ -1,8 +1,10 @@
 """SPARS simulator on PyTorch and CUDA.
 
 The port of the JAX reference package ``repro`` to PyTorch, with the
-reference's TPU kernels rewritten by hand for NVIDIA Hopper. Module names
-mirror the reference (``core/engine.py``, ``core/policy.py``, ...) so each
+reference's TPU kernels rewritten by hand for NVIDIA Hopper: the simulator
+(``core/``, ``workloads/``, ``launch/sim.py``) and the dense LM serve path
+(``configs/``, ``models/``, ``launch/serve.py``). Module names mirror the
+reference (``core/engine.py``, ``models/transformer.py``, ...) so each
 counterpart is easy to find. The package imports torch and numpy only —
 never ``jax`` and nothing of ``repro``.
 
