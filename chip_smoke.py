@@ -40,7 +40,20 @@ Phases (each prints a line; any failed check exits non-zero):
    layer per request (384); one prefill (flash kernel against matmuls)
    and one decode step are profiled; then, in f32, two 1024-token prompts
    go through ``prefill`` by the kernel route and by the plain route, whose
-   last-position logits must agree.
+   last-position logits must agree;
+9. xLSTM serve: the same loop and flags serve the full-width xlstm-350m in
+   bf16 — ``ssd_scan`` must have launched twice per ``xlstm_pair`` per
+   request (384) and no other kernel; one ``xlstm_pair`` block at S 1024
+   is timed, its mLSTM and its sLSTM are profiled, and so is one decode
+   step; then, in f32,
+   two 1024-token prompts go through ``prefill`` by the kernel route and
+   by the plain route, whose last-position logits must agree.
+
+Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
+serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
+dtypes and in f32, at a ragged S, from a non-zero state and at the
+reference's kernel-test shapes (f32: 1e-4 of max |y|; bf16 y: one bf16 ulp
+of the element plus 1e-5 of max |y|), and times it.
 
 Then it prints the kernels' JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It imports
@@ -89,6 +102,38 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # atol and rtol, as the tests
 SERVE_ARGS = ["--arch", ARCH, "--requests", "16", "--slots", "4",
               "--prompt-len", "1024", "--max-new", "32", "--cache-len", "1280",
               "--device", "cuda"]
+XARCH = "xlstm-350m"
+XSERVE_ARGS = ["--arch", XARCH] + SERVE_ARGS[2:]
+# (B, S, H, dk, dv, chunk): the xLSTM serve prefill's two GLA launches (the
+# values and the normaliser's dv 1)
+SSD_MAIN = (1, 1024, 4, 512, 512, 128)
+SSD_NORM = (1, 1024, 4, 512, 1, 128)
+# (label, shape, dtypes of q, k, v, non-zero h0): the serve shapes in the
+# mLSTM's dtypes (q bf16, k f32, v bf16) and in f32, a ragged S, a
+# continued prefill, and the reference's kernel-test shapes (SSD_CASES of
+# tests/test_kernels.py) in f32 and bf16
+_MIXED, _F32, _BF16 = ("bfloat16", "float32", "bfloat16"), ("float32",) * 3, ("bfloat16",) * 3
+SSD_CHECKS = [
+    ("serve values", SSD_MAIN, _MIXED, False),
+    ("serve normaliser", SSD_NORM, _MIXED, False),
+    ("serve values f32", SSD_MAIN, _F32, False),
+    ("serve normaliser f32", SSD_NORM, _F32, False),
+    ("ragged S 1000", (1, 1000, 4, 512, 512, 128), _MIXED, False),
+    ("ragged S 1000 normaliser", (1, 1000, 4, 512, 1, 128), _MIXED, False),
+    ("non-zero h0", SSD_MAIN, _MIXED, True),
+    ("non-zero h0 f32", (2, 256, 2, 64, 64, 64), _F32, True),
+] + [
+    (f"SSD_CASES {dn}", shape, dts, False)
+    for shape in ((1, 128, 1, 32, 32, 32), (2, 256, 2, 64, 64, 64),
+                  (1, 256, 4, 32, 128, 128), (2, 128, 2, 128, 64, 128))
+    for dn, dts in (("f32", _F32), ("bf16", _BF16))
+]
+# f32 sums in another order over up to 512 x 128 terms a chunk: 1e-4 of the
+# output's largest magnitude; a bf16 y adds one bf16 ulp of the element
+# (2**-7 of its magnitude) for the one rounding of either side
+SSD_F32_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 # f32 kernel route against plain route, last-position logits of the full
 # model: the two differ only in f32 summation order, which 24 layers
 # amplify; atol = 1e-3 of the logits' largest magnitude
@@ -289,6 +334,86 @@ def flash_bound(b, sq, sk, h, kh, hd, causal, itemsize):
     )
 
 
+def ssd_bound(b, s, h, dk, dv, chunk, itemsizes, h0):
+    """(ms, "bytes" or "operations") for one GLA scan: q, k, v, g (and h0)
+    read once, y and h_final written once, against the f32 products the
+    recurrence needs in its chunk form — per chunk of L steps the causal
+    L(L+1)/2 scores (dk each) and their products with v (dv each), and
+    q . h_in and the state update (dk dv each per step), 2 flops a
+    multiply-add — at the f32 peak (the kernel computes in f32)."""
+    flops = 0
+    for t0 in range(0, s, chunk):
+        n = min(chunk, s - t0)
+        pairs = n * (n + 1) // 2
+        flops += 2 * (pairs * dk + pairs * dv + 2 * n * dk * dv)
+    flops *= b * h
+    iq, ik, iv = itemsizes
+    bytes_moved = (b * s * h * (dk * (iq + ik) + dv * iv + 4 + dv * iv)
+                   + 4 * b * h * dk * dv * (2 if h0 else 1))
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    by_ops = flops / F32_FLOPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), (
+        "bytes" if by_bytes >= by_ops else "operations"
+    )
+
+
+def ssd_inputs(torch, np, shape, dtypes, h0=False, seed=0):
+    """q, k, v, g, h0 (or None) on the card, as the mLSTM makes them: q
+    scaled by 1/sqrt(dk), k by an input gate in (0, 1), v standard normal,
+    g = log_sigmoid of a forget pre-activation near 3 (the init's bias), a
+    non-zero h0 standard normal."""
+    b, s, h, dk, dv, _ = shape
+    rng = np.random.default_rng(seed + s + 7 * dk + 31 * dv + 101 * h)
+    q = rng.normal(size=(b, s, h, dk)) / np.sqrt(dk)
+    k = rng.normal(size=(b, s, h, dk)) / (1 + np.exp(-rng.normal(size=(b, s, h, 1))))
+    v = rng.normal(size=(b, s, h, dv))
+    g = -np.log1p(np.exp(-(3 + rng.normal(size=(b, s, h)))))
+    st = rng.normal(size=(b, h, dk, dv)) if h0 else None
+
+    def dev(x, dname):
+        return torch.from_numpy(x.astype(np.float32)).to("cuda", getattr(torch, dname))
+
+    return [dev(q, dtypes[0]), dev(k, dtypes[1]), dev(v, dtypes[2]), dev(g, "float32"),
+            None if st is None else dev(st, "float32")]
+
+
+def kernel_kind(name: str) -> str:
+    """ssd, matmul or other, for a device kernel's name."""
+    if "ssd_scan_kernel" in name:
+        return "ssd"
+    return "matmul" if kernel_class(name) == "matmul" else "other"
+
+
+def profile_split(torch, fn, calls):
+    """Profile ``calls`` calls of ``fn`` (after one warm-up): ({kind: device
+    ms per call}, top-level host ops per call, device ops per call, share
+    of the device records seen). As in :func:`device_ms`, each op name is
+    timed by its mean recorded duration times its launches per call (its
+    recorded count over ``calls``, rounded), because the profiler may lose
+    records of a long capture; the share seen must be at least a half."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    check(len(by_name) > 0, "the profiler saw no device operation")
+    per_call = {k: max(1, round(len(v) / calls)) for k, v in by_name.items()}
+    n_ops = sum(per_call.values())
+    seen = sum(len(v) for v in by_name.values()) / (n_ops * calls)
+    check(seen >= 0.5, f"the profiler recorded {seen:.2f} of the device operations")
+    by_kind = {"ssd": 0.0, "matmul": 0.0, "other": 0.0}
+    for k, v in by_name.items():
+        by_kind[kernel_kind(k)] += statistics.fmean(v) * per_call[k]
+    ssd_per_call = sum(n for k, n in per_call.items() if kernel_kind(k) == "ssd")
+    return by_kind, top_level_ops(torch, prof) / calls, n_ops, ssd_per_call, seen
+
+
 def flash_inputs(torch, np, shape, dtype, seed=0):
     """q, k, v on the card: standard normal draws from a seed."""
     b, sq, sk, h, kh, hd, _ = shape
@@ -398,8 +523,10 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, event_fuse
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from repro_torch.models import ssm
     from repro_torch.workloads.generator import (
         PRESETS, GeneratorConfig, generate_workload,
     )
@@ -423,14 +550,15 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = {src: pool.submit(timed_load, src)
-                  for src in ("event_fuse", "flash_attention")}
+    sources = ("event_fuse", "flash_attention", "ssd_scan")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = {src: pool.submit(timed_load, src) for src in sources}
         build_each = {src: f.result() for src, f in builds.items()}
     build_s = time.perf_counter() - t0
     print(f"phase 2 build: event_fuse.cu with {', '.join(event_fuse.KERNELS)} "
-          f"({build_each['event_fuse']:.1f} s) and flash_attention.cu "
-          f"({build_each['flash_attention']:.1f} s), one nvcc each, together "
+          f"({build_each['event_fuse']:.1f} s), flash_attention.cu "
+          f"({build_each['flash_attention']:.1f} s) and ssd_scan.cu "
+          f"({build_each['ssd_scan']:.1f} s), one nvcc each, together "
           f"(wall {build_s:.1f} s)", flush=True)
     report = ptxas_report(_build.build_log("event_fuse"), event_fuse.KERNELS)
     for kname in event_fuse.KERNELS:
@@ -442,6 +570,9 @@ def main() -> None:
           "for flash_attention (16 instantiations expected)")
     for inst, lines in sorted(flash_report.items()):
         print(f"  ptxas flash_attention {inst}: {'; '.join(lines)}")
+    ssd_report = ptxas_report(_build.build_log("ssd_scan"), ["ssd_scan"])["ssd_scan"]
+    check(ssd_report, "ptxas reported nothing for ssd_scan")
+    print(f"  ptxas ssd_scan: {'; '.join(ssd_report)}")
 
     # ---- 3. kernels against their plain versions ----
     def empty_pair(cols):
@@ -551,6 +682,67 @@ def main() -> None:
               f"kernel {k_seen:.3f}, plain {p_seen:.3f}, sdpa {l_seen:.3f}",
               flush=True)
 
+    # ssd_scan: tolerance, not bits (f32 sums in another order)
+    ssd_err, ssd_cases = 0.0, []
+    for label, shape, dts, with_h0 in SSD_CHECKS:
+        q, k, v, g, h0 = ssd_inputs(torch, np, shape, dts, with_h0)
+        chunk = shape[-1]
+        before = ssd.LAUNCHES["ssd_scan"]
+        y, h_t = ssd.ssd_scan(q, k, v, g, h0, chunk)
+        torch.cuda.synchronize()
+        check(ssd.LAUNCHES["ssd_scan"] == before + 1, f"ssd_scan launch count at {label}")
+        y_p, h_p = ssd.ssd_scan_plain(q, k, v, g, h0, chunk)
+        check(y.shape == y_p.shape and y.dtype == y_p.dtype == v.dtype
+              and h_t.shape == h_p.shape and h_t.dtype == torch.float32,
+              f"ssd_scan output shapes/dtypes at {label}")
+        yf, ypf = y.float(), y_p.float()
+        scale, h_scale = float(ypf.abs().max()), float(h_p.abs().max())
+        allowed = SSD_F32_TOL * scale
+        if v.dtype == torch.bfloat16:
+            allowed = BF16_ULP * torch.maximum(yf.abs(), ypf.abs()) + 1e-5 * scale
+        e, h_e = float((yf - ypf).abs().max()), float((h_t - h_p).abs().max())
+        check(bool(torch.isfinite(yf).all()) and bool(((yf - ypf).abs() <= allowed).all())
+              and bool(torch.isfinite(h_t).all()) and h_e <= SSD_F32_TOL * h_scale,
+              f"ssd_scan == plain at {label} {shape}: y max abs err {e} of {scale}, "
+              f"h_final {h_e} of {h_scale}")
+        ssd_err = max(ssd_err, e)
+        ssd_cases.append(f"{label} {shape[:5]} chunk {chunk}: y {e:.3g} of {scale:.3g}, "
+                         f"h {h_e:.3g} of {h_scale:.3g}")
+    zq = torch.zeros((1, 0, 2, 16), device="cuda")
+    before = ssd.LAUNCHES["ssd_scan"]
+    zy, zh = ssd.ssd_scan(zq, zq, zq, torch.zeros((1, 0, 2), device="cuda"))
+    check(zy.shape == zq.shape and zh.shape == (1, 2, 16, 16) and not zh.any()
+          and ssd.LAUNCHES["ssd_scan"] == before, "ssd_scan zero size: zeros, no launch")
+    print(f"phase 3 kernels: ssd_scan == plain (f32 y and h_final to {SSD_F32_TOL} of "
+          f"their largest magnitude; bf16 y to one bf16 ulp plus 1e-5 of it) at "
+          f"(B, S, H, dk, dv): {'; '.join(ssd_cases)}", flush=True)
+
+    def ssd_kernel(q, k, v, g, h0):
+        return ssd.ssd_scan(q, k, v, g, h0, SSD_MAIN[-1])
+
+    def ssd_plain(q, k, v, g, h0):
+        return ssd.ssd_scan_plain(q, k, v, g, h0, SSD_MAIN[-1])
+
+    ssd_time = {}
+    for shape in (SSD_MAIN, SSD_NORM):
+        args = ssd_inputs(torch, np, shape, _MIXED)
+        b, _, h, dk, dv, _ = shape
+        args[4] = torch.zeros((b, h, dk, dv), device="cuda")  # the prefill's zero state
+        k_ms, k_ops, k_names, k_seen = device_ms(torch, ssd_kernel, args, calls=50)
+        check(k_ops == 1 and "ssd_scan_kernel" in k_names[0],
+              f"ssd_scan ran {k_ops} device ops a call: {k_names}")
+        p_ms, p_ops, _, p_seen = device_ms(torch, ssd_plain, args, calls=10)
+        k_host = host_ms(torch, ssd_kernel, args)
+        b_ms, b_by = ssd_bound(*shape, itemsizes=(2, 4, 2), h0=True)
+        ssd_time[dv] = (k_ms, p_ms, b_ms, b_by, k_host)
+        print(f"phase 3 kernels: ssd_scan (B, S, H, dk, dv, chunk) {shape} q bf16, k "
+              f"f32, v bf16, zero h0: device time kernel {1e3 * k_ms:.3f} us, plain "
+              f"{1e3 * p_ms:.3f} us ({p_ops} device ops); bound {1e3 * b_ms:.3f} us "
+              f"({b_by}); kernel wrapper host time {1e3 * k_host:.2f} us per call; "
+              f"profiler records seen: kernel {k_seen:.3f}, plain {p_seen:.3f}; no "
+              "single PyTorch call computes a GLA scan, so there is no library time",
+              flush=True)
+
     print(f"phase 3 kernels: each event kernel == its plain version bit for bit: "
           f"event_fuse_ledger and event_fuse at {EXACT_SHAPES}, "
           f"event_fuse_occ at (E, N, G) {OCC_SHAPES}, with dead lanes at "
@@ -615,6 +807,7 @@ def main() -> None:
     cfg = EngineConfig(base=base, policy=pol, timeout=1800)
     event_fuse.reset_launches()
     fa.reset_launches()
+    ssd.reset_launches()
     engine.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -630,6 +823,7 @@ def main() -> None:
     check(launches["event_fuse_occ"] == 0, "dense path launched the occ kernel")
     check(launches["event_fuse"] == 0, "dense path launched event_fuse")
     check(fa.LAUNCHES["flash_attention"] == 0, "dense path launched flash_attention")
+    check(ssd.LAUNCHES["ssd_scan"] == 0, "dense path launched ssd_scan")
     draw_launches = launches["event_fuse"]
     check(not bool(s.truncated), "main path hit its batch cap")
     t0 = time.perf_counter()
@@ -660,6 +854,7 @@ def main() -> None:
     cfg = EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True)
     event_fuse.reset_launches()
     fa.reset_launches()
+    ssd.reset_launches()
     engine.HOST_SYNCS = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -676,6 +871,7 @@ def main() -> None:
           "grouped path launched the ledger kernel")
     check(launches["event_fuse"] == 0, "grouped path launched event_fuse")
     check(fa.LAUNCHES["flash_attention"] == 0, "grouped path launched flash_attention")
+    check(ssd.LAUNCHES["ssd_scan"] == 0, "grouped path launched ssd_scan")
     draw_launches += launches["event_fuse"]
     check(not bool(s.truncated), "grouped main path hit its batch cap")
     occ_launches = launches["event_fuse_occ"]
@@ -753,9 +949,11 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     event_fuse.reset_launches()
     fa.reset_launches()
+    ssd.reset_launches()
     result = serve.main(SERVE_ARGS, stats=stats)
     flash_launches = fa.LAUNCHES["flash_attention"]
     serve_events = dict(event_fuse.LAUNCHES)
+    check(ssd.LAUNCHES["ssd_scan"] == 0, "internlm2 serve launched ssd_scan")
     serve_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_req, max_new = 16, 32
     check(flash_launches == n_req * lm.n_layers,
@@ -874,6 +1072,145 @@ def main() -> None:
           f"tokens kernel {tok_k}, plain {tok_p}; phase wall "
           f"{time.perf_counter() - t8:.1f} s", flush=True)
 
+    # ---- 9. xLSTM serve on the card ----
+    t9 = time.perf_counter()
+    xl = get_arch(XARCH)
+    n_pairs = xl.block_program()[0][1]  # one stage of xlstm_pair blocks
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    event_fuse.reset_launches()
+    fa.reset_launches()
+    ssd.reset_launches()
+    xresult = serve.main(XSERVE_ARGS, stats=stats)
+    ssd_launches = ssd.LAUNCHES["ssd_scan"]
+    others = dict(event_fuse.LAUNCHES, flash_attention=fa.LAUNCHES["flash_attention"])
+    x_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(ssd_launches == n_req * n_pairs * 2,
+          f"xlstm serve: ssd_scan launches {ssd_launches} != {n_req} requests x "
+          f"{n_pairs} pairs x 2")
+    check(not any(others.values()), f"xlstm serve launched {others}")
+    check((xresult["requests"], xresult["decode_steps"], xresult["total_tokens"])
+          == (n_req, 4 * (max_new - 1), n_req * max_new), f"xlstm serve counts {xresult}")
+    toks = [t for ts in stats["tokens"].values() for t in ts]
+    check(len(toks) == n_req * max_new and all(0 <= t < xl.padded_vocab for t in toks),
+          "xlstm serve tokens")
+    x_pre = [1e3 * x for x in stats["prefill_s"]]
+    x_dec = [1e3 * x for x in stats["decode_s"]]
+    print(f"phase 9 serve: {XARCH} full width bf16 on cuda, 16 requests x 1024 "
+          f"tokens, 4 slots, 32 new tokens: {xresult}; ssd_scan launches "
+          f"{ssd_launches} (= 16 x {n_pairs} pairs x 2), no other kernel; prefill "
+          f"first {x_pre[0]:.2f} ms, median of the rest "
+          f"{statistics.median(x_pre[1:]):.2f} ms per request; decode median "
+          f"{statistics.median(x_dec):.3f} ms, mean {statistics.fmean(x_dec):.3f} ms "
+          f"per step ({len(x_dec)} steps); peak device memory {x_peak_gib:.2f} GiB",
+          flush=True)
+
+    # one xlstm_pair block at S 1024 (a whole prefill is 12 such blocks):
+    # its wall, and its mLSTM's and its sLSTM's, unprofiled; then the mLSTM
+    # and the sLSTM each profiled over repeated calls, because a profile of
+    # one short call has come back without the mLSTM's device records
+    model = build_model(xl, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, xl.vocab_size, (1, 1024))).cuda()
+    block = model.blocks[0]
+    with torch.inference_mode():
+        x_emb = model._embed(prompt)
+        layer = tuple(f[0] for f in model.init_cache(1, 1280))
+    parts = {
+        "block": lambda: block(x_emb, layer),
+        "mlstm": lambda: block.mlstm(x_emb, layer[:2], block.chunk, block.eps),
+        "slstm": lambda: block.slstm(x_emb, ssm.SLstmState(*layer[2:]), block.eps),
+    }
+    walls, split = {}, {}
+    with torch.inference_mode():
+        for part, fn in parts.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[part] = time.perf_counter() - t0
+        split["slstm"] = profile_split(torch, parts["slstm"], calls=3)
+        split["mlstm"] = profile_split(torch, parts["mlstm"], calls=100)
+    mlk, slk = split["mlstm"][0], split["slstm"][0]
+    check(split["mlstm"][3] == 2 and mlk["matmul"] > 0,
+          f"profiled mLSTM: {split['mlstm'][3]} ssd_scan launches a call (2 expected), "
+          f"device ms by kind {mlk}")
+    check(split["slstm"][3] == 0 and split["slstm"][2] >= prompt.shape[1],
+          f"profiled sLSTM: {split['slstm'][2]} device ops a call, device ms {slk}")
+    x_pre_med = statistics.median(x_pre[1:])
+    slstm_share = n_pairs * 1e3 * walls["slstm"] / x_pre_med
+    print(f"phase 9 serve: one bf16 xlstm_pair block (1 x 1024 tokens): wall "
+          f"{1e3 * walls['block']:.2f} ms unprofiled; its mLSTM alone: wall "
+          f"{1e3 * walls['mlstm']:.2f} ms, {split['mlstm'][1]:.0f} top-level host ops, "
+          f"{split['mlstm'][2]} device ops, device {sum(mlk.values()):.3f} ms: ssd_scan "
+          f"{mlk['ssd']:.3f} ms (2 launches), matmuls {mlk['matmul']:.3f} ms, other "
+          f"{mlk['other']:.3f} ms (a call of 100 profiled, records seen "
+          f"{split['mlstm'][4]:.3f}); its sLSTM alone: wall "
+          f"{1e3 * walls['slstm']:.2f} ms, {split['slstm'][1]:.0f} top-level host ops, "
+          f"{split['slstm'][2]} device ops, device {sum(slk.values()):.3f} ms (matmuls "
+          f"{slk['matmul']:.3f} ms, cell ops {slk['other']:.3f} ms; a call of 3 "
+          f"profiled, records seen {split['slstm'][4]:.3f}); {n_pairs} sLSTMs are "
+          f"{100 * slstm_share:.1f} % of the median prefill", flush=True)
+    cache = model.init_cache(4, 1280)
+    step_tok = torch.zeros((4, 1), dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        for _ in range(2):
+            model.decode_step(step_tok, cache, 1100)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as dprof:
+            t0 = time.perf_counter()
+            model.decode_step(step_tok, cache, 1100)
+            torch.cuda.synchronize()
+            decode_wall = time.perf_counter() - t0
+    dec_dev = [e.device_time_total / 1e3 for e in dprof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"phase 9 serve: one bf16 decode step (4 slots) profiled: wall "
+          f"{1e3 * decode_wall:.2f} ms, {top_level_ops(torch, dprof)} top-level host "
+          f"ops, {len(dec_dev)} device ops, device {sum(dec_dev):.3f} ms (busy "
+          f"{100 * sum(dec_dev) / (1e3 * decode_wall):.1f} %)", flush=True)
+    del model, cache
+    torch.cuda.empty_cache()
+
+    # the kernel route against the plain route, full width, f32
+    model = build_model(xl.replace(dtype_name="float32"), "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, xl.vocab_size, (2, 1024))).cuda()
+    with torch.inference_mode():
+        ssd.reset_launches()
+        model.gla_impl = "auto"
+        logits_k, _ = model.prefill(prompts)
+        torch.cuda.synchronize()
+        check(ssd.LAUNCHES["ssd_scan"] == 2 * n_pairs,
+              f"f32 xlstm prefill: ssd_scan launches {ssd.LAUNCHES} != {2 * n_pairs}")
+        model.gla_impl = "plain"
+        logits_p, _ = model.prefill(prompts)
+        check(ssd.LAUNCHES["ssd_scan"] == 2 * n_pairs, "the plain route launched the kernel")
+    logits_k, logits_p = logits_k[:, -1], logits_p[:, -1]
+    x_scale = float(logits_p.abs().max())
+    x_diff = float((logits_k - logits_p).abs().max())
+    check(bool(torch.isfinite(logits_k).all()) and logits_k.shape == (2, xl.padded_vocab),
+          "f32 xlstm kernel-route logits finite, [2, V]")
+    check(x_diff <= LOGITS_REL_TOL * max(x_scale, 1.0),
+          f"f32 xlstm logits: kernel route vs plain route max abs diff {x_diff} > "
+          f"{LOGITS_REL_TOL} x {x_scale}")
+    xtok_k = logits_k.argmax(-1).tolist()
+    xtok_p = logits_p.argmax(-1).tolist()
+    top2 = logits_p.topk(2, dim=-1).values
+    for i in range(2):  # a greedy token may differ only inside the error
+        margin = float(top2[i, 0] - top2[i, 1])
+        check(xtok_k[i] == xtok_p[i] or margin <= 2 * x_diff,
+              f"f32 xlstm greedy token {i}: kernel {xtok_k[i]} vs plain {xtok_p[i]}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 9 serve: f32 full width, 2 x 1024-token prompts, prefill by the "
+          f"kernel route ({2 * n_pairs} launches) vs the plain route: last-position "
+          f"logits max abs diff {x_diff:.3g} (largest |logit| {x_scale:.3g}, "
+          f"tolerance {LOGITS_REL_TOL} of it); greedy first tokens kernel {xtok_k}, "
+          f"plain {xtok_p}; phase wall {time.perf_counter() - t9:.1f} s", flush=True)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms = timing[key]
         b_ms, b_by = bound
@@ -909,11 +1246,28 @@ def main() -> None:
                     "hd 128) in bf16, causal; library: "
                     "scaled_dot_product_attention(is_causal, enable_gqa)",
         },
+        {
+            "name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:44",
+            "launches": ssd_launches, "max_abs_err": ssd_err,
+            "ms": ssd_time[512][0], "plain_ms": ssd_time[512][1],
+            "bound_ms": ssd_time[512][2], "bound_by": ssd_time[512][3],
+            "library_ms": None,
+            "ms_dv1": ssd_time[1][0], "plain_ms_dv1": ssd_time[1][1],
+            "bound_ms_dv1": ssd_time[1][2], "bound_by_dv1": ssd_time[1][3],
+            "note": "timed at the xLSTM serve prefill shape (B 1, S 1024, H 4, dk "
+                    "512, chunk 128; q bf16, k f32, v bf16, zero h0) at dv 512 "
+                    "(ms, plain_ms, bound_ms) and at the normaliser's dv 1 (*_dv1); "
+                    "half the main path's launches are each; no PyTorch call "
+                    "computes a GLA scan",
+        },
     ]}))
     print(f"script wall {time.perf_counter() - t_script:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
 
 

@@ -2,8 +2,9 @@
 
 The port of the JAX reference package ``repro`` to PyTorch, with the
 reference's TPU kernels rewritten by hand for NVIDIA Hopper: the simulator
-(``core/``, ``workloads/``, ``launch/sim.py``) and the dense LM serve path
-(``configs/``, ``models/``, ``launch/serve.py``). Module names mirror the
+(``core/``, ``workloads/``, ``launch/sim.py``) and the LM serve paths of
+``internlm2-1.8b`` and ``xlstm-350m`` (``configs/``, ``models/``,
+``launch/serve.py``). Module names mirror the
 reference (``core/engine.py``, ``models/transformer.py``, ...) so each
 counterpart is easy to find. The package imports torch and numpy only —
 never ``jax`` and nothing of ``repro``.

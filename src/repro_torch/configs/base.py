@@ -101,17 +101,15 @@ REDUCED_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 _ARCH_MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
-# the reference's other architectures, with the ROADMAP item that ports each
+# the reference's other architectures, with the ROADMAP item that ports them
 _NOT_PORTED = {
-    "xlstm-350m": "ROADMAP Queue 1 item 12b (the xlstm-350m serve path)",
-    **{
-        name: "ROADMAP Queue 1 item 12c (the rest of the LM scaffold)"
-        for name in (
-            "zamba2-2.7b", "glm4-9b", "qwen3-14b", "stablelm-3b",
-            "qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny",
-        )
-    },
+    name: "ROADMAP Queue 1 item 12c (the rest of the LM scaffold)"
+    for name in (
+        "zamba2-2.7b", "glm4-9b", "qwen3-14b", "stablelm-3b",
+        "qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny",
+    )
 }
 
 

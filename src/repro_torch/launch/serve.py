@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --requests 16 --slots 4 --prompt-len 1024 --max-new 32 --cache-len 1280
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --reduced --device cpu
 
 The counterpart of the reference's ``launch/serve.py``, with the same flags
 (plus ``--device``: cuda unless ``cpu`` is asked for), the same loop and the
@@ -16,11 +18,12 @@ same result keys and ``[serve] done:`` line:
 * greedy tokens (``argmax``, the first maximum on ties).
 
 Two differences, both deliberate. The slot's cache insert writes **every
-layer** of the stacked ``[L, B, S, KH, hd]`` cache; the reference writes
-only layer 0 (its insert updates index ``slot`` of axis 1 with ``s[0]``,
-which is layer 0's cache; see ROADMAP Queue 3), so its later layers keep
-zeros or the slot's previous request. And the cache is preallocated and
-written in place, which stands in for the reference's buffer donation.
+layer** of every field of the stacked cache (the ``[L, B, S, KH, hd]`` keys
+and values, or the xLSTM's recurrent states); the reference writes only
+layer 0 (its insert updates index ``slot`` of axis 1 with ``s[0]``, which is
+layer 0's slice of each field; see ROADMAP Queue 3), so its later layers
+keep zeros or the slot's previous request. And the cache is preallocated
+and written in place, which stands in for the reference's buffer donation.
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator`` on the
 device; prompts are drawn from ``numpy.random.default_rng(seed)`` exactly
@@ -38,13 +41,15 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
-from repro_torch.models import KVCache, build_model
+from repro_torch.models import build_model
+from repro_torch.models.transformer import Cache
 
 
-def insert_cache(big: KVCache, small: KVCache, slot: int) -> None:
-    """Write a single-sequence cache into batch slot ``slot``, every layer."""
-    big.k[:, slot].copy_(small.k[:, 0])
-    big.v[:, slot].copy_(small.v[:, 0])
+def insert_cache(big: Cache, small: Cache, slot: int) -> None:
+    """Write a single-sequence cache into batch slot ``slot``: every field
+    (``[L, B, ...]``), every layer."""
+    for dst, src in zip(big, small):
+        dst[:, slot].copy_(src[:, 0])
 
 
 def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:

@@ -54,10 +54,11 @@ def _arrays_from_params(model):
             "lm_head": np32(model.lm_head.weight.t()), "stages": (stage,)}
 
 
-def _model_api_loop(params, requests, slots, prompt_len, max_new, cache_len, seed=0):
+def _model_api_loop(params, requests, slots, prompt_len, max_new, cache_len, seed=0,
+                    arch=ARCH):
     """The serve loop on the JAX model API, every layer inserted: request id
     -> generated tokens."""
-    cfg = jget_arch(ARCH, reduced=True)
+    cfg = jget_arch(arch, reduced=True)
     model = jbuild(cfg)
     rng = np.random.default_rng(seed)
     queue = [rng.integers(0, cfg.vocab_size, size=prompt_len).astype(np.int32)
