@@ -8,15 +8,22 @@ Phases (each prints a line; any failed check exits non-zero):
 1. device: the card and its power limit (``nvidia-smi``); no CUDA, no run;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), with the build seconds and
-   each kernel's ptxas register, shared-memory and spill lines;
+   the ptxas register, shared-memory and spill lines of every kernel
+   variant (each event kernel, the 16 SIMT and 2 wgmma flash kernels, the
+   6 ``ssd_scan`` pass kernels);
 3. kernels: each event kernel against its plain PyTorch version on the
    card, bit for bit, at the engine's shapes and more; ``flash_attention``
    against its plain version at the serve path's prefill shape in bf16 and
    f32 and at MQA, Sq > Sk, a ragged KV tail, non-causal Sk > Sq, a ragged
-   Sq and head dims 64 and 16 (f32 atol and rtol 2e-5, bf16 3e-2); the
-   device time of each (``torch.profiler``: the kernels' own durations),
-   the host time per call, the card's bound for the same work, and for
-   flash attention the time of ``scaled_dot_product_attention``;
+   Sq and head dims 64 and 16 (f32 atol and rtol 2e-5, bf16 3e-2), each
+   call on the variant that ``flash_attention.variant`` names (bf16 hd 64
+   and 128 on the wgmma kernel, the rest on the SIMT kernel); the device
+   time of each (``torch.profiler``: the kernels' own durations), the host
+   time per call and the card's bound for the same work; for flash
+   attention at the prefill shape in bf16, in turns in one call, the SIMT
+   kernel, the wgmma kernel, the wgmma kernel and the SIMT kernel on the
+   same inputs, then the plain version and
+   ``scaled_dot_product_attention``;
 4. labels: the paper's seven schedulers on a 16-node homogeneous and a
    16-node mixed platform on the card; then, on the grouped path, the seven
    on a 280-node Curie platform replaying a Curie-class SWF trace, and
@@ -37,13 +44,15 @@ Phases (each prints a line; any failed check exits non-zero):
 8. LM serve: ``repro_torch.launch.serve`` serves the full-width
    internlm2-1.8b in bf16 (16 requests of 1024 tokens, 4 slots, 32 new
    tokens, cache 1280) — the flash kernel must have launched once per
-   layer per request (384); one prefill (flash kernel against matmuls)
+   layer per request (384), every launch on the wgmma variant; one
+   prefill (flash kernel against matmuls)
    and one decode step are profiled; then, in f32, two 1024-token prompts
    go through ``prefill`` by the kernel route and by the plain route, whose
    last-position logits must agree;
 9. xLSTM serve: the same loop and flags serve the full-width xlstm-350m in
-   bf16 — ``ssd_scan`` must have launched twice per ``xlstm_pair`` per
-   request (384) and no other kernel; one ``xlstm_pair`` block at S 1024
+   bf16 — ``ssd_scan`` must have been called twice per ``xlstm_pair`` per
+   request (384, each call three launches) and no other kernel; one
+   ``xlstm_pair`` block at S 1024
    is timed, its mLSTM and its sLSTM are profiled, and so is one decode
    step; then, in f32,
    two 1024-token prompts go through ``prefill`` by the kernel route and
@@ -53,7 +62,9 @@ Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
 dtypes and in f32, at a ragged S, from a non-zero state and at the
 reference's kernel-test shapes (f32: 1e-4 of max |y|; bf16 y: one bf16 ulp
-of the element plus 1e-5 of max |y|), and times it.
+of the element plus 1e-5 of max |y|), checks that a second run is bit for
+bit the first and that the built library's launch plan is
+``ssd_scan.launch_plan``'s, and times its three passes.
 
 Then it prints the kernels' JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It imports
@@ -132,6 +143,11 @@ SSD_CHECKS = [
 # output's largest magnitude; a bf16 y adds one bf16 ulp of the element
 # (2**-7 of its magnitude) for the one rounding of either side
 SSD_F32_TOL = 1e-4
+# the ssd_scan kernel instantiations: the chunk and output passes at tile
+# widths 64 and 128, the state pass and the narrow output pass
+SSD_INSTANCES = sorted(["ssd_scan_chunk_kernel<64>", "ssd_scan_chunk_kernel<128>",
+                        "ssd_scan_state_kernel", "ssd_scan_out_kernel<64>",
+                        "ssd_scan_out_kernel<128>", "ssd_scan_out_narrow_kernel"])
 BF16_ULP = 2.0 ** -7
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 # f32 kernel route against plain route, last-position logits of the full
@@ -225,14 +241,14 @@ def time_ms(torch, fn, args, reps=5, iters=200, warmup=20):
 
 
 def device_ms(torch, fn, args, calls=200, warmup=20):
-    """(device ms per call, device ops per call, op names, share recorded):
-    the durations of the device operations that ``calls`` calls launch, read
-    from ``torch.profiler``, after a warm-up. Gaps between them and the
-    host's time are not counted. The profiler may lose a few records of a
-    long capture, so each op name is timed by its mean recorded duration
-    times its launches per call (its recorded count over ``calls``,
-    rounded); the share of the expected records that were seen is returned
-    and must be at least a half."""
+    """(device ms per call, device ops per call, {op name: device ms per
+    call}, share recorded): the durations of the device operations that
+    ``calls`` calls launch, read from ``torch.profiler``, after a warm-up.
+    Gaps between them and the host's time are not counted. The profiler may
+    lose a few records of a long capture, so each op name is timed by its
+    mean recorded duration times its launches per call (its recorded count
+    over ``calls``, rounded); the share of the expected records that were
+    seen is returned and must be at least a half."""
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
@@ -252,8 +268,8 @@ def device_ms(torch, fn, args, calls=200, warmup=20):
     seen = sum(len(v) for v in by_name.values()) / (n_ops * calls)
     check(seen >= 0.5, f"the profiler recorded {seen:.2f} of the device "
           f"operations of {fn.__name__}")
-    ms = sum(statistics.fmean(v) * per_call[k] for k, v in by_name.items()) / 1e3
-    return ms, n_ops, sorted(by_name), seen
+    each = {k: statistics.fmean(v) * per_call[k] / 1e3 for k, v in sorted(by_name.items())}
+    return sum(each.values()), n_ops, each, seen
 
 
 def bound_ms(bytes_moved: float, ops: float):
@@ -302,21 +318,43 @@ def ptxas_report(log: str, kernels):
     return out
 
 
-def flash_ptxas(log: str):
-    """{"<dtype> hd<=<n>": [lines]}: the ptxas registers, shared-memory and
-    spill lines of each instantiation of the flash kernel (dtype x columns
-    per lane)."""
+def instance_ptxas(log: str, label):
+    """{label: [lines]}: the ptxas registers, shared-memory and spill lines
+    of each kernel instantiation whose mangled name ``label(name)`` maps to
+    a label (None: not reported)."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
-            m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d)E", line)
-            cur = (f"{'f32' if m.group(1) == 'f' else 'bf16'} hd<={32 * int(m.group(2))}"
-                   if m else None)
+            cur = label(line)
             if cur:
                 out.setdefault(cur, [])
         elif cur and any(w in line for w in ("registers", "spill", "smem")):
             out[cur].append(line.strip())
     return out
+
+
+def flash_label(line: str):
+    """"simt <dtype> hd<=<n>" (dtype x columns per lane) or "wgmma bf16 hd
+    <n>" for a flash kernel's mangled name."""
+    m = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d)E", line)
+    if m:
+        return f"simt {'f32' if m.group(1) == 'f' else 'bf16'} hd<={32 * int(m.group(2))}"
+    m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
+    return f"wgmma bf16 hd {m.group(1)}" if m else None
+
+
+def ssd_label(line: str):
+    """"ssd_scan_<pass>_kernel[<BN>]" for an ``ssd_scan`` kernel's mangled name."""
+    m = re.search(r"\d(ssd_scan_[a-z_]+?_kernel)(?:ILi(\d+)E)?", line)
+    return (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else None
+
+
+def kernel_base(name: str) -> str:
+    """The function name in a profiler's kernel name: the first identifier
+    right before a "<" or "(" ("void (anonymous namespace)::f<128>(...)" ->
+    "f"), or the whole name."""
+    m = re.search(r"([A-Za-z_]\w*)[<(]", name)
+    return m.group(1) if m else name
 
 
 def flash_bound(b, sq, sk, h, kh, hd, causal, itemsize):
@@ -379,7 +417,7 @@ def ssd_inputs(torch, np, shape, dtypes, h0=False, seed=0):
 
 def kernel_kind(name: str) -> str:
     """ssd, matmul or other, for a device kernel's name."""
-    if "ssd_scan_kernel" in name:
+    if kernel_base(name).startswith("ssd_scan"):
         return "ssd"
     return "matmul" if kernel_class(name) == "matmul" else "other"
 
@@ -445,7 +483,7 @@ def top_level_ops(torch, prof) -> int:
 
 def kernel_class(name: str) -> str:
     """flash, matmul or other, for a device kernel's name."""
-    if "flash_attention_kernel" in name:
+    if kernel_base(name) in ("flash_attention_kernel", "flash_attention_wgmma_kernel"):
         return "flash"
     low = name.lower()
     if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "matmul", "cublas")):
@@ -565,14 +603,17 @@ def main() -> None:
         check(report[kname], f"ptxas reported nothing for {kname}")
         for line in report[kname]:
             print(f"  ptxas {kname}: {line}")
-    flash_report = flash_ptxas(_build.build_log("flash_attention"))
-    check(len(flash_report) == 16, f"ptxas reported {sorted(flash_report)} "
-          "for flash_attention (16 instantiations expected)")
+    flash_report = instance_ptxas(_build.build_log("flash_attention"), flash_label)
+    check(len(flash_report) == 18 and all(flash_report.values()),
+          f"ptxas reported {sorted(flash_report)} for flash_attention (16 SIMT and 2 "
+          "wgmma instantiations expected)")
     for inst, lines in sorted(flash_report.items()):
         print(f"  ptxas flash_attention {inst}: {'; '.join(lines)}")
-    ssd_report = ptxas_report(_build.build_log("ssd_scan"), ["ssd_scan"])["ssd_scan"]
-    check(ssd_report, "ptxas reported nothing for ssd_scan")
-    print(f"  ptxas ssd_scan: {'; '.join(ssd_report)}")
+    ssd_report = instance_ptxas(_build.build_log("ssd_scan"), ssd_label)
+    check(sorted(ssd_report) == SSD_INSTANCES and all(ssd_report.values()),
+          f"ptxas reported {sorted(ssd_report)} for ssd_scan, not {SSD_INSTANCES}")
+    for inst, lines in sorted(ssd_report.items()):
+        print(f"  ptxas {inst}: {'; '.join(lines)}")
 
     # ---- 3. kernels against their plain versions ----
     def empty_pair(cols):
@@ -625,11 +666,14 @@ def main() -> None:
     for dname, tol in FLASH_TOL.items():
         for shape in FLASH_SHAPES:
             q, k, v = flash_inputs(torch, np, shape, getattr(torch, dname))
-            before = fa.LAUNCHES["flash_attention"]
+            route = fa.variant(q.dtype, shape[5])
+            before = dict(fa.LAUNCHES)
             got = fa.flash_attention(q, k, v, causal=shape[-1])
             torch.cuda.synchronize()
-            check(fa.LAUNCHES["flash_attention"] == before + 1,
-                  f"flash_attention launch count at {shape} {dname}")
+            check(fa.LAUNCHES == dict(before, **{
+                "flash_attention": before["flash_attention"] + 1,
+                f"flash_attention_{route}": before[f"flash_attention_{route}"] + 1}),
+                f"flash_attention launch counts at {shape} {dname}: one {route} launch")
             want = fa.flash_attention_plain(q, k, v, causal=shape[-1])
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"flash_attention output shape/dtype at {shape} {dname}")
@@ -638,7 +682,8 @@ def main() -> None:
                 got.float(), want.float(), atol=tol, rtol=tol),
                 f"flash_attention == plain at {shape} {dname}: max abs err {e}")
             flash_err = max(flash_err, e)
-            flash_cases.append(f"{dname} {shape[:6]}{'' if shape[-1] else ' full'}: {e:.3g}")
+            flash_cases.append(
+                f"{dname} {shape[:6]}{'' if shape[-1] else ' full'} {route}: {e:.3g}")
     zq = torch.zeros((1, 0, 2, 16), device="cuda", dtype=torch.bfloat16)
     zk = torch.zeros((1, 8, 2, 16), device="cuda", dtype=torch.bfloat16)
     before = fa.LAUNCHES["flash_attention"]
@@ -652,6 +697,9 @@ def main() -> None:
     def flash_kernel(q, k, v):
         return fa.flash_attention(q, k, v, causal=True)
 
+    def flash_simt(q, k, v):  # the SIMT kernel, whatever the table routes
+        return fa.launch_variant("simt", q, k, v, causal=True)
+
     def flash_plain(q, k, v):
         return fa.flash_attention_plain(q, k, v, causal=True)
 
@@ -660,27 +708,55 @@ def main() -> None:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    flash_time = {}
-    for dname in ("bfloat16", "float32"):
-        args = flash_inputs(torch, np, FLASH_MAIN, getattr(torch, dname))
-        k_ms, k_ops, k_names, k_seen = device_ms(torch, flash_kernel, args, calls=100)
-        check(k_ops == 1 and "flash_attention_kernel" in k_names[0],
-              f"flash_attention ran {k_ops} device ops a call: {k_names}")
-        p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=50)
-        l_ms, l_ops, l_names, l_seen = device_ms(torch, sdpa, args, calls=100)
-        l_err = float((sdpa(*args).float() - flash_plain(*args).float()).abs().max())
-        k_host = host_ms(torch, flash_kernel, args)
-        b_ms, b_by = flash_bound(*FLASH_MAIN, itemsize=args[0].element_size())
-        flash_time[dname] = (k_ms, p_ms, l_ms, b_ms, b_by)
-        print(f"phase 3 kernels: flash_attention {dname} (B, Sq, Sk, H, KH, hd) "
-              f"{FLASH_MAIN[:6]} causal: device time kernel {1e3 * k_ms:.3f} us, "
-              f"plain {1e3 * p_ms:.3f} us ({p_ops} device ops), "
-              f"scaled_dot_product_attention {1e3 * l_ms:.3f} us ({l_ops} device "
-              f"ops: {', '.join(n[:60] for n in l_names)}; max abs diff from plain "
-              f"{l_err:.3g}); bound {1e3 * b_ms:.3f} us ({b_by}); kernel wrapper "
-              f"host time {1e3 * k_host:.2f} us per call; profiler records seen: "
-              f"kernel {k_seen:.3f}, plain {p_seen:.3f}, sdpa {l_seen:.3f}",
-              flush=True)
+    def one_kernel(fn, args, kname):
+        """Device ms per call of ``fn``, which must launch only ``kname``."""
+        ms, ops, names, seen = device_ms(torch, fn, args, calls=100)
+        check(ops == 1 and [kernel_base(n) for n in names] == [kname],
+              f"{fn.__name__} ran {ops} device ops a call: {list(names)}")
+        return ms, seen
+
+    # bf16 at the prefill shape, in turns: SIMT, wgmma, wgmma, SIMT
+    args = flash_inputs(torch, np, FLASH_MAIN, torch.bfloat16)
+    turns = [(route, one_kernel(fn, args, kname)) for route, fn, kname in (
+        ("simt", flash_simt, "flash_attention_kernel"),
+        ("wgmma", flash_kernel, "flash_attention_wgmma_kernel"),
+        ("wgmma", flash_kernel, "flash_attention_wgmma_kernel"),
+        ("simt", flash_simt, "flash_attention_kernel"))]
+    w_ms = statistics.fmean(t[0] for r, t in turns if r == "wgmma")
+    s_ms = statistics.fmean(t[0] for r, t in turns if r == "simt")
+    simt_err = float((flash_simt(*args).float() - flash_plain(*args).float()).abs().max())
+    p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=50)
+    l_ms, l_ops, l_names, l_seen = device_ms(torch, sdpa, args, calls=100)
+    l_err = float((sdpa(*args).float() - flash_plain(*args).float()).abs().max())
+    k_host = host_ms(torch, flash_kernel, args)
+    b_ms, b_by = flash_bound(*FLASH_MAIN, itemsize=2)
+    flash_time = {"bfloat16": (w_ms, p_ms, l_ms, b_ms, b_by, s_ms)}
+    print(f"phase 3 kernels: flash_attention bfloat16 (B, Sq, Sk, H, KH, hd) "
+          f"{FLASH_MAIN[:6]} causal, in turns: device time "
+          + ", ".join(f"{r} {1e3 * t[0]:.3f} us" for r, t in turns)
+          + f" (wgmma {1e3 * w_ms:.3f} us, SIMT {1e3 * s_ms:.3f} us: {s_ms / w_ms:.1f}x; "
+          f"SIMT on these bf16 inputs == plain to {simt_err:.3g}); plain "
+          f"{1e3 * p_ms:.3f} us ({p_ops} device ops); scaled_dot_product_attention "
+          f"{1e3 * l_ms:.3f} us ({l_ops} device ops: "
+          f"{', '.join(n[:60] for n in l_names)}; max abs diff from plain {l_err:.3g}); "
+          f"wgmma / SDPA {w_ms / l_ms:.2f}; bound {1e3 * b_ms:.3f} us ({b_by}), "
+          f"wgmma at {b_ms / w_ms:.3f} of it; wgmma wrapper host time "
+          f"{1e3 * k_host:.2f} us per call; profiler records seen: "
+          + ", ".join(f"{r} {t[1]:.3f}" for r, t in turns)
+          + f", plain {p_seen:.3f}, sdpa {l_seen:.3f}", flush=True)
+    # f32 at the prefill shape: the SIMT kernel
+    args = flash_inputs(torch, np, FLASH_MAIN, torch.float32)
+    k_ms, k_seen = one_kernel(flash_kernel, args, "flash_attention_kernel")
+    p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=50)
+    l_ms, l_ops, l_names, l_seen = device_ms(torch, sdpa, args, calls=100)
+    b_ms, b_by = flash_bound(*FLASH_MAIN, itemsize=4)
+    flash_time["float32"] = (k_ms, p_ms, l_ms, b_ms, b_by, k_ms)
+    print(f"phase 3 kernels: flash_attention float32 (B, Sq, Sk, H, KH, hd) "
+          f"{FLASH_MAIN[:6]} causal: device time SIMT kernel {1e3 * k_ms:.3f} us, plain "
+          f"{1e3 * p_ms:.3f} us ({p_ops} device ops), scaled_dot_product_attention "
+          f"{1e3 * l_ms:.3f} us ({l_ops} device ops); bound {1e3 * b_ms:.3f} us "
+          f"({b_by}); profiler records seen: kernel {k_seen:.3f}, plain {p_seen:.3f}, "
+          f"sdpa {l_seen:.3f}", flush=True)
 
     # ssd_scan: tolerance, not bits (f32 sums in another order)
     ssd_err, ssd_cases = 0.0, []
@@ -705,6 +781,13 @@ def main() -> None:
               and bool(torch.isfinite(h_t).all()) and h_e <= SSD_F32_TOL * h_scale,
               f"ssd_scan == plain at {label} {shape}: y max abs err {e} of {scale}, "
               f"h_final {h_e} of {h_scale}")
+        y2, h2 = ssd.ssd_scan(q, k, v, g, h0, chunk)
+        check(torch.equal(y2, y) and torch.equal(h2, h_t),
+              f"ssd_scan at {label}: a second run is not bit for bit the first")
+        plan = ssd.launch_plan(*shape)
+        check(ssd.kernel_plan(*shape) == {key: plan[key] for key in
+                                          ("grids", "tile_n", "score_parts")},
+              f"ssd_scan at {label}: the library's launch plan is not launch_plan's")
         ssd_err = max(ssd_err, e)
         ssd_cases.append(f"{label} {shape[:5]} chunk {chunk}: y {e:.3g} of {scale:.3g}, "
                          f"h {h_e:.3g} of {h_scale:.3g}")
@@ -714,7 +797,8 @@ def main() -> None:
     check(zy.shape == zq.shape and zh.shape == (1, 2, 16, 16) and not zh.any()
           and ssd.LAUNCHES["ssd_scan"] == before, "ssd_scan zero size: zeros, no launch")
     print(f"phase 3 kernels: ssd_scan == plain (f32 y and h_final to {SSD_F32_TOL} of "
-          f"their largest magnitude; bf16 y to one bf16 ulp plus 1e-5 of it) at "
+          f"their largest magnitude; bf16 y to one bf16 ulp plus 1e-5 of it), a second "
+          f"run bit for bit the first, the library's launch plan launch_plan's, at "
           f"(B, S, H, dk, dv): {'; '.join(ssd_cases)}", flush=True)
 
     def ssd_kernel(q, k, v, g, h0):
@@ -729,19 +813,23 @@ def main() -> None:
         b, _, h, dk, dv, _ = shape
         args[4] = torch.zeros((b, h, dk, dv), device="cuda")  # the prefill's zero state
         k_ms, k_ops, k_names, k_seen = device_ms(torch, ssd_kernel, args, calls=50)
-        check(k_ops == 1 and "ssd_scan_kernel" in k_names[0],
-              f"ssd_scan ran {k_ops} device ops a call: {k_names}")
+        check(k_ops == ssd.KERNELS_PER_CALL
+              and all(kernel_base(x).startswith("ssd_scan") for x in k_names),
+              f"ssd_scan ran {k_ops} device ops a call ({ssd.KERNELS_PER_CALL} "
+              f"expected): {list(k_names)}")
         p_ms, p_ops, _, p_seen = device_ms(torch, ssd_plain, args, calls=10)
         k_host = host_ms(torch, ssd_kernel, args)
         b_ms, b_by = ssd_bound(*shape, itemsizes=(2, 4, 2), h0=True)
         ssd_time[dv] = (k_ms, p_ms, b_ms, b_by, k_host)
         print(f"phase 3 kernels: ssd_scan (B, S, H, dk, dv, chunk) {shape} q bf16, k "
-              f"f32, v bf16, zero h0: device time kernel {1e3 * k_ms:.3f} us, plain "
-              f"{1e3 * p_ms:.3f} us ({p_ops} device ops); bound {1e3 * b_ms:.3f} us "
-              f"({b_by}); kernel wrapper host time {1e3 * k_host:.2f} us per call; "
-              f"profiler records seen: kernel {k_seen:.3f}, plain {p_seen:.3f}; no "
-              "single PyTorch call computes a GLA scan, so there is no library time",
-              flush=True)
+              f"f32, v bf16, zero h0: device time kernels {1e3 * k_ms:.3f} us ("
+              + ", ".join(f"{kernel_base(x)} {1e3 * t:.3f}" for x, t in k_names.items())
+              + f"), plain {1e3 * p_ms:.3f} us ({p_ops} device ops; kernels / plain "
+              f"{k_ms / p_ms:.3f}); bound {1e3 * b_ms:.3f} us ({b_by}), kernels at "
+              f"{b_ms / k_ms:.3f} of it; kernel wrapper host time {1e3 * k_host:.2f} us "
+              f"per call; profiler records seen: kernels {k_seen:.3f}, plain "
+              f"{p_seen:.3f}; no single PyTorch call computes a GLA scan, so there is "
+              "no library time", flush=True)
 
     print(f"phase 3 kernels: each event kernel == its plain version bit for bit: "
           f"event_fuse_ledger and event_fuse at {EXACT_SHAPES}, "
@@ -952,6 +1040,7 @@ def main() -> None:
     ssd.reset_launches()
     result = serve.main(SERVE_ARGS, stats=stats)
     flash_launches = fa.LAUNCHES["flash_attention"]
+    flash_routes = dict(fa.LAUNCHES)
     serve_events = dict(event_fuse.LAUNCHES)
     check(ssd.LAUNCHES["ssd_scan"] == 0, "internlm2 serve launched ssd_scan")
     serve_peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -959,6 +1048,9 @@ def main() -> None:
     check(flash_launches == n_req * lm.n_layers,
           f"serve: flash_attention launches {flash_launches} != "
           f"{n_req} requests x {lm.n_layers} layers")
+    check(flash_routes["flash_attention_wgmma"] == flash_launches
+          and flash_routes["flash_attention_simt"] == 0,
+          f"serve: prefill flash launches by variant {flash_routes}, all wgmma expected")
     check(not any(serve_events.values()), f"serve launched {serve_events}")
     check((result["requests"], result["decode_steps"], result["total_tokens"])
           == (n_req, 4 * (max_new - 1), n_req * max_new),
@@ -970,7 +1062,8 @@ def main() -> None:
     dec_ms = [1e3 * x for x in stats["decode_s"]]
     print(f"phase 8 serve: {ARCH} full width bf16 on cuda, 16 requests x 1024 "
           f"tokens, 4 slots, 32 new tokens, cache 1280: flash_attention "
-          f"launches {flash_launches} (= 16 x {lm.n_layers} layers); prefill "
+          f"launches {flash_launches} (= 16 x {lm.n_layers} layers), all on the wgmma "
+          f"kernel ({flash_routes}); prefill "
           f"first {pre_ms[0]:.2f} ms, median of the rest "
           f"{statistics.median(pre_ms[1:]):.2f} ms per request; decode median "
           f"{statistics.median(dec_ms):.3f} ms, mean {statistics.fmean(dec_ms):.3f} "
@@ -1042,8 +1135,9 @@ def main() -> None:
         model.attn_impl = "auto"
         logits_k, _ = model.prefill(prompts)
         torch.cuda.synchronize()
-        check(fa.LAUNCHES["flash_attention"] == lm.n_layers,
-              f"f32 prefill: flash launches {fa.LAUNCHES} != {lm.n_layers}")
+        check(fa.LAUNCHES["flash_attention"] == fa.LAUNCHES["flash_attention_simt"]
+              == lm.n_layers, f"f32 prefill: flash launches {fa.LAUNCHES}, "
+              f"{lm.n_layers} on the SIMT kernel expected")
         model.attn_impl = "naive"
         logits_p, _ = model.prefill(prompts)
         check(fa.LAUNCHES["flash_attention"] == lm.n_layers,
@@ -1066,7 +1160,7 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
     print(f"phase 8 serve: f32 full width, 2 x 1024-token prompts, prefill by "
-          f"the kernel route ({lm.n_layers} launches) vs the plain route: "
+          f"the kernel route ({lm.n_layers} SIMT launches) vs the plain route: "
           f"last-position logits max abs diff {diff:.3g} (largest |logit| "
           f"{scale:.3g}, tolerance {LOGITS_REL_TOL} of it); greedy first "
           f"tokens kernel {tok_k}, plain {tok_p}; phase wall "
@@ -1098,8 +1192,9 @@ def main() -> None:
     x_pre = [1e3 * x for x in stats["prefill_s"]]
     x_dec = [1e3 * x for x in stats["decode_s"]]
     print(f"phase 9 serve: {XARCH} full width bf16 on cuda, 16 requests x 1024 "
-          f"tokens, 4 slots, 32 new tokens: {xresult}; ssd_scan launches "
-          f"{ssd_launches} (= 16 x {n_pairs} pairs x 2), no other kernel; prefill "
+          f"tokens, 4 slots, 32 new tokens: {xresult}; ssd_scan calls "
+          f"{ssd_launches} (= 16 x {n_pairs} pairs x 2, {ssd.KERNELS_PER_CALL} launches "
+          f"each), no other kernel; prefill "
           f"first {x_pre[0]:.2f} ms, median of the rest "
           f"{statistics.median(x_pre[1:]):.2f} ms per request; decode median "
           f"{statistics.median(x_dec):.3f} ms, mean {statistics.fmean(x_dec):.3f} ms "
@@ -1134,9 +1229,9 @@ def main() -> None:
         split["slstm"] = profile_split(torch, parts["slstm"], calls=3)
         split["mlstm"] = profile_split(torch, parts["mlstm"], calls=100)
     mlk, slk = split["mlstm"][0], split["slstm"][0]
-    check(split["mlstm"][3] == 2 and mlk["matmul"] > 0,
-          f"profiled mLSTM: {split['mlstm'][3]} ssd_scan launches a call (2 expected), "
-          f"device ms by kind {mlk}")
+    check(split["mlstm"][3] == 2 * ssd.KERNELS_PER_CALL and mlk["matmul"] > 0,
+          f"profiled mLSTM: {split['mlstm'][3]} ssd_scan launches a call "
+          f"({2 * ssd.KERNELS_PER_CALL} expected), device ms by kind {mlk}")
     check(split["slstm"][3] == 0 and split["slstm"][2] >= prompt.shape[1],
           f"profiled sLSTM: {split['slstm'][2]} device ops a call, device ms {slk}")
     x_pre_med = statistics.median(x_pre[1:])
@@ -1145,7 +1240,8 @@ def main() -> None:
           f"{1e3 * walls['block']:.2f} ms unprofiled; its mLSTM alone: wall "
           f"{1e3 * walls['mlstm']:.2f} ms, {split['mlstm'][1]:.0f} top-level host ops, "
           f"{split['mlstm'][2]} device ops, device {sum(mlk.values()):.3f} ms: ssd_scan "
-          f"{mlk['ssd']:.3f} ms (2 launches), matmuls {mlk['matmul']:.3f} ms, other "
+          f"{mlk['ssd']:.3f} ms (2 calls, {2 * ssd.KERNELS_PER_CALL} launches), matmuls "
+          f"{mlk['matmul']:.3f} ms, other "
           f"{mlk['other']:.3f} ms (a call of 100 profiled, records seen "
           f"{split['mlstm'][4]:.3f}); its sLSTM alone: wall "
           f"{1e3 * walls['slstm']:.2f} ms, {split['slstm'][1]:.0f} top-level host ops, "
@@ -1242,8 +1338,11 @@ def main() -> None:
             "bound_ms": flash_time["bfloat16"][3],
             "bound_by": flash_time["bfloat16"][4],
             "library_ms": flash_time["bfloat16"][2],
+            "simt_ms": flash_time["bfloat16"][5], "ms_f32": flash_time["float32"][0],
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
-                    "hd 128) in bf16, causal; library: "
+                    "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "
+                    "launch), simt_ms the SIMT kernel on the same inputs, ms_f32 the "
+                    "SIMT kernel in f32; library: "
                     "scaled_dot_product_attention(is_causal, enable_gqa)",
         },
         {
@@ -1259,8 +1358,9 @@ def main() -> None:
             "note": "timed at the xLSTM serve prefill shape (B 1, S 1024, H 4, dk "
                     "512, chunk 128; q bf16, k f32, v bf16, zero h0) at dv 512 "
                     "(ms, plain_ms, bound_ms) and at the normaliser's dv 1 (*_dv1); "
-                    "half the main path's launches are each; no PyTorch call "
-                    "computes a GLA scan",
+                    "half the main path's calls are each; launches counts wrapper "
+                    "calls, each three kernel launches (chunk, state and output "
+                    "passes), and ms their sum; no PyTorch call computes a GLA scan",
         },
     ]}))
     print(f"script wall {time.perf_counter() - t_script:.1f} s")

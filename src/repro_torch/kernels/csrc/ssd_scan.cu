@@ -1,16 +1,18 @@
 // Chunked gated-linear-attention scan for Hopper (sm_90a). It replaces the
-// TPU kernel _ssd_kernel of repro/kernels/ssd_scan.py (the chunk program of
-// repro/models/ssm.py chunked_gla) and computes, for q, k [B, S, H, dk],
+// TPU kernel _ssd_kernel of repro/kernels/ssd_scan.py:44 (the chunk program
+// of repro/models/ssm.py chunked_gla) and computes, for q, k [B, S, H, dk],
 // v [B, S, H, dv] and the log decays g [B, S, H] (g <= 0),
 //
 //   h_t = exp(g_t) h_{t-1} + k_t (x) v_t,   y_t = q_t . h_t,
 //
 // from h_0 = h0 [B, H, dk, dv] (f32; a null pointer means zeros), returning
 // y [B, S, H, dv] in v's type and h_final [B, H, dk, dv] in f32. Within a
-// chunk of C steps, with b_t the inclusive cumsum of g from the chunk start:
+// chunk c of C steps, with b_t the inclusive cumsum of g from the chunk start:
 //
-//   y_t = sum_{s<=t} exp(b_t - b_s) (q_t . k_s) v_s + exp(b_t) q_t . h_in,
-//   h_out = exp(b_C) h_in + sum_s exp(b_C - b_s) k_s (x) v_s.
+//   P_c[t, s] = (q_t . k_s) exp(b_t - b_s) for s <= t, else 0,
+//   dS_c = sum_s exp(b_C - b_s) k_s (x) v_s,
+//   h_c = exp(b_C) h_{c-1} + dS_c                       (h_in of chunk c + 1),
+//   y_t = sum_s P_c[t, s] v_s + (q_t exp(b_t)) . h_{c-1}.
 //
 // Every operand is read as f32 (q, k, v each bf16 or f32, g f32) and every
 // product and sum is f32, in one fixed order (no atomics), so runs repeat
@@ -20,36 +22,42 @@
 // strides (the last stride 1); g through its three strides.
 //
 // Bound: at the xLSTM serve prefill shape (B 1, S 1024, H 4, dk 512,
-// chunk 128) the dv = 512 launch needs 4.8 GFLOP of f32 products counting
-// the causal half of each chunk's C x C scores (5.37 GFLOP with the full
-// square, which this kernel computes): 72-80 us at the H100's 67 TFLOP/s
+// chunk 128) the dv = 512 call needs 4.8 GFLOP of f32 products counting the
+// causal half of each chunk's C x C scores: 72 us at the H100's 67 TFLOP/s
 // f32 peak, against 25-29 MB of operands (7.5-8.8 us at 3.35 TB/s), so the
-// work is bound by operations. The dv = 1 launch (the mLSTM normaliser)
-// needs 0.28 GFLOP (4.2 us) against 12.6 MB (3.8 us). This first kernel
-// does its products as f32 FMAs on the CUDA cores out of shared memory;
-// tensor cores (wgmma, TMA) are later work.
+// work is bound by operations. The dv = 1 call (the mLSTM normaliser)
+// needs 0.28 GFLOP (4.2 us) against 12.6 MB (3.8 us).
 //
-// Shared memory: at dk = dv = 512 the state is 1 MiB per (b, h) and a
-// chunk's q or k tile 256 KiB in f32, both above a block's 227 KB. So the
-// state's dv columns are split across blocks: column j of h evolves only
-// with column j of v, so one block per (32 state columns, head, batch)
-// carries its dk x 32 slice of h (64 KB at dk 512) in shared memory and
-// walks the chunks in order. dk is streamed in sub-tiles of 32 rows, q and k
-// staged transposed as f32 ([d][t], rows padded to C + 4 floats so each
-// thread reads its rows as float4s); each thread loads its share of the next
-// sub-tile into registers while the current one is computed. Per sub-tile a
-// thread adds to its 8 x 8 tile of the C x C scores; each warp owns 4 state
-// columns and adds to its lanes' 4 x 4 tiles of q . h_in (the state rows of
-// the sub-tile), then, once every thread has read them, updates those state
-// rows with the sub-tile's k and the chunk's v (a warp whose columns lie
-// past dv skips both). After the last sub-tile the decayed, causally masked
-// scores go to shared memory (transposed) for the intra-chunk product with
-// v. Each block recomputes the chunk's scores for its own columns: redundant
-// work (16 times at dv 512) that keeps the kernel one pass; the grid is
-// ceil(dv / 32) x H x B blocks of 256 threads, so the dv = 1 launch runs on
-// B x H SMs and is bound by one block's instruction rate on the scores.
-// Shared memory: 4 * (32 dk + C (C + 4) + 64 (C + 4) + 35 C) bytes, 184.8 KB
-// at dk 512 and C 128, above the 48 KB default, so each launch opts in.
+// Design: three launches, each product computed once, every independent
+// (chunk, head, batch) in parallel; only the state pass walks the chunks in
+// order.
+//   1. ssd_scan_chunk_kernel, grid (tiles, chunks, B H): each block takes
+//      the chunk's cumsum b (warp 0, a shuffle scan; block 0 stores it) and
+//      then either one dk slice of 128 of a 64 x 64 tile of the lower
+//      triangle of the scores P_c (its partial sum, decayed and masked), or
+//      one 64 x BN tile of dS_c (depth C). The score tiles are a chunk's
+//      only C x C x dk work: split over 3 tiles x 4 slices, they spread the
+//      dv = 1 call over 384 blocks at the serve shape instead of the 4
+//      heads.
+//   2. ssd_scan_state_kernel, grid (dk dv / 1024, B H): a thread per 4
+//      state elements walks the chunks (8 chunks' loads in flight),
+//      overwrites dS_c with h_{c-1} (the state entering chunk c) and writes
+//      h_final. It streams the 32 MB of states at the dv = 512 serve shape
+//      through device memory twice and is bound by those bytes.
+//   3. ssd_scan_out_kernel, grid (C / 64 x dv / BN, chunks, B H): each block
+//      computes a 64 x BN tile of y as one product over the concatenated
+//      depth [P_c | q exp(b)] . [v ; h_{c-1}], reading only P's causal
+//      columns and summing its dk slices as it stages them. For dv <= 4
+//      (the normaliser) ssd_scan_out_narrow_kernel takes a warp per step
+//      instead, grid (C / 8, chunks, B H).
+// Each tile product is an f32 register-tiled GEMM on the CUDA cores: 256
+// threads, a 4 x BN/16 tile each, depth slices of 16 staged in shared
+// memory (double-buffered, and loaded into registers two slices ahead of
+// the one being multiplied), operands read 4 elements at a time (one 16- or
+// 8-byte load where aligned), converted to f32 and masked as they are
+// staged. BN is 128 when dv > 64, else 64. Scratch (allocated by the
+// wrapper): P [B H, n, dk / 128, C, C], the states [B H, n, dk, dv] and b
+// [B H, n, C], all f32; 8 MB, 32 MB and 16 KB at the dv = 512 serve shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,13 +66,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxChunk = 128;  // the scores' 16 x 16 grid of 8 x 8 thread tiles
-constexpr int kMaxDk = 512;     // the state slice dk x 32 fits shared memory
-constexpr int kKT = 32;         // dk rows per sub-tile, one per lane when staging
-constexpr int kDVT = 32;        // state columns per block
-constexpr size_t kMaxSmem = 232448;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kMaxChunk / kWarps;  // chunk steps each warp stages
+constexpr int kMaxChunk = 128;  // the cumsum's 4 steps a lane
+constexpr int kBM = 64;         // rows of every tile
+constexpr int kBK = 16;         // depth of one staged slice
+constexpr int kPad = 4;         // keeps staged rows 16-byte aligned, spreads banks
+constexpr int kScoreDepth = 128;  // dk per score block: the scores are split in depth
+constexpr int kNarrow = 4;      // dv up to this takes the warp-per-step output pass
 
 struct Args {
   const void* q;
@@ -74,7 +81,10 @@ struct Args {
   const float* h0;  // null: zeros
   void* y;
   float* hT;
-  int s, h, dk, dv, chunk;
+  float* scores;  // [B H, n, parts, C, C]: partial sums over dk slices
+  float* states;  // [B H, n, dk, dv]
+  float* bcum;    // [B H, n, C]
+  int s, h, dk, dv, chunk, n_chunks, parts;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -87,6 +97,37 @@ __device__ __forceinline__ float load(const void* p, int64_t i, int bf16) {
               : static_cast<const float*>(p)[i];
 }
 
+// Elements i .. i + 3 of p as f32, of which the first n exist (zeros for
+// the rest): one 16-byte (f32) or 8-byte (bf16) load when all four exist
+// and are aligned, else one load each.
+__device__ __forceinline__ float4 load4(const void* p, int64_t i, int bf16, int n) {
+  float r[4] = {0.f, 0.f, 0.f, 0.f};
+  if (bf16) {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p) + i;
+    if (n >= 4 && (reinterpret_cast<uintptr_t>(x) & 7) == 0) {
+      const uint2 u = *reinterpret_cast<const uint2*>(x);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      return make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) r[e] = __bfloat162float(x[e]);
+  } else {
+    const float* x = static_cast<const float*>(p) + i;
+    if (n >= 4 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+      return *reinterpret_cast<const float4*>(x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) r[e] = x[e];
+  }
+  return make_float4(r[0], r[1], r[2], r[3]);
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float w) {
+  return make_float4(v.x * w, v.y * w, v.z * w, v.w * w);
+}
+
 __device__ __forceinline__ void store(void* p, int64_t i, float x, int bf16) {
   if (bf16)
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
@@ -94,279 +135,501 @@ __device__ __forceinline__ void store(void* p, int64_t i, float x, int bf16) {
     static_cast<float*>(p)[i] = x;
 }
 
-// One sub-tile's q and k values for this thread (steps warp, warp + 8, ...;
-// dimension k0 + lane), zeros past the chunk's steps or dk. Loaded into
-// registers one sub-tile ahead, so their latency overlaps the products.
-__device__ __forceinline__ void fetch(const Args& a, int64_t q_base, int64_t k_base, int t0,
-                                      int len, int k0, int warp, int lane,
-                                      float (&qn)[kRowsPerWarp], float (&kn)[kRowsPerWarp]) {
-  const int d = k0 + lane;
+// Elements i .. i + 3 of p, of which the first n exist, from v: one 16-byte
+// (f32) or 8-byte (bf16) store when all four exist and are aligned.
+__device__ __forceinline__ void store4(void* p, int64_t i, float4 v, int bf16, int n) {
+  const float r[4] = {v.x, v.y, v.z, v.w};
+  if (bf16) {
+    __nv_bfloat16* x = static_cast<__nv_bfloat16*>(p) + i;
+    if (n >= 4 && (reinterpret_cast<uintptr_t>(x) & 7) == 0) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(x) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                *reinterpret_cast<const uint32_t*>(&hi));
+      return;
+    }
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + i * kWarps;
-    qn[i] = 0.f;
-    kn[i] = 0.f;
-    if (r < len && d < a.dk) {
-      qn[i] = load(a.q, q_base + static_cast<int64_t>(t0 + r) * a.q_ss + d, a.q_bf16);
-      kn[i] = load(a.k, k_base + static_cast<int64_t>(t0 + r) * a.k_ss + d, a.k_bf16);
+    for (int e = 0; e < 4; ++e)
+      if (e < n) x[e] = __float2bfloat16(r[e]);
+  } else {
+    float* x = static_cast<float*>(p) + i;
+    if (n >= 4 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+      *reinterpret_cast<float4*>(x) = v;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) x[e] = r[e];
+  }
+}
+
+int tile_n(int dv) { return dv > 64 ? 128 : 64; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The operand slices of a tile product, staged as f32 [kBK][rows + kPad],
+// are read in groups of 4 elements along the operand's contiguous
+// dimension. A K-contiguous operand (element (row, k) next to (row, k + 1))
+// is read 4 threads to a row and stored transposed; a row-contiguous one
+// is read along its rows, 4 rows a thread.
+template <int ROWS, bool KCONTIG>
+struct Slice {
+  static constexpr int kPer = ROWS * kBK / 4 / kThreads;  // groups per thread
+  __device__ static void at(int tid, int i, int& row, int& kk) {
+    const int g = tid + kThreads * i;
+    if (KCONTIG) {
+      row = g / (kBK / 4);
+      kk = (g % (kBK / 4)) * 4;
+    } else {
+      kk = g / (ROWS / 4);
+      row = (g % (ROWS / 4)) * 4;
     }
   }
-}
-
-size_t smem_floats(int dk, int chunk) {
-  const size_t cp = chunk + 4;
-  return static_cast<size_t>(dk) * kDVT + chunk * cp + 2 * kKT * cp +
-         static_cast<size_t>(chunk) * kDVT + 3 * static_cast<size_t>(chunk);
-}
-
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = a.chunk, cp = C + 4, dk = a.dk, dv = a.dv;
-  float* h_s = smem;               // [dk][kDVT]  the state slice
-  float* p_s = h_s + dk * kDVT;    // [C][cp]     decayed scores, [s][t]
-  float* qt_s = p_s + C * cp;      // [kKT][cp]   q sub-tile, [d][t]
-  float* kt_s = qt_s + kKT * cp;   // [kKT][cp]   k sub-tile, [d][t]
-  float* v_s = kt_s + kKT * cp;    // [C][kDVT]   the chunk's v columns
-  float* bc_s = v_s + C * kDVT;    // [C]         b_t
-  float* w_s = bc_s + C;           // [C]         exp(b_C - b_t)
-  float* eb_s = w_s + C;           // [C]         exp(b_t)
-
-  const int j0 = blockIdx.x * kDVT;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const int64_t q_base = b * a.q_sb + head * a.q_sh;
-  const int64_t k_base = b * a.k_sb + head * a.k_sh;
-  const int64_t v_base = b * a.v_sb + head * a.v_sh;
-  const int64_t g_base = b * a.g_sb + head * a.g_sh;
-  const int64_t st_base = (static_cast<int64_t>(b) * a.h + head) * dk * dv;
-
-  for (int r = warp; r < dk; r += kWarps) {
-    const int j = j0 + lane;
-    h_s[r * kDVT + lane] =
-        (a.h0 != nullptr && j < dv) ? a.h0[st_base + static_cast<int64_t>(r) * dv + j] : 0.f;
+  template <int W>
+  __device__ static void put(float (*sm)[W], int row, int kk, float4 v) {
+    if (KCONTIG) {
+      sm[kk][row] = v.x;
+      sm[kk + 1][row] = v.y;
+      sm[kk + 2][row] = v.z;
+      sm[kk + 3][row] = v.w;
+    } else {
+      *reinterpret_cast<float4*>(&sm[kk][row]) = v;
+    }
   }
+};
 
-  // scores: rows 8 ty.., columns 8 tx..; a warp per 4 state columns yc..:
-  // outputs at rows yr.., the state update at row hr of the sub-tile
-  const int ty = tid >> 4, tx = tid & 15;
-  const bool p_on = 8 * ty < C && 8 * tx < C;
-  const int yc = 4 * warp, yr = 4 * lane, hr = lane;
-  const bool col_on = j0 + yc < dv;  // warp-uniform: columns past dv skip
+struct Smem {
+  float a[2][kBK][kBM + kPad];
+  float b[2][kBK][128 + kPad];
+};
 
-  const int n_chunks = (a.s + C - 1) / C;
-  float qn[kRowsPerWarp], kn[kRowsPerWarp];
-  fetch(a, q_base, k_base, 0, min(C, a.s), 0, warp, lane, qn, kn);
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int t0 = ci * C;
-    const int len = min(C, a.s - t0);
-    __syncthreads();  // the previous chunk's readers of p_s, v_s, bc_s are done
-
-    if (warp == 0) {  // b_t: 4 steps a lane, then a scan of the lanes' sums
-      float part[4];
-      float run = 0.f;
+// acc[i][j] += sum_{k < depth} A(ty 4 + i, k) B(k, col j), for this thread's
+// rows ty 4 + i and columns 64 jh + tx 4 + jj (j = 4 jh + jj) of a 64 x BN
+// tile. fa(row, k) and fb(k, col) return a group of 4 operand elements as
+// f32 (zero outside the operand): along k from (row, k) when the operand
+// is K-contiguous, else along its rows from (row, k) or columns from (k,
+// col). Slices are loaded into registers two ahead of the one being
+// multiplied, so each load has two slices' products to land. Ends with a
+// __syncthreads.
+template <int BN, bool A_KCONTIG, bool B_KCONTIG, class FA, class FB>
+__device__ __forceinline__ void tile_product(float (&acc)[4][BN / 16], int depth, const FA& fa,
+                                             const FB& fb, Smem& sm) {
+  using SA = Slice<kBM, A_KCONTIG>;
+  using SB = Slice<BN, B_KCONTIG>;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  float4 ra0[SA::kPer], rb0[SB::kPer], ra1[SA::kPer], rb1[SB::kPer];
+  auto fetch = [&](float4 (&ra)[SA::kPer], float4 (&rb)[SB::kPer], int k0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = 4 * lane + i;
-        run += t < len ? a.g[g_base + static_cast<int64_t>(t0 + t) * a.g_ss] : 0.f;
-        part[i] = run;
+    for (int i = 0; i < SA::kPer; ++i) {
+      int row, kk;
+      SA::at(tid, i, row, kk);
+      ra[i] = fa(row, k0 + kk);
+    }
+#pragma unroll
+    for (int i = 0; i < SB::kPer; ++i) {
+      int col, kk;
+      SB::at(tid, i, col, kk);
+      rb[i] = fb(k0 + kk, col);
+    }
+  };
+  auto put = [&](const float4 (&ra)[SA::kPer], const float4 (&rb)[SB::kPer], int buf) {
+#pragma unroll
+    for (int i = 0; i < SA::kPer; ++i) {
+      int row, kk;
+      SA::at(tid, i, row, kk);
+      SA::put(sm.a[buf], row, kk, ra[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < SB::kPer; ++i) {
+      int col, kk;
+      SB::at(tid, i, col, kk);
+      SB::put(sm.b[buf], col, kk, rb[i]);
+    }
+  };
+  auto multiply = [&](int buf) {
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&sm.a[buf][kk][ty * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      float br[BN / 16];
+#pragma unroll
+      for (int jh = 0; jh < BN / 64; ++jh) {
+        const float4 bv = *reinterpret_cast<const float4*>(&sm.b[buf][kk][jh * 64 + tx * 4]);
+        br[4 * jh] = bv.x;
+        br[4 * jh + 1] = bv.y;
+        br[4 * jh + 2] = bv.z;
+        br[4 * jh + 3] = bv.w;
       }
-      float incl = run;
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += o;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (4 * lane + i < C) bc_s[4 * lane + i] = excl + part[i];
-    }
-    {
-      float vn[kRowsPerWarp];
-      const int j = j0 + lane;
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = warp + i * kWarps;
-        vn[i] = (r < len && j < dv)
-                    ? load(a.v, v_base + static_cast<int64_t>(t0 + r) * a.v_ss + j, a.v_bf16)
-                    : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        if (warp + i * kWarps < C) v_s[(warp + i * kWarps) * kDVT + lane] = vn[i];
+        for (int j = 0; j < BN / 16; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
+  };
+  const int n = (depth + kBK - 1) / kBK;
+  fetch(ra0, rb0, 0);
+  if (n > 1) fetch(ra1, rb1, kBK);
+  put(ra0, rb0, 0);
+  __syncthreads();
+  // slice t is in shared buffer t % 2, slice t + 1 in registers (t + 1) % 2
+  for (int t = 0; t < n; t += 2) {
+    if (t + 2 < n) fetch(ra0, rb0, (t + 2) * kBK);
+    multiply(0);
+    if (t + 1 < n) put(ra1, rb1, 1);
     __syncthreads();
-    const float b_end = bc_s[C - 1];  // the missing steps' g = 0 keep it the last step's
-    const float d_end = expf(b_end);
-    for (int t = tid; t < C; t += kThreads) {
-      w_s[t] = expf(b_end - bc_s[t]);
-      eb_s[t] = expf(bc_s[t]);
-    }
+    if (t + 1 >= n) break;
+    if (t + 3 < n) fetch(ra1, rb1, (t + 3) * kBK);
+    multiply(1);
+    if (t + 2 < n) put(ra0, rb0, 0);
+    __syncthreads();
+  }
+}
 
-    float acc[8][8];
-    float yin[4][4];
+// Column of the tile that acc[.][j] belongs to.
+__device__ __forceinline__ int tile_col(int j) {
+  return (j / 4) * 64 + (threadIdx.x % 16) * 4 + j % 4;
+}
+
+// b_t, the inclusive cumsum of g over the chunk's steps t < len (g = 0
+// past them), into bc[0, C): warp 0, 4 steps a lane, then a scan of the
+// lanes' sums. Ends with a __syncthreads.
+__device__ __forceinline__ void chunk_cumsum(const Args& a, int64_t g_base, int t0, int len,
+                                             float* bc) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float part[4];
+    float run = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int t = 4 * lane + i;
+      run += t < len ? a.g[g_base + static_cast<int64_t>(t0 + t) * a.g_ss] : 0.f;
+      part[i] = run;
+    }
+    float incl = run;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) yin[i][j] = 0.f;
+      if (4 * lane + i < a.chunk) bc[4 * lane + i] = excl + part[i];
+  }
+  __syncthreads();
+}
 
-    for (int k0 = 0; k0 < dk; k0 += kKT) {
-      const int rows = min(kKT, dk - k0);
-      __syncthreads();  // qt_s, kt_s are free; at k0 == 0, w_s and eb_s are written
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {  // steps per warp, a d per lane
-        const int r = warp + i * kWarps;
-        if (r < C) {
-          qt_s[lane * cp + r] = qn[i];
-          kt_s[lane * cp + r] = kn[i];
-        }
-      }
-      if (k0 + kKT < dk)
-        fetch(a, q_base, k_base, t0, len, k0 + kKT, warp, lane, qn, kn);
-      else if (ci + 1 < n_chunks)
-        fetch(a, q_base, k_base, t0 + C, min(C, a.s - t0 - C), 0, warp, lane, qn, kn);
-      __syncthreads();
+// Pass 1: one dk slice of a lower-triangle 64 x 64 tile of the chunk's
+// scores, or a tile of its state contribution dS_c.
+template <int BN>
+__global__ void __launch_bounds__(kThreads) ssd_scan_chunk_kernel(Args a) {
+  __shared__ __align__(16) Smem sm;
+  __shared__ float bc_s[kMaxChunk];
+  __shared__ float w_s[kMaxChunk];
+  const int c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / a.h, head = bh % a.h;
+  const int C = a.chunk, t0 = c * C, len = min(C, a.s - t0);
+  const int64_t row_base = static_cast<int64_t>(bh) * a.n_chunks + c;  // (bh, c)
+  chunk_cumsum(a, b * a.g_sb + head * a.g_sh, t0, len, bc_s);
+  if (blockIdx.x == 0)
+    for (int t = threadIdx.x; t < C; t += kThreads) a.bcum[row_base * C + t] = bc_s[t];
 
-      if (p_on) {  // scores += q_sub . k_sub^T
-#pragma unroll 4
-        for (int d = 0; d < kKT; ++d) {
-          const float4 qa = *reinterpret_cast<const float4*>(qt_s + d * cp + 8 * ty);
-          const float4 qb = *reinterpret_cast<const float4*>(qt_s + d * cp + 8 * ty + 4);
-          const float4 ka = *reinterpret_cast<const float4*>(kt_s + d * cp + 8 * tx);
-          const float4 kb = *reinterpret_cast<const float4*>(kt_s + d * cp + 8 * tx + 4);
-          const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-          const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+  const int64_t q_base = b * a.q_sb + head * a.q_sh + static_cast<int64_t>(t0) * a.q_ss;
+  const int64_t k_base = b * a.k_sb + head * a.k_sh + static_cast<int64_t>(t0) * a.k_ss;
+  const int64_t v_base = b * a.v_sb + head * a.v_sh + static_cast<int64_t>(t0) * a.v_ss;
+  const int nt = cdiv(C, kBM);
+  const int n_tri = nt * (nt + 1) / 2;
+  const int n_score = n_tri * a.parts;
+  const int ty = threadIdx.x / 16;
+
+  if (static_cast<int>(blockIdx.x) < n_score) {  // scores: tile (ti, tj), tj <= ti
+    const int part = blockIdx.x / n_tri;
+    int ti = 0, u = blockIdx.x % n_tri;
+    while (u > ti) u -= ++ti;
+    const int m0 = ti * kBM, n0 = u * kBM;
+    const int d0 = part * kScoreDepth, depth = min(a.dk - d0, kScoreDepth);
+    auto fa = [&](int r, int kk) {  // q[t, d0 + kk ..], t = m0 + r
+      const int t = m0 + r;
+      return t < len ? load4(a.q, q_base + t * a.q_ss + d0 + kk, a.q_bf16, depth - kk)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    auto fb = [&](int kk, int col) {  // k[s, d0 + kk ..], s = n0 + col
+      const int s = n0 + col;
+      return s < len ? load4(a.k, k_base + s * a.k_ss + d0 + kk, a.k_bf16, depth - kk)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    float acc[4][4] = {};
+    tile_product<64, true, true>(acc, depth, fa, fb, sm);
+    float* out = a.scores + (row_base * a.parts + part) * C * C;
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int t = m0 + ty * 4 + i;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
-        }
-      }
-      if (col_on && yr < C) {  // q . h_in over the sub-tile's state rows
-#pragma unroll 4
-        for (int d = 0; d < rows; ++d) {
-          const float4 qv = *reinterpret_cast<const float4*>(qt_s + d * cp + yr);
-          const float4 hv = *reinterpret_cast<const float4*>(h_s + (k0 + d) * kDVT + yc);
-          const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-          const float ha[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) yin[i][j] = fmaf(qa[i], ha[j], yin[i][j]);
-        }
-      }
-      __syncthreads();  // every read of the sub-tile's old state rows is done
-      if (col_on && hr < rows) {  // h = exp(b_C) h + sum_s exp(b_C - b_s) k_s v_s
-        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-        for (int s = 0; s < len; ++s) {
-          const float kw = kt_s[hr * cp + s] * w_s[s];
-          const float4 vv = *reinterpret_cast<const float4*>(v_s + s * kDVT + yc);
-          sum.x = fmaf(kw, vv.x, sum.x);
-          sum.y = fmaf(kw, vv.y, sum.y);
-          sum.z = fmaf(kw, vv.z, sum.z);
-          sum.w = fmaf(kw, vv.w, sum.w);
-        }
-        float4* hp = reinterpret_cast<float4*>(h_s + (k0 + hr) * kDVT + yc);
-        const float4 ho = *hp;
-        *hp = make_float4(fmaf(d_end, ho.x, sum.x), fmaf(d_end, ho.y, sum.y),
-                          fmaf(d_end, ho.z, sum.z), fmaf(d_end, ho.w, sum.w));
+      for (int j = 0; j < 4; ++j) {
+        const int s = n0 + tile_col(j);
+        if (t < C && s < C)
+          out[t * C + s] = s <= t ? acc[i][j] * expf(bc_s[t] - bc_s[s]) : 0.f;
       }
     }
+    return;
+  }
 
-    if (p_on) {  // decayed, causally masked scores, transposed
+  // state contribution: rows i0.. of dk, columns j0.. of dv, depth the C steps
+  const int u = blockIdx.x - n_score;
+  const int n_jt = cdiv(a.dv, BN);
+  const int i0 = (u / n_jt) * kBM, j0 = (u % n_jt) * BN;
+  const float b_end = bc_s[C - 1];  // the missing steps' g = 0 keep it the last step's
+  for (int s = threadIdx.x; s < C; s += kThreads) w_s[s] = expf(b_end - bc_s[s]);
+  __syncthreads();
+  const int dk = a.dk, dv = a.dv;
+  auto fa = [&](int r, int s) {  // k[s, i ..] exp(b_C - b_s), i = i0 + r
+    const int i = i0 + r;
+    return s < len ? scale4(load4(a.k, k_base + s * a.k_ss + i, a.k_bf16, dk - i), w_s[s])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto fb = [&](int s, int col) {  // v[s, j ..], j = j0 + col
+    const int j = j0 + col;
+    return s < len ? load4(a.v, v_base + s * a.v_ss + j, a.v_bf16, dv - j) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float acc[4][BN / 16] = {};
+  tile_product<BN, false, false>(acc, C, fa, fb, sm);
+  float* out = a.states + row_base * dk * dv;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = 8 * ty + i;
+  for (int i = 0; i < 4; ++i) {
+    const int row = i0 + ty * 4 + i;
+    if (row >= dk) continue;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int s = 8 * tx + j;
-          p_s[s * cp + t] = s <= t ? acc[i][j] * expf(bc_s[t] - bc_s[s]) : 0.f;
-        }
-      }
+    for (int jh = 0; jh < BN / 64; ++jh) {
+      const int col = j0 + tile_col(4 * jh);
+      store4(out, static_cast<int64_t>(row) * dv + col,
+             make_float4(acc[i][4 * jh], acc[i][4 * jh + 1], acc[i][4 * jh + 2],
+                         acc[i][4 * jh + 3]),
+             0, dv - col);
     }
-    __syncthreads();
+  }
+}
 
-    if (col_on && yr < C) {  // y = scores . v + exp(b_t) q . h_in
-      float out[4][4];
+// Pass 2: h_c = exp(b_C) h_{c-1} + dS_c along the chunks, a thread per 4
+// consecutive state elements; dS_c's slot takes h_{c-1}, the state entering
+// chunk c. The slots are read kBatch chunks ahead of the stores, so each
+// thread keeps that many loads in flight.
+constexpr int kBatch = 8;
+
+__global__ void __launch_bounds__(kThreads) ssd_scan_state_kernel(Args a) {
+  const int64_t per = static_cast<int64_t>(a.dk) * a.dv;
+  const int64_t e = 4 * (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x);
+  const int bh = blockIdx.y;
+  if (e >= per) return;
+  const int n = a.n_chunks, C = a.chunk;
+  const int m = per - e < 4 ? static_cast<int>(per - e) : 4;  // elements of this thread
+  const int64_t at = bh * per + e;
+  float* slots = a.states + static_cast<int64_t>(bh) * n * per + e;
+  const float* b_end = a.bcum + static_cast<int64_t>(bh) * n * C + C - 1;
+  float4 hst = a.h0 != nullptr ? load4(a.h0, at, 0, m) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < n; c0 += kBatch) {
+    float4 ds[kBatch];
+    float decay[kBatch];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kBatch; ++i) {
+      const int c = c0 + i;
+      ds[i] = c < n ? load4(slots, c * per, 0, m) : make_float4(0.f, 0.f, 0.f, 0.f);
+      decay[i] = c < n ? expf(b_end[static_cast<int64_t>(c) * C]) : 0.f;
+    }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-      const int s_end = min(yr + 4, len);
-      for (int s = 0; s < s_end; ++s) {
-        const float4 pv = *reinterpret_cast<const float4*>(p_s + s * cp + yr);
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + s * kDVT + yc);
-        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) out[i][j] = fmaf(pa[i], va[j], out[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = yr + i;
-        if (t >= len) continue;
-        const float et = eb_s[t];
-        const int64_t row =
-            ((static_cast<int64_t>(b) * a.s + t0 + t) * a.h + head) * dv;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = j0 + yc + j;
-          if (col < dv) store(a.y, row + col, fmaf(et, yin[i][j], out[i][j]), a.v_bf16);
-        }
+    for (int i = 0; i < kBatch; ++i) {
+      if (c0 + i < n) {
+        store4(slots, (c0 + i) * per, hst, 0, m);
+        const float d = decay[i];
+        hst = make_float4(d * hst.x + ds[i].x, d * hst.y + ds[i].y, d * hst.z + ds[i].z,
+                          d * hst.w + ds[i].w);
       }
     }
   }
+  store4(a.hT, at, hst, 0, m);
+}
 
-  __syncthreads();  // the last sub-tiles' state rows are written
-  for (int r = warp; r < dk; r += kWarps) {
-    const int j = j0 + lane;
-    if (j < dv) a.hT[st_base + static_cast<int64_t>(r) * dv + j] = h_s[r * kDVT + lane];
+// P_c[t, s]: the sum of its dk slices' partial scores, in order.
+__device__ __forceinline__ float score(const float* p, int parts, int stride, int at) {
+  float sum = p[at];
+  for (int i = 1; i < parts; ++i) sum += p[i * stride + at];
+  return sum;
+}
+
+// Pass 3: a 64 x BN tile of y = [P_c | q exp(b)] . [v ; h_{c-1}].
+template <int BN>
+__global__ void __launch_bounds__(kThreads) ssd_scan_out_kernel(Args a) {
+  __shared__ __align__(16) Smem sm;
+  __shared__ float eb_s[kMaxChunk];
+  const int c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / a.h, head = bh % a.h;
+  const int C = a.chunk, t0 = c * C, len = min(C, a.s - t0);
+  const int dk = a.dk, dv = a.dv;
+  const int n_jt = cdiv(dv, BN);
+  const int m0 = (blockIdx.x / n_jt) * kBM, j0 = (blockIdx.x % n_jt) * BN;
+  const int64_t row_base = static_cast<int64_t>(bh) * a.n_chunks + c;
+  for (int t = threadIdx.x; t < C; t += kThreads) eb_s[t] = expf(a.bcum[row_base * C + t]);
+  __syncthreads();
+
+  const int64_t q_base = b * a.q_sb + head * a.q_sh + static_cast<int64_t>(t0) * a.q_ss;
+  const int64_t v_base = b * a.v_sb + head * a.v_sh + static_cast<int64_t>(t0) * a.v_ss;
+  const float* p = a.scores + row_base * a.parts * C * C;
+  const int parts = a.parts;
+  const float* h_in = a.states + row_base * dk * dv;
+  // the score columns these rows reach (s <= t < m0 + 64), in whole slices
+  const int kp = (min(C, m0 + kBM) + kBK - 1) / kBK * kBK;
+  auto fa = [&](int r, int kk) {  // P_c[t, kk ..] or q[t, i ..] exp(b_t)
+    const int t = m0 + r;
+    if (t >= len) return make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kk < kp) {  // the scores' causal columns s <= t
+      float4 v = load4(p, t * C + kk, 0, t + 1 - kk);
+      for (int i = 1; i < parts; ++i) {
+        const float4 w = load4(p + static_cast<int64_t>(i) * C * C, t * C + kk, 0, t + 1 - kk);
+        v = make_float4(v.x + w.x, v.y + w.y, v.z + w.z, v.w + w.w);
+      }
+      return v;
+    }
+    const int i = kk - kp;
+    return scale4(load4(a.q, q_base + t * a.q_ss + i, a.q_bf16, dk - i), eb_s[t]);
+  };
+  auto fb = [&](int kk, int col) {  // v[s, j ..] or h_in[i, j ..]
+    const int j = j0 + col;
+    if (kk < kp) return kk < len ? load4(a.v, v_base + kk * a.v_ss + j, a.v_bf16, dv - j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int i = kk - kp;
+    return i < dk ? load4(h_in, static_cast<int64_t>(i) * dv + j, 0, dv - j) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float acc[4][BN / 16] = {};
+  tile_product<BN, true, false>(acc, kp + dk, fa, fb, sm);
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = m0 + ty * 4 + i;
+    if (t >= len) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * a.s + t0 + t) * a.h + head) * dv;
+#pragma unroll
+    for (int jh = 0; jh < BN / 64; ++jh) {
+      const int col = j0 + tile_col(4 * jh);
+      store4(a.y, row + col,
+             make_float4(acc[i][4 * jh], acc[i][4 * jh + 1], acc[i][4 * jh + 2],
+                         acc[i][4 * jh + 3]),
+             a.v_bf16, dv - col);
+    }
   }
+}
+
+// Pass 3 for dv <= kNarrow (the mLSTM normaliser's dv = 1): a warp per
+// step t of a chunk computes y[t, :] = sum_{s <= t} P_c[t, s] v_s + (q_t
+// exp(b_t)) . h_{c-1}, its lanes striding over s and over dk, then a
+// butterfly sum over the warp (a fixed order).
+__global__ void __launch_bounds__(kThreads) ssd_scan_out_narrow_kernel(Args a) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / a.h, head = bh % a.h;
+  const int C = a.chunk, t0 = c * C, len = min(C, a.s - t0);
+  const int t = blockIdx.x * (kThreads / 32) + warp;
+  if (t >= len) return;
+  const int dk = a.dk, dv = a.dv;
+  const int64_t row_base = static_cast<int64_t>(bh) * a.n_chunks + c;
+  const float* p = a.scores + row_base * a.parts * C * C;
+  const float* h_in = a.states + row_base * dk * dv;
+  const int64_t q_row = b * a.q_sb + head * a.q_sh + static_cast<int64_t>(t0 + t) * a.q_ss;
+  const int64_t v_base = b * a.v_sb + head * a.v_sh + static_cast<int64_t>(t0) * a.v_ss;
+  const float eb = expf(a.bcum[row_base * C + t]);
+  float acc[kNarrow];
+#pragma unroll
+  for (int j = 0; j < kNarrow; ++j) acc[j] = 0.f;
+  for (int s = lane; s <= t; s += 32) {
+    const float ps = score(p, a.parts, C * C, t * C + s);
+#pragma unroll
+    for (int j = 0; j < kNarrow; ++j)
+      if (j < dv) acc[j] = fmaf(ps, load(a.v, v_base + s * a.v_ss + j, a.v_bf16), acc[j]);
+  }
+  for (int i = lane; i < dk; i += 32) {
+    const float qi = load(a.q, q_row + i, a.q_bf16) * eb;
+#pragma unroll
+    for (int j = 0; j < kNarrow; ++j)
+      if (j < dv) acc[j] = fmaf(qi, h_in[static_cast<int64_t>(i) * dv + j], acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kNarrow; ++j)
+    for (int off = 16; off > 0; off >>= 1) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+  if (lane < dv) {
+    float out = acc[0];
+#pragma unroll
+    for (int j = 1; j < kNarrow; ++j)
+      if (lane == j) out = acc[j];
+    store(a.y, ((static_cast<int64_t>(b) * a.s + t0 + t) * a.h + head) * dv + lane, out,
+          a.v_bf16);
+  }
+}
+
+// The three grids ({x, y, z} each), the state tiles' width BN and the
+// score depth slices, into out[0..10].
+void plan(int b, int s, int h, int dk, int dv, int chunk, int* out) {
+  const int n = cdiv(s, chunk), nt = cdiv(chunk, kBM), bn = tile_n(dv);
+  const int parts = cdiv(dk, kScoreDepth);
+  const int state_blocks =
+      static_cast<int>((static_cast<int64_t>(dk) * dv + 4 * kThreads - 1) / (4 * kThreads));
+  const int out_x = dv <= kNarrow ? cdiv(chunk, kThreads / 32) : nt * cdiv(dv, bn);
+  const int grids[11] = {nt * (nt + 1) / 2 * parts + cdiv(dk, kBM) * cdiv(dv, bn), n, b * h,
+                         state_blocks, b * h, 1,
+                         out_x, n, b * h,
+                         bn, parts};
+  for (int i = 0; i < 11; ++i) out[i] = grids[i];
+}
+
+template <int BN>
+cudaError_t launch(const Args& a, const int* g, cudaStream_t stream) {
+  ssd_scan_chunk_kernel<BN><<<dim3(g[0], g[1], g[2]), kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_scan_state_kernel<<<dim3(g[3], g[4], g[5]), kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.dv <= kNarrow)
+    ssd_scan_out_narrow_kernel<<<dim3(g[6], g[7], g[8]), kThreads, 0, stream>>>(a);
+  else
+    ssd_scan_out_kernel<BN><<<dim3(g[6], g[7], g[8]), kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The dynamic shared memory one block takes at `dk` and `chunk`.
-extern "C" int ssd_scan_smem_bytes(int dk, int chunk) {
-  return static_cast<int>(sizeof(float) * smem_floats(dk, chunk));
+// The launch plan at these sizes: out[0..8] the grids of the chunk, state and
+// output passes ({x, y, z} each), out[9] the state tiles' width BN, out[10]
+// the score depth slices. Returns 0, or cudaErrorInvalidValue for sizes the
+// kernels do not take.
+extern "C" int ssd_scan_plan(int b, int s, int h, int dk, int dv, int chunk, int* out) {
+  if (b <= 0 || s <= 0 || h <= 0 || dk <= 0 || dv <= 0 || chunk < 8 || chunk > kMaxChunk ||
+      chunk % 8 != 0 || static_cast<int64_t>(b) * h > 65535 || cdiv(s, chunk) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan(b, s, h, dk, dv, chunk, out);
+  return 0;
 }
 
 // q, k, v, g on the current device, read through the given strides (in
-// elements; the last dimension of q, k, v contiguous); h0 (or null), y and
-// hT contiguous. dtype codes: 0 = f32, 1 = bf16; y has v's. Returns the
-// cudaError of the launch; shapes the kernel does not take are refused with
+// elements; the last dimension of q, k, v contiguous); h0 (or null), y, hT
+// and the f32 scratch (scores [B H, n, parts, C, C], states [B H, n, dk,
+// dv], bcum [B H, n, C]) contiguous. dtype codes: 0 = f32, 1 = bf16; y has v's.
+// Launches the three passes in order on `stream`. Returns the first
+// cudaError; shapes the kernels do not take are refused with
 // cudaErrorInvalidValue before anything is launched.
 extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v, const float* g,
-                               const float* h0, void* y, float* hT, int b, int s, int h,
-                               int dk, int dv, int chunk, int64_t q_sb, int64_t q_ss,
-                               int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                               int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t g_sb,
-                               int64_t g_ss, int64_t g_sh, int q_dtype, int k_dtype,
-                               int v_dtype, void* stream) {
-  if (b <= 0 || b > 65535 || s <= 0 || h <= 0 || h > 65535 || dk <= 0 || dk > kMaxDk ||
-      dv <= 0 || chunk < 8 || chunk > kMaxChunk || chunk % 8 != 0 || q_dtype < 0 ||
-      q_dtype > 1 || k_dtype < 0 || k_dtype > 1 || v_dtype < 0 || v_dtype > 1)
+                               const float* h0, void* y, float* hT, float* scores,
+                               float* states, float* bcum, int b, int s, int h, int dk, int dv,
+                               int chunk, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                               int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                               int64_t v_ss, int64_t v_sh, int64_t g_sb, int64_t g_ss,
+                               int64_t g_sh, int q_dtype, int k_dtype, int v_dtype,
+                               void* stream) {
+  int grids[11];
+  if (ssd_scan_plan(b, s, h, dk, dv, chunk, grids) != 0 || q_dtype < 0 || q_dtype > 1 ||
+      k_dtype < 0 || k_dtype > 1 || v_dtype < 0 || v_dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * smem_floats(dk, chunk);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Args a{q,    k,    v,    g,    h0,   y,    hT,   s,    h,    dk,    dv,      chunk,
-         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh,
+  Args a{q,     k,      v,    g,    h0,   y,    hT,   scores, states, bcum,
+         s,     h,      dk,   dv,   chunk, cdiv(s, chunk), grids[10],
+         q_sb,  q_ss,   q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh,
          q_dtype, k_dtype, v_dtype};
-  const dim3 grid((dv + kDVT - 1) / kDVT, h, b);
-  ssd_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(grids[9] == 128 ? launch<128>(a, grids, st)
+                                           : launch<64>(a, grids, st));
 }

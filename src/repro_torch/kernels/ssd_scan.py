@@ -13,13 +13,23 @@ reference.
 It replaces the TPU kernel ``_ssd_kernel`` of ``repro/kernels/ssd_scan.py``
 (and its wrapper in ``kernels/ops.py``); the function is ``chunked_gla`` of
 ``repro/models/ssm.py``. On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/ssd_scan.cu`` or raises; on a CPU tensor it
+hand-written kernels in ``csrc/ssd_scan.cu`` or raises; on a CPU tensor it
 runs :func:`ssd_scan_plain`, the port of ``chunked_gla`` (which falls back
 to the sequential :func:`gla_scan_plain`, the port of ``gla_reference``,
 when ``chunk`` does not divide S). The reference wrapper's fallback to its
-oracle for a ragged S is not carried over: the kernel masks the last chunk
+oracle for a ragged S is not carried over: the kernels mask the last chunk
 (its missing steps read g = 0 and q = k = v = 0, which leaves y and the
 state unchanged), so any S runs on the card.
+
+The work is bound by f32 operations (72 us at the xLSTM serve prefill's dv
+512 on an H100), so the CUDA route computes each product once and spreads
+it over the card: one wrapper call is :data:`KERNELS_PER_CALL` launches —
+a chunk pass (each chunk's causal scores and state contribution, every
+(chunk, head, batch) in parallel), a state pass (sequential over the chunks
+only, a thread per 4 state elements) and an output pass (scores · v plus the
+decayed q · h_in, in parallel again). :func:`launch_plan` gives their grids
+and the f32 scratch the wrapper allocates. ``LAUNCHES["ssd_scan"]`` counts
+wrapper calls that launched them.
 """
 from __future__ import annotations
 
@@ -31,11 +41,16 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "ssd_scan"
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
-MAX_DK = 512  # the kernel keeps a dk x 32 slice of the state in shared memory
-MAX_CHUNK = 128
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
+MAX_CHUNK = 128  # the chunk pass's cumsum takes 4 steps a lane of one warp
+KERNELS_PER_CALL = 3  # chunk pass, state pass, output pass
+THREADS = 256  # per block, in every pass
+TILE_M = 64  # rows of every tile product
+SCORE_DEPTH = 128  # dk per score block: a chunk's scores are summed over dk slices
+NARROW_DV = 4  # dv up to this takes the output pass with a warp per step
+MAX_GRID_YZ = 65535
 
-# kernel launches made by the wrapper (the plain route never counts)
+# wrapper calls that launched the kernels (the plain route never counts)
 LAUNCHES: Dict[str, int] = {NAME: 0}
 
 _LAUNCH_FNS: Dict[str, object] = {}
@@ -51,12 +66,69 @@ def _launch_fn():
     if fn is None:
         fn = _build.load(NAME).ssd_scan_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _LAUNCH_FNS[NAME] = fn
     return fn
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(b: int, s: int, h: int, dk: int, dv: int, chunk: int) -> Dict[str, object]:
+    """The CUDA route's launches at these sizes (what ``ssd_scan_plan`` in
+    ``csrc/ssd_scan.cu`` computes): ``grids``, the (x, y, z) grid of the
+    chunk, state and output passes, each of ``THREADS`` threads;
+    ``tile_n``, the width of the state (and wide output) tiles, 128 when dv
+    > 64, else 64; ``score_parts``, the dk slices of ``SCORE_DEPTH`` each
+    chunk's scores are summed over; ``score_blocks``, the chunk pass's
+    score blocks per chunk (lower-triangle 64 x 64 tiles times slices);
+    ``narrow``, whether the output pass takes a warp per step (dv <=
+    ``NARROW_DV``) instead of 64 x ``tile_n`` tiles; and ``scratch``, the
+    shapes of the f32 scratch: the partial scores ``[B, H, n, parts, C,
+    C]``, the states ``[B, H, n, dk, dv]`` (each chunk's contribution, then
+    the state entering it) and the cumsums ``[B, H, n, C]``."""
+    n = _cdiv(s, chunk)
+    nt = _cdiv(chunk, TILE_M)
+    bn = 128 if dv > 64 else 64
+    parts = _cdiv(dk, SCORE_DEPTH)
+    score_blocks = nt * (nt + 1) // 2 * parts
+    narrow = dv <= NARROW_DV
+    out_x = _cdiv(chunk, THREADS // 32) if narrow else nt * _cdiv(dv, bn)
+    return {
+        "grids": (
+            (score_blocks + _cdiv(dk, TILE_M) * _cdiv(dv, bn), n, b * h),
+            (_cdiv(dk * dv, 4 * THREADS), b * h, 1),
+            (out_x, n, b * h),
+        ),
+        "tile_n": bn,
+        "score_parts": parts,
+        "score_blocks": score_blocks,
+        "narrow": narrow,
+        "scratch": {
+            "scores": (b, h, n, parts, chunk, chunk),
+            "states": (b, h, n, dk, dv),
+            "bcum": (b, h, n, chunk),
+        },
+    }
+
+
+def kernel_plan(b: int, s: int, h: int, dk: int, dv: int, chunk: int) -> Dict[str, object]:
+    """The grids, tile width and score slices that ``ssd_scan_plan`` of the
+    built library computes, in :func:`launch_plan`'s keys (needs the CUDA
+    toolkit)."""
+    fn = _build.load(NAME).ssd_scan_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 11)()
+    err = fn(b, s, h, dk, dv, chunk, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"{NAME}: the kernels do not take {(b, s, h, dk, dv, chunk)}")
+    return {"grids": (tuple(out[0:3]), tuple(out[3:6]), tuple(out[6:9])),
+            "tile_n": out[9], "score_parts": out[10]}
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +233,13 @@ def _check(q, k, v, g, h0, chunk: int) -> None:
                 raise ValueError(f"{NAME}: {key}'s last dimension must be contiguous")
         if h0 is not None and not h0.is_contiguous():
             raise ValueError(f"{NAME}: h0 must be contiguous")
-        if dk > MAX_DK:
-            raise ValueError(f"{NAME}: dk must be at most {MAX_DK}, got {dk}")
         if chunk % 8 or chunk > MAX_CHUNK:
             raise ValueError(
                 f"{NAME}: chunk must be a multiple of 8 up to {MAX_CHUNK}, got {chunk}")
-        if b > 65535 or h > 65535:
-            raise ValueError(f"{NAME}: B and H must be at most 65535 (the grid's z, y)")
+        if b * h > MAX_GRID_YZ or _cdiv(s, chunk) > MAX_GRID_YZ:
+            raise ValueError(
+                f"{NAME}: B * H and the number of chunks must be at most {MAX_GRID_YZ} "
+                "(the grids' y and z)")
 
 
 def ssd_scan(
@@ -196,16 +268,19 @@ def ssd_scan(
         return ssd_scan_plain(q, k, v, g, h0, chunk)
     y = torch.empty((b, s, h, dv), dtype=v.dtype, device=v.device)
     h_final = torch.empty((b, h, dk, dv), dtype=torch.float32, device=q.device)
+    scratch = [torch.empty(shape, dtype=torch.float32, device=q.device)
+               for shape in launch_plan(b, s, h, dk, dv, chunk)["scratch"].values()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launch_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            *(x.data_ptr() for x in scratch),
             b, s, h, dk, dv, chunk,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride(),
             DTYPES[q.dtype], DTYPES[k.dtype], DTYPES[v.dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"{NAME} kernel failed to launch (cudaError {err})")
+        raise RuntimeError(f"{NAME} kernels failed to launch (cudaError {err})")
     LAUNCHES[NAME] += 1
     return y, h_final
