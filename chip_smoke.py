@@ -12,7 +12,15 @@ Phases (each prints a line; any failed check exits non-zero):
    variant (each event kernel, the 16 SIMT and 2 wgmma flash kernels, the
    6 ``ssd_scan`` pass kernels);
 3. kernels: each event kernel against its plain PyTorch version on the
-   card, bit for bit, at the engine's shapes and more; ``flash_attention``
+   card, bit for bit, at the engine's shapes and more (rows that start off a
+   16-byte boundary, arrays at different alignments, G = 64 and
+   ``MAX_GROUPS``, dead lanes), with the allocator's free memory poisoned so
+   an unwritten output cannot pass; the ledger and occupancy kernels' cluster
+   size at each timed shape, their ptxas lines, and the device time of a
+   1-element fill (the card's practical launch floor) beside theirs, and
+   each wrapper's host time in turns with the fill's (fill, wrapper,
+   wrapper, fill);
+   ``flash_attention``
    against its plain version at the serve path's prefill shape in bf16 and
    f32 and at MQA, Sq > Sk, a ragged KV tail, non-causal Sk > Sq, a ragged
    Sq and head dims 64 and 16 (f32 atol and rtol 2e-5, bf16 3e-2), each
@@ -41,12 +49,17 @@ Phases (each prints a line; any failed check exits non-zero):
    dense port run's of the same inputs; a second run is timed;
 7. command line: ``python -m repro_torch.launch.sim`` on the card writes
    its outputs;
-8. LM serve: ``repro_torch.launch.serve`` serves the full-width
-   internlm2-1.8b in bf16 (16 requests of 1024 tokens, 4 slots, 32 new
-   tokens, cache 1280) — the flash kernel must have launched once per
-   layer per request (384), every launch on the wgmma variant; one
-   prefill (flash kernel against matmuls)
-   and one decode step are profiled; then, in f32, two 1024-token prompts
+8. LM serve: ``repro_torch.launch.serve --per-slot-positions`` serves the
+   full-width internlm2-1.8b in bf16 (16 requests of 1024 tokens, 4 slots,
+   32 new tokens, cache 1280) — the flash kernel must have launched once per
+   layer per request (384), every launch on the wgmma variant; two refilled
+   requests are held against their own single-sequence prefill + decode
+   (teacher-forced: each served token within ``REFILL_TOL`` of the greedy
+   maximum), and so are the tokens that the loop serves without the flag,
+   on the reference's shared counter, which must fail that check; one
+   prefill (flash kernel against matmuls) and one decode step at an int and
+   at ``[4]`` positions are profiled, and the two steps timed in turns;
+   then, in f32, two 1024-token prompts
    go through ``prefill`` by the kernel route and by the plain route, whose
    last-position logits must agree;
 9. xLSTM serve: the same loop and flags serve the full-width xlstm-350m in
@@ -112,9 +125,18 @@ FLASH_SHAPES = [
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # atol and rtol, as the tests
 SERVE_ARGS = ["--arch", ARCH, "--requests", "16", "--slots", "4",
               "--prompt-len", "1024", "--max-new", "32", "--cache-len", "1280",
-              "--device", "cuda"]
+              "--device", "cuda", "--per-slot-positions"]
 XARCH = "xlstm-350m"
 XSERVE_ARGS = ["--arch", XARCH] + SERVE_ARGS[2:]
+# requests the serve loop prefills into a freed slot: the first and the last
+# refill of phase 8's 16 requests on 4 slots
+REFILLED = (4, 15)
+# a served token of a refilled request against its own single-sequence
+# decode (bf16, batch 4 against batch 1: other matmul tilings and the whole
+# cache's masked keys against the prefix): its logit within this share of the
+# largest |logit| below the greedy maximum. Phase 8 also holds the tokens the
+# shared counter serves to the same check, which must fail it
+REFILL_TOL = 2.0 ** -4
 # (B, S, H, dk, dv, chunk): the xLSTM serve prefill's two GLA launches (the
 # values and the normaliser's dv 1)
 SSD_MAIN = (1, 1024, 4, 512, 512, 128)
@@ -155,16 +177,23 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 # amplify; atol = 1e-3 of the logits' largest magnitude
 LOGITS_REL_TOL = 1e-3
 INF_TIME = 2**30
-EXACT_SHAPES = [(1, 16), (1, 131), (13, 131), (1, 11200), (64, 11200)]
+# rows of 11 199 and 11 201 nodes start off a 16-byte boundary from row 1 on
+EXACT_SHAPES = [(1, 16), (1, 131), (13, 131), (1, 11200), (64, 11200),
+                (3, 11199), (2, 11201)]
 ZERO_SHAPES = [(0, 16), (4, 0), (0, 0)]
 MAIN_SHAPE = (1, 11200)  # what engine.event_horizon hands the kernels
 # (E, N, G) for the occupancy kernel; the main path's is (1, 11200, 3)
 OCC_SHAPES = [(1, 16, 1), (13, 131, 3), (1, 11200, 3), (64, 11200, 3),
-              (1, 11200, 64)]
+              (1, 11200, 64), (3, 11199, 3), (2, 11201, 3), (2, 11201, 64),
+              (1, 11200, 1536), (3, 5003, 1536)]  # 1536: event_fuse.MAX_GROUPS
 OCC_ZERO_SHAPES = [(0, 16, 3), (4, 0, 3), (0, 0, 3)]
 # shapes also run with dead lanes: states 7 and group ids -1 and G, which
 # the occupancy counts must skip
-OCC_DEAD_SHAPES = [(13, 131, 3), (1, 11200, 3)]
+OCC_DEAD_SHAPES = [(13, 131, 3), (1, 11200, 3), (2, 11201, 3)]
+# (E, N, G) with state, until and the group ids starting 1, 3 and 2 int32s
+# past a 16-byte boundary: each array's quads at another alignment
+SHIFTED = (2, 11201, 3)
+SHIFTS = (1, 3, 2)
 OCC_MAIN = (1, 11200, 3)
 LABELS = [
     f"{base} {psm}"
@@ -501,6 +530,22 @@ def held_against_oracle(metrics, run_pydes, np, plat, wl, cfg, s):
     return same, max(rel, rel_w), m
 
 
+def poison(torch):
+    """Leave NaN bytes in the allocator's free blocks, so an output element
+    a kernel does not write cannot pass for a zero."""
+    junk = [torch.full((1 << k,), float("nan"), device="cuda") for k in range(4, 18)]
+    del junk
+
+
+def shifted(torch, x, k):
+    """A contiguous copy of ``x`` that starts ``k`` elements into a fresh
+    buffer: ``4 k`` bytes past the allocator's 16-byte boundary."""
+    buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = buf[k:k + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def hold_kernel(torch, name, fn, plain, cases, zero_out):
     """Each case's kernel output == its plain version's, bit for bit, with
     one launch per non-empty call; zero sizes give ``zero_out(args)``.
@@ -509,6 +554,7 @@ def hold_kernel(torch, name, fn, plain, cases, zero_out):
 
     max_err = 0.0
     for label, args, empty in cases:
+        poison(torch)
         before = event_fuse.LAUNCHES[name]
         got = fn(*args)
         torch.cuda.synchronize()
@@ -524,25 +570,40 @@ def hold_kernel(torch, name, fn, plain, cases, zero_out):
     return max_err
 
 
-def time_kernel(torch, name, fn, plain, args, bound, shape):
-    """(kernel device ms, plain device ms) at ``args``, printed with the
-    host times per call, the plain version's device ops and the bound."""
+def time_kernel(torch, name, fn, plain, args, bound, shape, floor_ms, fill):
+    """(kernel device ms, plain device ms, kernel wrapper host ms, fill host
+    ms) at ``args``, printed with the plain version's device ops and host
+    time, the bound, the cluster size of a cluster kernel and the launch
+    floor ``floor_ms``. The wrapper's host time is taken in turns with that
+    of ``fill`` (a function and its arguments: the 1-element fill), fill,
+    wrapper, wrapper, fill, so each is read against the host's speed of the
+    same moment; each figure is the mean of its two turns."""
+    from repro_torch.kernels import event_fuse
+
     k_ms, k_ops, k_names, k_seen = device_ms(torch, fn, args)
     p_ms, p_ops, _, p_seen = device_ms(torch, plain, args)
     check(k_ops == 1 and all(f"{name}_kernel" in x for x in k_names),
           f"{name} ran {k_ops} device ops a call: {k_names}")
-    k_host = time_ms(torch, fn, args)
+    turns = [time_ms(torch, *pair) for pair in (fill, (fn, args), (fn, args), fill)]
+    k_host = (turns[1] + turns[2]) / 2
+    fill_host = (turns[0] + turns[3]) / 2
     p_host = time_ms(torch, plain, args)
     b_ms, b_by = bound
-    print(f"phase 3 kernels: {name} {shape}: "
-          f"device time kernel {1e3 * k_ms:.3f} us, plain {1e3 * p_ms:.3f} us "
+    cluster = (f"cluster of {event_fuse.CLUSTER[name]} CTAs a row"
+               if name in event_fuse.CLUSTER else "one block a row")
+    print(f"phase 3 kernels: {name} {shape} ({cluster}): "
+          f"device time kernel {1e3 * k_ms:.3f} us (launch floor "
+          f"{1e3 * floor_ms:.3f} us), plain {1e3 * p_ms:.3f} us "
           f"({p_ops} device ops; profiler records seen: kernel "
           f"{k_seen:.3f}, plain {p_seen:.3f}); bound {1e3 * b_ms:.4f} us ({b_by}); "
-          f"host time per call back to back: kernel wrapper "
-          f"{1e3 * k_host:.2f} us, plain {1e3 * p_host:.2f} us; no single "
+          f"host time per call back to back, in turns fill, wrapper, wrapper, "
+          f"fill: kernel wrapper {1e3 * k_host:.2f} us ({1e3 * turns[1]:.2f}, "
+          f"{1e3 * turns[2]:.2f}), 1-element fill {1e3 * fill_host:.2f} us "
+          f"({1e3 * turns[0]:.2f}, {1e3 * turns[3]:.2f}), wrapper / fill "
+          f"{k_host / fill_host:.2f}; plain {1e3 * p_host:.2f} us; no single "
           "PyTorch call computes this fused pair, so there is no library "
           "time", flush=True)
-    return k_ms, p_ms
+    return k_ms, p_ms, k_host, fill_host
 
 
 def main() -> None:
@@ -623,12 +684,22 @@ def main() -> None:
                     torch.full((e,), INF_TIME, dtype=torch.int32, device="cuda"))
         return zero_out
 
+    check(max(g for _, _, g in OCC_SHAPES) == event_fuse.MAX_GROUPS,
+          "OCC_SHAPES reach event_fuse.MAX_GROUPS")
+    e_sh, n_sh, g_sh = SHIFTED
+    ledger_shifted = kernel_inputs(torch, np, e_sh, n_sh)
+    ledger_shifted[:2] = [shifted(torch, x, k)
+                          for x, k in zip(ledger_shifted[:2], SHIFTS[:2])]
+    occ_shifted = occ_inputs(torch, np, e_sh, n_sh, g_sh)
+    occ_shifted[:2] = ledger_shifted[:2]
+    occ_shifted[3] = shifted(torch, occ_shifted[3], SHIFTS[2])
     err = {}
     err["event_fuse_ledger"] = hold_kernel(
         torch, "event_fuse_ledger", event_fuse.event_fuse_ledger,
         event_fuse.event_fuse_ledger_plain,
         [((e, n), kernel_inputs(torch, np, e, n), not (e and n))
-         for e, n in EXACT_SHAPES + ZERO_SHAPES],
+         for e, n in EXACT_SHAPES + ZERO_SHAPES]
+        + [((e_sh, n_sh, "shifted", SHIFTS[:2]), ledger_shifted, False)],
         empty_pair(lambda args: (8,)),
     )
     err["event_fuse_occ"] = hold_kernel(
@@ -637,7 +708,8 @@ def main() -> None:
         [((e, n, g), occ_inputs(torch, np, e, n, g), not (e and n))
          for e, n, g in OCC_SHAPES + OCC_ZERO_SHAPES]
         + [((e, n, g, "dead lanes"), occ_inputs(torch, np, e, n, g, dead=True),
-            False) for e, n, g in OCC_DEAD_SHAPES],
+            False) for e, n, g in OCC_DEAD_SHAPES]
+        + [((*SHIFTED, "shifted", SHIFTS), occ_shifted, False)],
         empty_pair(lambda args: (args[4], 8)),
     )
     err["event_fuse"] = hold_kernel(
@@ -646,21 +718,38 @@ def main() -> None:
          for e, n in EXACT_SHAPES + ZERO_SHAPES],
         empty_pair(lambda args: ()),
     )
-    timing = {}
+
+    def fill_one(x):  # the smallest kernel PyTorch launches
+        return x.fill_(0.0)
+
+    one = [torch.empty(1, device="cuda")]
+    floor_ms = device_ms(torch, fill_one, one)[0]
+    fill = (fill_one, one)  # host times are read against the fill's, in turns
+    print(f"phase 3 kernels: launch floor, a 1-element fill: device time "
+          f"{1e3 * floor_ms:.3f} us", flush=True)
+    timing, clusters = {}, {}
     for e, n in (MAIN_SHAPE, (64, 11200)):
         timing["event_fuse_ledger", e] = time_kernel(
             torch, "event_fuse_ledger", event_fuse.event_fuse_ledger,
             event_fuse.event_fuse_ledger_plain, kernel_inputs(torch, np, e, n),
-            ledger_bound(e, n), f"E={e} N={n}")
+            ledger_bound(e, n), f"E={e} N={n}", floor_ms, fill)
+        clusters["event_fuse_ledger", e] = event_fuse.CLUSTER["event_fuse_ledger"]
     for e, n, g in (OCC_MAIN, (64, 11200, 3)):
         timing["event_fuse_occ", e] = time_kernel(
             torch, "event_fuse_occ", event_fuse.event_fuse_occ,
             event_fuse.event_fuse_occ_plain, occ_inputs(torch, np, e, n, g),
-            occ_bound(e, n, g), f"E={e} N={n} G={g}")
+            occ_bound(e, n, g), f"E={e} N={n} G={g}", floor_ms, fill)
+        clusters["event_fuse_occ", e] = event_fuse.CLUSTER["event_fuse_occ"]
     timing["event_fuse", 1] = time_kernel(
         torch, "event_fuse", event_fuse.event_fuse, event_fuse.event_fuse_plain,
         kernel_inputs(torch, np, *MAIN_SHAPE), draw_bound(*MAIN_SHAPE),
-        "E={} N={}".format(*MAIN_SHAPE))
+        "E={} N={}".format(*MAIN_SHAPE), floor_ms, fill)
+    for kname in ("event_fuse_ledger", "event_fuse_occ"):
+        max_c, sms = event_fuse.cluster_setup(kname, 0)
+        print(f"phase 3 kernels: {kname} runs clusters of "
+              f"{clusters[kname, 1]} CTAs at E=1 and {clusters[kname, 64]} at E=64 "
+              f"(the card holds clusters of up to {max_c} on {sms} SMs); ptxas: "
+              f"{'; '.join(report[kname])}", flush=True)
     # flash attention: tolerance, not bits (f32 sums in another order)
     flash_err, flash_cases = 0.0, []
     for dname, tol in FLASH_TOL.items():
@@ -834,7 +923,9 @@ def main() -> None:
     print(f"phase 3 kernels: each event kernel == its plain version bit for bit: "
           f"event_fuse_ledger and event_fuse at {EXACT_SHAPES}, "
           f"event_fuse_occ at (E, N, G) {OCC_SHAPES}, with dead lanes at "
-          f"{OCC_DEAD_SHAPES}, and zero sizes; "
+          f"{OCC_DEAD_SHAPES}, the ledger and occupancy kernels with state, "
+          f"until and group ids {SHIFTS} int32s off a 16-byte boundary at "
+          f"{SHIFTED}, and zero sizes, free memory poisoned with NaN; "
           f"max_abs_err {err}", flush=True)
 
     # ---- 4. the paper's schedulers on the card ----
@@ -1061,7 +1152,8 @@ def main() -> None:
     pre_ms = [1e3 * x for x in stats["prefill_s"]]
     dec_ms = [1e3 * x for x in stats["decode_s"]]
     print(f"phase 8 serve: {ARCH} full width bf16 on cuda, 16 requests x 1024 "
-          f"tokens, 4 slots, 32 new tokens, cache 1280: flash_attention "
+          f"tokens, 4 slots, 32 new tokens, cache 1280, per-slot positions: "
+          f"{result}; flash_attention "
           f"launches {flash_launches} (= 16 x {lm.n_layers} layers), all on the wgmma "
           f"kernel ({flash_routes}); prefill "
           f"first {pre_ms[0]:.2f} ms, median of the rest "
@@ -1070,8 +1162,63 @@ def main() -> None:
           f"ms per step ({len(dec_ms)} steps); peak device memory "
           f"{serve_peak_gib:.2f} GiB", flush=True)
 
-    # one prefill of the serve path, profiled: flash kernel against matmuls
+    # the same loop on the reference's shared counter: the refill check's
+    # control, and the flag's cost, in the same call
+    shared_stats = {}
+    shared = serve.main([x for x in SERVE_ARGS if x != "--per-slot-positions"],
+                        stats=shared_stats)
+    check((shared["requests"], shared["decode_steps"], shared["total_tokens"])
+          == (result["requests"], result["decode_steps"], result["total_tokens"]),
+          f"shared-counter serve counts {shared}")
+    shared_dec_ms = [1e3 * x for x in shared_stats["decode_s"]]
+    print(f"phase 8 serve: the same loop on the shared counter (no "
+          f"--per-slot-positions): {shared}; decode median "
+          f"{statistics.median(shared_dec_ms):.3f} ms per step", flush=True)
+
+    # refilled requests against their own prefill + decode, one sequence at a
+    # time, on serve's weights and prompts (teacher-forced with the served
+    # tokens, so one token within tolerance does not derail the rest)
     model = build_model(lm, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    prompt_rng = np.random.default_rng(0)
+    queue = [prompt_rng.integers(0, lm.vocab_size, size=1024) for _ in range(n_req)]
+
+    def refill_gaps(tokens):
+        """(each token's gap below its own decode's greedy maximum over the
+        largest |logit|, the count of tokens that are that maximum) of the
+        refilled requests' ``tokens``."""
+        gaps, exact = [], 0
+        with torch.inference_mode():
+            for rid in REFILLED:
+                served = tokens[rid]
+                logits, one = model.prefill(torch.from_numpy(queue[rid][None]).cuda(),
+                                            cache_len=1280)
+                for i, tok in enumerate(served):
+                    ref = logits[0, -1].float()
+                    gaps.append(float(ref.max() - ref[tok]) / float(ref.abs().max()))
+                    exact += int(ref.argmax()) == tok
+                    if i + 1 < len(served):
+                        logits, one = model.decode_step(
+                            torch.tensor([[tok]], device="cuda"), one, 1024 + i)
+        return gaps, exact
+
+    sound, sound_exact = refill_gaps(stats["tokens"])
+    fault, fault_exact = refill_gaps(shared_stats["tokens"])
+    print(f"phase 8 serve: refilled requests {REFILLED} against their own "
+          f"single-sequence prefill + decode, teacher-forced, gaps below the "
+          f"greedy maximum over the largest |logit|: per-slot positions "
+          f"{sound_exact} of {len(sound)} tokens the maximum, largest gap "
+          f"{max(sound):.4g}; shared counter (the control) {fault_exact} of "
+          f"{len(fault)}, largest gap {max(fault):.4g}; tolerance {REFILL_TOL}",
+          flush=True)
+    check(max(sound) <= REFILL_TOL,
+          f"serve: a refilled request's token is {max(sound):.4g} of the largest "
+          f"|logit| below its own decode's maximum (tolerance {REFILL_TOL})")
+    check(max(fault) > REFILL_TOL,
+          f"serve: the shared counter's refilled tokens are at most {max(fault):.4g} "
+          f"of the largest |logit| below their own decode's maximum, within the "
+          f"tolerance {REFILL_TOL}: the check would not catch the wrong position")
+
+    # one prefill of the serve path, profiled: flash kernel against matmuls
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, lm.vocab_size, (1, 1024))).cuda()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1102,26 +1249,41 @@ def main() -> None:
           f"({100 * by_class['matmul'] / dev_total:.1f} %), other "
           f"{by_class['other']:.3f} ms; top kernels: "
           + "; ".join(f"{n[:50]} {ms:.3f} ms" for n, ms in top), flush=True)
-    # one decode step of the 4-slot batch at position 1100, profiled
+    # one decode step of the 4-slot batch at position 1100, as serve runs it
+    # with the flag ([4] positions) and without it (an int), each profiled,
+    # then timed in turns: int, [4], [4], int, each the mean of 10 steps
     cache = model.init_cache(4, 1280)
     step_tok = torch.zeros((4, 1), dtype=torch.int64, device="cuda")
-    with torch.inference_mode():
-        for _ in range(2):
-            model.decode_step(step_tok, cache, 1100)
+    step_pos = {"int": 1100, "[4]": torch.full((4,), 1100, dtype=torch.int64,
+                                               device="cuda")}
+
+    def decode_steps(pos, steps):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as dprof:
-            t0 = time.perf_counter()
-            model.decode_step(step_tok, cache, 1100)
-            torch.cuda.synchronize()
-            decode_wall = time.perf_counter() - t0
-    dec_dev = [e.device_time_total / 1e3 for e in dprof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dec_host_ops = top_level_ops(torch, dprof)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.decode_step(step_tok, cache, pos)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    step_prof = {}
+    with torch.inference_mode():
+        for key, pos in step_pos.items():
+            decode_steps(pos, 2)
+            with torch.profiler.profile(activities=acts) as dprof:
+                wall = decode_steps(pos, 1)
+            dev = [e.device_time_total / 1e3 for e in dprof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            step_prof[key] = (wall, top_level_ops(torch, dprof), len(dev), sum(dev))
+        turns = [(key, decode_steps(step_pos[key], 10))
+                 for key in ("int", "[4]", "[4]", "int")]
     del cache
-    print(f"phase 8 serve: one bf16 decode step (4 slots, position 1100) "
-          f"profiled: wall {1e3 * decode_wall:.2f} ms, {dec_host_ops} top-level "
-          f"host ops, {len(dec_dev)} device ops, device {sum(dec_dev):.3f} ms (busy "
-          f"{100 * sum(dec_dev) / (1e3 * decode_wall):.1f} %)", flush=True)
+    for key, (wall, ops, n_dev, dev_ms) in step_prof.items():
+        print(f"phase 8 serve: one bf16 decode step (4 slots, position 1100 as "
+              f"{key}) profiled: wall {wall:.2f} ms, {ops} top-level host ops, "
+              f"{n_dev} device ops, device {dev_ms:.3f} ms (busy "
+              f"{100 * dev_ms / wall:.1f} %)", flush=True)
+    print("phase 8 serve: bf16 decode step in turns, ms a step (mean of 10): "
+          + ", ".join(f"{key} {ms:.3f}" for key, ms in turns), flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1308,7 +1470,7 @@ def main() -> None:
           f"plain {xtok_p}; phase wall {time.perf_counter() - t9:.1f} s", flush=True)
 
     def entry(kname, replaces, launches, key, bound, note=None):
-        k_ms, p_ms = timing[key]
+        k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
         row = {
             "name": kname, "route": "cuda",
@@ -1316,7 +1478,12 @@ def main() -> None:
             "replaces": replaces, "launches": launches,
             "max_abs_err": err[kname], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "host_ms": host_ms_call, "launch_floor_ms": floor_ms,
+            "fill_host_ms": fill_host_ms,
         }
+        if key in clusters:
+            row.update(cluster=clusters[key], cluster_e64=clusters[kname, 64],
+                       ms_e64=timing[kname, 64][0])
         if note:
             row["note"] = note
         return row

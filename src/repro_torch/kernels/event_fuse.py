@@ -22,12 +22,17 @@ Both count states in integers and combine the counts with the watts in one
 fixed order, so on the card each kernel and its plain version agree bit for
 bit; against the reference's per-node f32 sums the watts-weighted outputs
 agree to f32 rounding (exact for integer watts below 2**24), and the
-occupancy counts exactly. The kernels are launch-bound at the engine's E = 1
-(see the source).
+occupancy counts exactly. The kernels are bound by latency at the engine's
+E = 1: the ledger and occupancy kernels split each row over a thread-block
+cluster of :func:`cluster_size` CTAs and reduce it through distributed shared
+memory (see the source), and their wrappers keep the host's work per call
+small: a check that builds no message unless it fails, one allocation for
+both outputs, and the launch's set-up cached per kernel, device and shape.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -37,36 +42,41 @@ from repro_torch.kernels import _build
 
 COLS = 8  # the sums and occupancy rows are padded to 8 columns
 KERNELS = ("event_fuse_ledger", "event_fuse_occ", "event_fuse")
-# the histogram's G * 8 int32 cells must fit 48 KB of shared memory
+# a CTA's histogram and its cluster's accumulator, G * 8 int32 cells each,
+# must fit the 96 KB of shared memory the occupancy kernel is allowed
 MAX_GROUPS = 48 * 1024 // (4 * COLS)
+# the ledger and occupancy kernels split a row over a cluster of up to 16
+# CTAs (see :func:`cluster_size`), each CTA keeping at least this many nodes
+# of its row: the ledger's CTAs do less work a node, so they take more
+MAX_CLUSTER = 16
+MIN_CTA_NODES = {"event_fuse_ledger": 2048, "event_fuse_occ": 512}
+CTAS_PER_SM = 2
 
 # kernel launches made by each wrapper (the plain route never counts)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the cluster size of each cluster kernel's last launch
+CLUSTER: Dict[str, int] = {}
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "event_fuse_ledger": [_VOIDP] * 6 + [_INT, _INT, _VOIDP],
+    "event_fuse_ledger": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     "event_fuse": [_VOIDP] * 6 + [_INT, _INT, _VOIDP],
-    "event_fuse_occ": [_VOIDP] * 6 + [_INT, _INT, _INT, _VOIDP],
+    "event_fuse_occ": [_VOIDP] * 5 + [_INT] * 4 + [_VOIDP],
 }
-_LAUNCH_FNS: Dict[str, object] = {}
+# the order of event_fuse_cluster_setup's `which`
+_CLUSTER_KERNELS = ("event_fuse_ledger", "event_fuse_occ")
+# (name, device index, E, N) -> (entry point, cluster size) of a launch
+_PLANS: Dict[Tuple[str, int, int, int], Tuple[object, int]] = {}
+# the current CUDA stream of a device index, as an int; the current device
+_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                  lambda idx: torch.cuda.current_stream(idx).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for name in KERNELS:
         LAUNCHES[name] = 0
-
-
-def _launch_fn(name: str):
-    """The ctypes entry point ``<name>_launch``, with its C signature."""
-    fn = _LAUNCH_FNS.get(name)
-    if fn is None:
-        fn = getattr(_build.load("event_fuse"), f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _INT
-        _LAUNCH_FNS[name] = fn
-    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -150,50 +160,113 @@ def event_fuse_occ_plain(
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, node_state, node_until, t, **extra) -> None:
-    """Shapes, dtypes and devices the kernel takes: the node arrays [E, N]
-    i32, ``t`` [E] i32, and ``extra`` as name=(tensor, shape, dtype)."""
-    if node_state.dim() != 2 or node_until.shape != node_state.shape:
+def cluster_size(e: int, n: int, sms: int, max_cluster: int, min_nodes: int) -> int:
+    """The cluster size C (a power of two) for an ``[E, N]`` call of a
+    cluster kernel on a card of ``sms`` SMs that holds clusters of up to
+    ``max_cluster``: each row is split over C CTAs, so that the grid's ``E *
+    C`` CTAs reach ``CTAS_PER_SM`` per SM while each CTA keeps at least
+    ``min_nodes`` nodes of its row (``MIN_CTA_NODES`` of the kernel). At E =
+    1 and N = 11 200 on an H100 (132 SMs): 16 for the occupancy kernel, 4
+    for the ledger; 1 for a row under ``2 * min_nodes`` nodes."""
+    want = min(max_cluster, n // min_nodes, -(-CTAS_PER_SM * sms // max(e, 1)))
+    c = 1
+    while 2 * c <= want:
+        c *= 2
+    return c
+
+
+def _check(name, node_state, node_until, t, key, x, shape, dtype) -> torch.device:
+    """The call's device, once the arguments are what the kernel takes: the
+    node arrays [E, N] i32, ``t`` [E] i32 and the argument ``key``, ``x``,
+    of ``shape`` and ``dtype``, all on one cpu or cuda device and, on cuda,
+    contiguous. A message is built only for the fault that raises."""
+    shp = node_state.shape
+    if len(shp) != 2 or node_until.shape != shp:
         raise ValueError(
             f"{name}: node_state and node_until must be [E, N] of one shape, "
-            f"got {tuple(node_state.shape)} and {tuple(node_until.shape)}"
+            f"got {tuple(shp)} and {tuple(node_until.shape)}"
         )
-    want = {
-        "node_state": (node_state, tuple(node_state.shape), torch.int32),
-        "node_until": (node_until, tuple(node_state.shape), torch.int32),
-        "t": (t, tuple(node_state.shape[:1]), torch.int32),
-        **extra,
-    }
-    for key, (x, shape, dtype) in want.items():
-        if tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: {key} must be {list(shape)}, got {tuple(x.shape)}"
-            )
-        if x.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {x.dtype}")
-        if x.device != node_state.device:
-            raise ValueError(
-                f"{name}: {key} is on {x.device}, node_state on "
-                f"{node_state.device}"
-            )
     dev = node_state.device
-    if dev.type not in ("cpu", "cuda"):
+    want = (("node_state", node_state, shp, torch.int32),
+            ("node_until", node_until, shp, torch.int32),
+            ("t", t, shp[:1], torch.int32),
+            (key, x, shape, dtype))
+    for k, a, a_shape, a_dtype in want:
+        if a.shape != a_shape:
+            raise ValueError(f"{name}: {k} must be {list(a_shape)}, got {tuple(a.shape)}")
+        if a.dtype != a_dtype:
+            raise TypeError(f"{name}: {k} must be {a_dtype}, got {a.dtype}")
+        if a.device != dev:
+            raise ValueError(f"{name}: {k} is on {a.device}, node_state on {dev}")
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    if dev.type == "cuda":
-        for key, (x, _, _) in want.items():
-            if not x.is_contiguous():
-                raise ValueError(f"{name}: {key} must be contiguous")
+    for k, a, _, _ in want:
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+    return dev
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Launch ``name`` on the current stream of ``dev``; raise if the launch
-    was refused; count it."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launch_fn(name)(*args, stream)
+def cluster_setup(name: str, idx: int) -> Tuple[int, int]:
+    """(largest cluster size, SM count) of the cluster kernel ``name`` on
+    CUDA device ``idx``: the kernel is allowed clusters of up to 16 CTAs and
+    the card says the largest it holds. Raises if the card refuses."""
+    setup = _build.load("event_fuse").event_fuse_cluster_setup
+    setup.argtypes = [_INT, ctypes.POINTER(_INT)]
+    setup.restype = _INT
+    max_c = _INT(0)
+    with torch.cuda.device(idx):
+        err = setup(_CLUSTER_KERNELS.index(name), ctypes.byref(max_c))
+    if err != 0:
+        raise RuntimeError(f"{name}: the card refused the cluster set-up (cudaError {err})")
+    return max_c.value, torch.cuda.get_device_properties(idx).multi_processor_count
+
+
+def _plan(name: str, idx: int, e: int, n: int) -> Tuple[object, int]:
+    """(ctypes entry point ``<name>_launch``, cluster size) of ``name`` at
+    ``[E, N]`` on CUDA device ``idx``, set up once (the cluster size is 1
+    for ``event_fuse``, which runs one block a row)."""
+    plan = _PLANS.get((name, idx, e, n))
+    if plan is None:
+        fn = getattr(_build.load("event_fuse"), f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _INT
+        c = 1
+        if name in _CLUSTER_KERNELS:
+            max_c, sms = cluster_setup(name, idx)
+            c = cluster_size(e, n, sms, max_c, MIN_CTA_NODES[name])
+        plan = _PLANS[(name, idx, e, n)] = (fn, c)
+    return plan
+
+
+def _launch(name: str, idx: int, fn, *args) -> None:
+    """Launch ``fn`` on the current stream of CUDA device ``idx`` (entering
+    the device only when it is not the current one); raise if the launch was
+    refused; count it."""
+    if idx == _current_device():
+        err = fn(*args, _stream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, _stream(idx))
     if err != 0:
         raise RuntimeError(f"{name} kernel failed to launch (cudaError {err})")
     LAUNCHES[name] += 1
+
+
+def _outputs(like: torch.Tensor, shape, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One allocation on the device of the i32 tensor ``like``, holding an
+    f32 ``shape`` (``[E, ...]``) and, right after it, the i32 ``[E]`` next
+    transition: two views of it."""
+    cells = math.prod(shape)
+    vals, nxt = like.new_empty(cells + e).split_with_sizes([cells, e])
+    return vals.view(torch.float32).view(*shape), nxt
+
+
+def _empty_pair(shape, e: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The zero-size answer: zeros and ``INF_TIME``."""
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.full((e,), int(INF_TIME), dtype=torch.int32, device=device))
 
 
 def event_fuse_ledger(
@@ -206,25 +279,22 @@ def event_fuse_ledger(
 
     CUDA tensors launch the kernel (and raise if it cannot launch); CPU
     tensors take the plain version. Zero-size ``E`` or ``N`` short-circuits:
-    sums are 0 and the next transition is ``INF_TIME``.
+    sums are 0 and the next transition is ``INF_TIME``. On the card both
+    outputs are views of one allocation.
     """
     name = "event_fuse_ledger"
-    _check(name, node_state, node_until, t,
-           power=(power, (N_STATES,), torch.float32))
+    dev = _check(name, node_state, node_until, t, "power", power, (N_STATES,),
+                 torch.float32)
     e, n = node_state.shape
-    dev = node_state.device
     if e == 0 or n == 0:
-        return (
-            torch.zeros((e, COLS), dtype=torch.float32, device=dev),
-            torch.full((e,), int(INF_TIME), dtype=torch.int32, device=dev),
-        )
+        return _empty_pair((e, COLS), e, dev)
     if dev.type == "cpu":
         return event_fuse_ledger_plain(node_state, node_until, t, power)
-    sums = torch.empty((e, COLS), dtype=torch.float32, device=dev)
-    nxt = torch.empty((e,), dtype=torch.int32, device=dev)
-    _launch(name, dev, node_state.data_ptr(), node_until.data_ptr(),
-            t.data_ptr(), power.data_ptr(), sums.data_ptr(), nxt.data_ptr(),
-            e, n)
+    fn, c = _plan(name, dev.index, e, n)
+    sums, nxt = _outputs(node_state, (e, COLS), e)
+    _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
+            t.data_ptr(), power.data_ptr(), sums.data_ptr(), e, n, c)
+    CLUSTER[name] = c
     return sums, nxt
 
 
@@ -237,22 +307,18 @@ def event_fuse(
     """Fused (power draw [E] f32, next transition [E] i32), with the
     routing and zero-size contract of :func:`event_fuse_ledger`."""
     name = "event_fuse"
-    _check(name, node_state, node_until, t,
-           power=(power, (N_STATES,), torch.float32))
+    dev = _check(name, node_state, node_until, t, "power", power, (N_STATES,),
+                 torch.float32)
     e, n = node_state.shape
-    dev = node_state.device
     if e == 0 or n == 0:
-        return (
-            torch.zeros((e,), dtype=torch.float32, device=dev),
-            torch.full((e,), int(INF_TIME), dtype=torch.int32, device=dev),
-        )
+        return _empty_pair((e,), e, dev)
     if dev.type == "cpu":
         return event_fuse_plain(node_state, node_until, t, power)
     draw = torch.empty((e,), dtype=torch.float32, device=dev)
     nxt = torch.empty((e,), dtype=torch.int32, device=dev)
-    _launch(name, dev, node_state.data_ptr(), node_until.data_ptr(),
-            t.data_ptr(), power.data_ptr(), draw.data_ptr(), nxt.data_ptr(),
-            e, n)
+    fn, _ = _plan(name, dev.index, e, n)
+    _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
+            t.data_ptr(), power.data_ptr(), draw.data_ptr(), nxt.data_ptr(), e, n)
     return draw, nxt
 
 
@@ -265,28 +331,24 @@ def event_fuse_occ(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused (occupancy counts [E, G, 8] f32, next transition [E] i32) —
     the grouped path. ``G = n_groups`` is at most :data:`MAX_GROUPS` (the
-    kernel's shared-memory histogram). Routing and zero-size contract as in
-    :func:`event_fuse_ledger`."""
+    kernel's shared-memory histogram). Routing, zero-size contract and the
+    one allocation as in :func:`event_fuse_ledger`."""
     name = "event_fuse_occ"
     n_groups = int(n_groups)
     if not 1 <= n_groups <= MAX_GROUPS:
         raise ValueError(
             f"{name}: n_groups must be in 1..{MAX_GROUPS}, got {n_groups}"
         )
-    _check(name, node_state, node_until, t,
-           group_id=(group_id, tuple(node_state.shape[1:]), torch.int32))
+    dev = _check(name, node_state, node_until, t, "group_id", group_id,
+                 node_state.shape[1:], torch.int32)
     e, n = node_state.shape
-    dev = node_state.device
     if e == 0 or n == 0:
-        return (
-            torch.zeros((e, n_groups, COLS), dtype=torch.float32, device=dev),
-            torch.full((e,), int(INF_TIME), dtype=torch.int32, device=dev),
-        )
+        return _empty_pair((e, n_groups, COLS), e, dev)
     if dev.type == "cpu":
         return event_fuse_occ_plain(node_state, node_until, t, group_id, n_groups)
-    occ = torch.empty((e, n_groups, COLS), dtype=torch.float32, device=dev)
-    nxt = torch.empty((e,), dtype=torch.int32, device=dev)
-    _launch(name, dev, node_state.data_ptr(), node_until.data_ptr(),
-            t.data_ptr(), group_id.data_ptr(), occ.data_ptr(), nxt.data_ptr(),
-            e, n, n_groups)
+    fn, c = _plan(name, dev.index, e, n)
+    occ, nxt = _outputs(node_state, (e, n_groups, COLS), e)
+    _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
+            t.data_ptr(), group_id.data_ptr(), occ.data_ptr(), e, n, n_groups, c)
+    CLUSTER[name] = c
     return occ, nxt

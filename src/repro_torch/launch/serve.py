@@ -17,6 +17,20 @@ same result keys and ``[serve] done:`` line:
   the reference's drain when ``pos + 1`` reaches the cache length;
 * greedy tokens (``argmax``, the first maximum on ties).
 
+The shared counter is the reference's, and it is wrong for a refilled slot:
+the new request decodes at the batch's position instead of its own prompt
+length, so RoPE takes the wrong angle and attention reads the zero keys in
+between (ROADMAP Queue 3). ``--per-slot-positions`` fixes that: each slot
+keeps its own position in a ``[slots]`` device tensor, set to the prompt
+length when the slot is filled and advanced by one every step, which
+``decode_step`` reads per row. The shared counter's drain does not apply:
+a request decodes at positions below ``prompt-len + max-new``, inside the
+cache by the start-up check, so each slot ends with its request; an idle
+slot's position is held at the cache's last entry. The tokens are then each
+request's own greedy prefill + decode. The flag is off by default, so the
+loop stays the reference's unless asked. The xLSTM has no positions: the
+flag does not change its tokens.
+
 Two differences, both deliberate. The slot's cache insert writes **every
 layer** of every field of the stacked cache (the ``[L, B, S, KH, hd]`` keys
 and values, or the xLSTM's recurrent states); the reference writes only
@@ -71,6 +85,9 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; without a card, pass cpu")
+    ap.add_argument("--per-slot-positions", action="store_true",
+                    help="decode each slot at its own position (off: the "
+                         "reference's shared counter)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -97,6 +114,9 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     slot_remaining = [0] * n_slots
     cur_tokens = torch.zeros((n_slots, 1), dtype=torch.int64, device=dev)
     pos = args.prompt_len  # uniform prompt length => shared position counter
+    per_slot = args.per_slot_positions
+    if per_slot:  # each slot's own position, read by decode_step
+        slot_pos = torch.full((n_slots,), args.prompt_len, dtype=torch.int64, device=dev)
     ttft: Dict[int, float] = {}
     done_tokens: Dict[int, List[int]] = {}
     prefill_s: List[float] = []
@@ -120,6 +140,8 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         slot_remaining[slot] = args.max_new - 1
         insert_cache(cache, small, slot)
         cur_tokens[slot, 0] = tok
+        if per_slot:
+            slot_pos[slot] = args.prompt_len
 
     t0 = time.time()
     with torch.inference_mode():
@@ -129,9 +151,12 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
 
         while completed < len(queue):
             t_step = time.perf_counter()
-            logits, cache = model.decode_step(cur_tokens, cache, pos)
+            logits, cache = model.decode_step(cur_tokens, cache,
+                                              slot_pos if per_slot else pos)
             decode_steps += 1
             pos += 1
+            if per_slot:  # an idle slot's position is held inside the cache
+                slot_pos.add_(1).clamp_(max=args.cache_len - 1)
             nxt = torch.argmax(logits[:, 0], dim=-1)
             cur_tokens = nxt[:, None].clone()
             nxt_host = nxt.tolist()
@@ -147,7 +172,7 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
                     slot_req[s] = -1
                     if next_req < len(queue):
                         fill_slot(s)
-            if pos + 1 >= args.cache_len:  # out of cache: drain remaining
+            if not per_slot and pos + 1 >= args.cache_len:  # out of cache: drain remaining
                 for s in range(n_slots):
                     if slot_req[s] >= 0:
                         completed += 1

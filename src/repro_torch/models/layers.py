@@ -24,7 +24,7 @@ its ``kv_valid`` mask removes.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -115,10 +115,32 @@ def _causal_mask(sq: int, sk: int, q_offset: int, device) -> torch.Tensor:
     return qpos[:, None] >= torch.arange(sk, device=device)[None, :]
 
 
-def _masked_naive(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+class RowOffsets(NamedTuple):
+    """Each row's own cache offset for one step, built once and read by
+    every layer: the scatter indices ``rows`` [B, 1] and ``cols`` [B, S] of
+    the step's keys and values, and ``hidden`` [B, 1, S, Sk], the cached
+    keys each query may not see (broadcast over heads)."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    hidden: torch.Tensor
+
+
+def row_offsets(cache_pos: torch.Tensor, s: int, sk: int) -> RowOffsets:
+    """:class:`RowOffsets` of ``s`` queries at the ``[B]`` offsets
+    ``cache_pos`` into a cache of ``sk`` positions: row b's query i sits at
+    ``cache_pos[b] + i`` and sees keys ``[0, cache_pos[b] + i]``."""
+    dev = cache_pos.device
+    cols = cache_pos[:, None] + torch.arange(s, device=dev)
+    hidden = (cols[:, :, None] < torch.arange(sk, device=dev))[:, None]
+    return RowOffsets(torch.arange(cache_pos.shape[0], device=dev)[:, None], cols, hidden)
+
+
+def _masked_naive(q, k, v, causal: bool, q_offset) -> torch.Tensor:
     """The reference's ``_masked_naive`` over the valid keys ``k, v``: each
     query head ``h`` scores KV head ``h // n_rep`` directly (grouped, so the
-    repeat of the cache is never materialised)."""
+    repeat of the cache is never materialised). ``q_offset`` is the batch's
+    one offset, or a :class:`RowOffsets` whose mask is each row's own."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     n_rep = h // kh
@@ -127,16 +149,18 @@ def _masked_naive(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).reshape(b, h, sq, sk)
     logits = logits.float() * scale
     if causal:
-        logits = logits.masked_fill(~_causal_mask(sq, sk, q_offset, q.device), -1e30)
+        hidden = (q_offset.hidden if isinstance(q_offset, RowOffsets)
+                  else ~_causal_mask(sq, sk, q_offset, q.device))
+        logits = logits.masked_fill(hidden, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", w.reshape(b, kh, n_rep, sq, sk), v)
     return out.reshape(b, sq, h, hd)
 
 
-def _attend(q, k, v, causal: bool, q_offset: int, impl: str) -> torch.Tensor:
+def _attend(q, k, v, causal: bool, q_offset, impl: str) -> torch.Tensor:
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {impl!r}")
-    if impl != "naive" and q_offset == 0:
+    if impl != "naive" and not isinstance(q_offset, RowOffsets) and q_offset == 0:
         return flash_attention(q, k, v, causal=causal)
     return _masked_naive(q, k, v, causal, q_offset)
 
@@ -183,20 +207,33 @@ class Attention(nn.Module):
         *,
         causal: bool = True,
         cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-        cache_pos: int = 0,
+        cache_pos: Union[int, torch.Tensor, RowOffsets] = 0,
         attn_impl: str = "auto",
     ) -> torch.Tensor:
         """Self-attention, ``[B, S, D]``.
 
         ``cache``: (k_cache, v_cache) ``[B, S_max, KH, hd]``, written in place
-        at ``cache_pos`` (a Python int); attention then reads the valid
-        prefix ``[:cache_pos + S]`` with the causal mask offset by
-        ``cache_pos`` — the reference's ``kv_valid`` and causal masks.
+        at ``cache_pos``. A Python int is the batch's one offset: attention
+        then reads the valid prefix ``[:cache_pos + S]`` with the causal mask
+        offset by ``cache_pos`` — the reference's ``kv_valid`` and causal
+        masks. A ``[B]`` tensor gives each row its own offset (``positions``
+        is then ``[B, S]``): row b's keys and values are written at
+        ``cache_pos[b]`` by one scatter, and it attends over the whole cache
+        with its own mask, keys ``[0, cache_pos[b] + i]`` for query i. A
+        :class:`RowOffsets` is such a tensor's indices and mask, built once
+        for all layers by :func:`row_offsets`.
         """
         b, s, _ = x.shape
         q, k, v = self.qkv(x, positions)
         if cache is None:
             out = _attend(q, k, v, causal, 0, attn_impl)
+        elif torch.is_tensor(cache_pos) or isinstance(cache_pos, RowOffsets):
+            kc, vc = cache
+            if torch.is_tensor(cache_pos):
+                cache_pos = row_offsets(cache_pos, s, kc.shape[1])
+            kc.index_put_((cache_pos.rows, cache_pos.cols), k)
+            vc.index_put_((cache_pos.rows, cache_pos.cols), v)
+            out = _attend(q, kc, vc, True, cache_pos, attn_impl)
         else:
             kc, vc = cache
             cache_pos = int(cache_pos)

@@ -78,7 +78,8 @@ class DenseBlock(nn.Module):
         self.attn.init(generator)
         self.mlp.init(generator)
 
-    def forward(self, x, positions, cache=None, cache_pos: int = 0,
+    def forward(self, x, positions, cache=None,
+                cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0,
                 attn_impl: str = "auto") -> torch.Tensor:
         h = self.attn(L.rms_norm(x, self.ln1, self.eps), positions, causal=True,
                       cache=cache, cache_pos=cache_pos, attn_impl=attn_impl)
@@ -206,7 +207,8 @@ class Transformer(nn.Module):
         x = L.rms_norm(x, self.final_norm, self.config.norm_eps)
         return self.lm_head(x).float()
 
-    def _run(self, x, positions, cache: Optional[Cache] = None, cache_pos: int = 0):
+    def _run(self, x, positions, cache: Optional[Cache] = None,
+             cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0):
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else tuple(f[i] for f in cache)
             if self.block_type == "dense":
@@ -253,13 +255,22 @@ class Transformer(nn.Module):
         return self._logits(x[:, -1:]), cache
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, cache: Cache, pos: int):
+    def decode_step(self, tokens: torch.Tensor, cache: Cache,
+                    pos: Union[int, torch.Tensor]):
         """tokens ``[B, 1]`` at position ``pos`` (the KV cache's write
         offset) -> (logits ``[B, 1, V]`` f32, the same cache, written in
-        place)."""
+        place). ``pos`` is the batch's one position (an int) or each
+        sequence's own (a ``[B]`` int64 tensor on the model's device), which
+        RoPE, the cache write and the attention mask then read per row."""
         x = self._embed(tokens)
-        positions = torch.arange(pos, pos + 1, device=x.device)
-        x = self._run(x, positions, cache, int(pos))
+        if torch.is_tensor(pos):
+            positions = pos[:, None]
+            if self.block_type == "dense":  # every layer's indices and mask
+                pos = L.row_offsets(pos, 1, cache[0].shape[2])
+        else:
+            positions = torch.arange(pos, pos + 1, device=x.device)
+            pos = int(pos)
+        x = self._run(x, positions, cache, pos)
         return self._logits(x), cache
 
     def n_params(self) -> int:
