@@ -33,11 +33,16 @@ Phases (each prints a line; any failed check exits non-zero):
    same inputs, then the plain version and
    ``scaled_dot_product_attention``;
 4. labels: the paper's seven schedulers on a 16-node homogeneous and a
-   16-node mixed platform on the card; then, on the grouped path, the seven
-   on a 280-node Curie platform replaying a Curie-class SWF trace, and
-   ``node_order="pack"``, ``allocation="partition"`` and ``merge_bursts``
-   under EASY PSUS and FCFS PSAS — each held against the port's sequential
-   oracle (schedule exact, energy to rel 1e-5);
+   16-node mixed platform on the card, and every DVFS and Forecast label
+   (``scheduler_labels(include_dvfs=True, include_forecast=True)`` and
+   EASY DVFS+Forecast) on the 16-node DVFS platform; then, on the grouped
+   path, the seven on a 280-node Curie platform replaying a Curie-class SWF
+   trace, the seven with ``+Forecast`` (horizon 1800 s) there and with
+   ``+DVFS`` on the 280-node DVFS platform, and ``node_order="pack"``,
+   ``allocation="partition"`` and ``merge_bursts`` under EASY PSUS and FCFS
+   PSAS — each held against the port's sequential oracle (schedule exact,
+   energy and the DVFS mode energy to rel 1e-5), the grouped runs with one
+   occupancy-kernel launch a batch;
 5. main path, dense: one simulation at CEA-Curie scale (11 200 nodes, the
    ``cea_curie`` workload, 1000 jobs, EASY PSUS, timeout 1800 s) — the
    ledger kernel must have launched once per event batch, and the schedule
@@ -69,7 +74,16 @@ Phases (each prints a line; any failed check exits non-zero):
    is timed, its mLSTM and its sLSTM are profiled, and so is one decode
    step; then, in f32,
    two 1024-token prompts go through ``prefill`` by the kernel route and
-   by the plain route, whose last-position logits must agree.
+   by the plain route, whose last-position logits must agree;
+10. power rules at Curie scale, grouped: EASY PSUS+Forecast (horizon
+   1800 s) on phase 6's inputs, and EASY PSUS+DVFS on the DVFS platform at
+   11 200 nodes with phase 5's workload (timeout 900 s, ``node_order=
+   "cheap"``, ``terminate_overrun``) — the occupancy kernel must have
+   launched once a batch and the schedule must equal the same run's on the
+   plain per-node route (energy and mode ledgers to rel 1e-5); the Forecast
+   run at horizon 0 must give phase 6's schedule and energy bit for bit;
+   the first 100 batches of each and of phase 6's configuration are
+   profiled (device ops a batch, device busy share).
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -521,13 +535,64 @@ def kernel_class(name: str) -> str:
 
 
 def held_against_oracle(metrics, run_pydes, np, plat, wl, cfg, s):
-    """Schedule exact and energy to rel 1e-5 against the port's oracle."""
+    """(schedule == the port's oracle's, the largest relative error of total
+    energy, wasted energy and each DVFS mode-energy cell, metrics)."""
     m_o, des = run_pydes(plat, wl, cfg)
     m = metrics.metrics_from_state(s, plat)
     same = np.array_equal(metrics.schedule_table(s), des.schedule_table())
     rel = abs(m.total_energy_j - m_o.total_energy_j) / max(m_o.total_energy_j, 1.0)
     rel_w = abs(m.wasted_energy_j - m_o.wasted_energy_j) / max(m_o.wasted_energy_j, 1.0)
-    return same, max(rel, rel_w), m
+    me, me_o = np.asarray(m.energy_by_mode_j), np.asarray(m_o.energy_by_mode_j)
+    rel_m = float(np.max(np.abs(me - me_o) / np.maximum(np.abs(me_o), 1.0)))
+    return same, max(rel, rel_w, rel_m), m
+
+
+def same_run(np, metrics, a, b, what):
+    """Two runs of one configuration: schedule, batches and switch counts
+    equal; energy and the mode ledgers to rel 1e-5. Returns the largest
+    relative difference."""
+    check(np.array_equal(metrics.schedule_table(a), metrics.schedule_table(b)),
+          f"{what}: schedule")
+    da, db = metrics.np_state(a), metrics.np_state(b)
+    for fld in ("n_batches", "n_switch_on", "n_switch_off", "dvfs_mode"):
+        check(np.array_equal(da[fld], db[fld]), f"{what}: {fld}")
+    worst = 0.0
+    for fld in ("energy", "mode_time", "mode_energy"):
+        diff = np.abs(da[fld].astype(np.float64) - db[fld])
+        rel = float(np.max(diff / np.maximum(np.abs(db[fld]), 1.0)))
+        check(rel <= 1e-5, f"{what}: {fld} rel diff {rel}")
+        worst = max(worst, rel)
+    return worst
+
+
+def profile_batches(torch, engine, plat, wl, cfg, n_batches=100, dev="cuda"):
+    """(device ops a batch, device ms a batch, wall ms a batch, busy share,
+    seconds the window took, profiler included) over the first
+    ``n_batches`` batches of a run, with the device activity profiled only:
+    the run is cut by ``max_batches`` (its truncation warning is
+    silenced)."""
+    import warnings
+
+    t_window = time.perf_counter()
+    cut = dataclasses.replace(cfg, max_batches=n_batches)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        engine.simulate(plat, wl, cut, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            s = engine.simulate(plat, wl, cut, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    nb = int(s.n_batches)
+    ops_ms = [e.device_time_total / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(nb == n_batches and ops_ms,
+          f"profiled window: {nb} batches, {len(ops_ms)} device ops")
+    busy_ms = sum(ops_ms)
+    return (len(ops_ms) / nb, busy_ms / nb, 1e3 * wall / nb, busy_ms / (1e3 * wall),
+            time.perf_counter() - t_window)
 
 
 def poison(torch):
@@ -606,6 +671,110 @@ def time_kernel(torch, name, fn, plain, args, bound, shape, floor_ms, fill):
     return k_ms, p_ms, k_host, fill_host
 
 
+def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
+            max_jobs=1000):
+    """Phase 10: the grouped Forecast and DVFS runs at Curie scale on
+    ``dev``, each against its plain per-node route, the Forecast run at
+    horizon 0 against phase 6's run (``g_state``, ``g_metrics``, ``g_cfg``),
+    and the profiled windows. Returns the event kernels' launches of the
+    Forecast and the DVFS run."""
+    from repro_torch.core import engine, metrics
+    from repro_torch.core.policy import from_label
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.workloads.generator import PRESETS, generate_workload
+    from repro_torch.workloads.platform import curie_platform, dvfs_platform_example
+    from repro_torch.workloads.traces import replay_workload
+    t10 = time.perf_counter()
+    curie = curie_platform(nodes)
+    fc_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
+    dvfs_plat = dvfs_platform_example(nodes)
+    # phase 5's workload (the cea_curie preset cut to max_jobs jobs)
+    dvfs_wl = generate_workload(dataclasses.replace(
+        PRESETS["cea_curie"], n_jobs=max_jobs, nb_res=nodes,
+        max_res=min(PRESETS["cea_curie"].max_res, nodes)))
+    base, fc_pol = from_label("EASY PSUS+Forecast")
+    fc_cfg = EngineConfig(base=base, policy=fc_pol, timeout=1800, forecast_horizon=1800,
+                          grouped_tables=True)
+    base, dv_pol = from_label("EASY PSUS+DVFS")
+    dv_cfg = EngineConfig(base=base, policy=dv_pol, timeout=900, node_order="cheap",
+                          terminate_overrun=True, grouped_tables=True)
+    runs10 = {}
+    for name, plat, wl, cfg in (("forecast", curie, fc_wl, fc_cfg),
+                                ("dvfs", dvfs_plat, dvfs_wl, dv_cfg)):
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        engine.HOST_SYNCS = 0
+        t0 = time.perf_counter()
+        s = engine.simulate(plat, wl, cfg, device=dev)
+        wall = time.perf_counter() - t0
+        launches = dict(event_fuse.LAUNCHES)
+        syncs = engine.HOST_SYNCS
+        nb = int(s.n_batches)
+        check(nb > 0 and not bool(s.truncated) and bool(engine.all_done(s)),
+              f"phase 10 {name}: {nb} batches, truncated or jobs left")
+        check(launches["event_fuse_occ"] == nb,
+              f"phase 10 {name}: occ kernel launches {launches} != n_batches {nb}")
+        check(launches["event_fuse_ledger"] == 0 and launches["event_fuse"] == 0
+              and fa.LAUNCHES["flash_attention"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0,
+              f"phase 10 {name}: other kernels launched")
+        check(syncs <= 2 * nb, f"phase 10 {name}: {syncs} host syncs for {nb} batches")
+        t0 = time.perf_counter()
+        plain = engine.simulate(plat, wl, dataclasses.replace(cfg, fused_kernel=False),
+                                device=dev)
+        plain_wall = time.perf_counter() - t0
+        rel = same_run(np, metrics, s, plain, f"phase 10 {name} kernel vs plain route")
+        runs10[name] = dict(state=s, wall=wall, plain_wall=plain_wall, n_batches=nb,
+                            syncs=syncs, occ=launches["event_fuse_occ"], rel=rel,
+                            m=metrics.metrics_from_state(s, plat), by_kernel=launches)
+    fc0 = engine.simulate(curie, fc_wl, dataclasses.replace(fc_cfg, forecast_horizon=0),
+                          device=dev)
+    check(np.array_equal(metrics.schedule_table(fc0), metrics.schedule_table(g_state)),
+          "phase 10: Forecast at horizon 0 == phase 6's EASY PSUS schedule")
+    d0, d6 = metrics.np_state(fc0), metrics.np_state(g_state)
+    for fld in ("energy", "n_batches", "n_switch_on", "n_switch_off"):
+        check(np.array_equal(d0[fld], d6[fld]), f"phase 10: horizon 0 {fld} == phase 6's")
+    prof10 = {name: profile_batches(torch, engine, plat, wl, cfg, dev=dev)
+              for name, plat, wl, cfg in (
+                  ("phase 6 EASY PSUS", curie, fc_wl, g_cfg),
+                  ("forecast", curie, fc_wl, fc_cfg),
+                  ("dvfs", dvfs_plat, dvfs_wl, dv_cfg))}
+    fc, dv = runs10["forecast"], runs10["dvfs"]
+    fc_by_kernel, dv_by_kernel = fc["by_kernel"], dv["by_kernel"]
+    fm, dm = fc["m"], dv["m"]
+    for name, r in runs10.items():
+        print(f"phase 10 {name}: n_batches {r['n_batches']}, occ kernel launches "
+              f"{r['occ']}, host syncs {r['syncs']} ({r['syncs'] / r['n_batches']:.3f}"
+              f"/batch); wall {r['wall']:.2f} s = "
+              f"{1e6 * r['wall'] / r['n_batches']:.1f} us/batch (plain per-node route "
+              f"{r['plain_wall']:.2f} s, schedule equal, energy and mode ledgers max rel "
+              f"diff {r['rel']:.2e})", flush=True)
+    print(f"phase 10 forecast: EASY PSUS+Forecast horizon 1800 on curie_platform({nodes}), "
+          f"{len(fc_wl)} replayed jobs: switch-ons {int(fc['state'].n_switch_on)} (phase 6 "
+          f"EASY PSUS {int(g_state.n_switch_on)}), total {fm.total_energy_j / 3.6e6:.1f} "
+          f"kWh ({g_metrics.total_energy_j / 3.6e6:.1f}), mean wait {fm.mean_wait_s:.1f} s "
+          f"({g_metrics.mean_wait_s:.1f}), makespan {fm.makespan_s} s "
+          f"({g_metrics.makespan_s}); horizon 0: schedule, energy, batches and switch "
+          f"counts == phase 6's bit for bit", flush=True)
+    names = dvfs_plat.group_names()
+    print(f"phase 10 dvfs: EASY PSUS+DVFS timeout 900 on dvfs_platform_example({nodes}), "
+          f"cea_curie {len(dvfs_wl)} jobs: mode residency s (slow, base, turbo) "
+          + "; ".join(f"{g} {[round(x) for x in row]}"
+                      for g, row in zip(names, dm.mode_residency_s))
+          + f"; total {dm.total_energy_j / 3.6e6:.1f} kWh, mean wait {dm.mean_wait_s:.1f} "
+          f"s, makespan {dm.makespan_s} s, terminated {dm.n_terminated}", flush=True)
+    for name, (ops, dev_ms, wall_ms, busy, took) in prof10.items():
+        print(f"phase 10 profile, first 100 batches, {name}: {ops:.1f} device ops a "
+              f"batch, device {1e3 * dev_ms:.1f} us a batch, wall {1e3 * wall_ms:.1f} us "
+              f"a batch (profiled), busy {100 * busy:.1f} % (window and warm-up "
+              f"{took:.1f} s)", flush=True)
+    print(f"phase 10 wall {time.perf_counter() - t10:.1f} s", flush=True)
+    return fc_by_kernel, dv_by_kernel
+
+
 def main() -> None:
     import torch
 
@@ -614,7 +783,7 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.core import engine, metrics
-    from repro_torch.core.policy import from_label
+    from repro_torch.core.policy import from_label, scheduler_labels
     from repro_torch.core.ref.pydes import run_pydes
     from repro_torch.core.types import EngineConfig
     import torch.nn.functional as F
@@ -630,7 +799,7 @@ def main() -> None:
         PRESETS, GeneratorConfig, generate_workload,
     )
     from repro_torch.workloads.platform import (
-        PlatformSpec, curie_platform, mixed_platform_example,
+        PlatformSpec, curie_platform, dvfs_platform_example, mixed_platform_example,
     )
     from repro_torch.workloads.traces import replay_workload, synthesize_curie_swf
 
@@ -949,6 +1118,30 @@ def main() -> None:
     print(f"phase 4 labels: {n_label_runs} runs on cuda == oracle "
           f"(schedule exact, energy rel <= 1e-5) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    plat = dvfs_platform_example(16)
+    wl = generate_workload(
+        GeneratorConfig(n_jobs=100, nb_res=16, seed=0, overrun_prob=0.2)
+    )
+    rule_labels = scheduler_labels(include_dvfs=True, include_forecast=True) + (
+        "EASY DVFS+Forecast",)
+    worst, residency = 0.0, 0.0
+    for label in rule_labels:
+        base, pol = from_label(label)
+        cfg = EngineConfig(base=base, policy=pol, timeout=300, terminate_overrun=True,
+                           node_order="cheap", forecast_horizon=900)
+        s = engine.simulate(plat, wl, cfg, device="cuda")
+        same, rel, m = held_against_oracle(metrics, run_pydes, np, plat, wl, cfg, s)
+        check(same, f"{label} on the DVFS platform: schedule")
+        check(rel <= 1e-5, f"{label} on the DVFS platform: energy rel err {rel}")
+        worst = max(worst, rel)
+        residency += sum(row[0] + row[2] for row in m.mode_residency_s)
+    check(residency > 0, "DVFS labels never left the base mode")
+    print(f"phase 4 rules 8-10: {len(rule_labels)} DVFS and Forecast labels on "
+          f"dvfs_platform_example(16), dense, on cuda == oracle (schedule exact, "
+          f"energy and mode energy rel err <= {worst:.2e}; {residency:.0f} group-s "
+          f"in the slow and turbo modes) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     atexit.register(shutil.rmtree, tmp, True)
@@ -977,6 +1170,28 @@ def main() -> None:
           f"(schedule exact, energy rel err <= {worst:.2e}), occupancy kernel "
           f"launches == n_batches, in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    worst = 0.0
+    stacks = [(plat, "+Forecast", {"forecast_horizon": 1800})] + [
+        (dvfs_platform_example(280), "+DVFS", {})]
+    for splat, suffix, opts in stacks:
+        for label in LABELS:
+            base, pol = from_label(label + suffix)
+            cfg = EngineConfig(base=base, policy=pol, timeout=1800, node_order="cheap",
+                               grouped_tables=True, **opts)
+            event_fuse.reset_launches()
+            s = engine.simulate(splat, wl, cfg, device="cuda")
+            check(event_fuse.LAUNCHES["event_fuse_occ"] == int(s.n_batches),
+                  f"grouped {label}{suffix}: occupancy kernel launches")
+            same, rel, _ = held_against_oracle(metrics, run_pydes, np, splat, wl, cfg, s)
+            check(same, f"grouped {label}{suffix}: schedule")
+            check(rel <= 1e-5, f"grouped {label}{suffix}: energy rel err {rel}")
+            worst = max(worst, rel)
+    print(f"phase 4 grouped rules 9-10: the {len(LABELS)} labels +Forecast (horizon "
+          f"1800) on curie_platform(280) and +DVFS on dvfs_platform_example(280), "
+          f"{len(wl)} replayed jobs, on cuda == oracle (schedule exact, energy and "
+          f"mode energy rel err <= {worst:.2e}), occupancy kernel launches == "
+          f"n_batches, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the main path at CEA-Curie scale, dense ----
     gcfg = dataclasses.replace(PRESETS["cea_curie"], n_jobs=1000)
@@ -992,7 +1207,7 @@ def main() -> None:
     t0 = time.perf_counter()
     s = engine.simulate(plat, wl, cfg, device="cuda")
     first_s = time.perf_counter() - t0
-    launches = dict(event_fuse.LAUNCHES)
+    launches = dense_by_kernel = dict(event_fuse.LAUNCHES)
     syncs = engine.HOST_SYNCS
     n_batches = int(s.n_batches)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1039,7 +1254,7 @@ def main() -> None:
     t0 = time.perf_counter()
     s = engine.simulate(plat, wl, cfg, device="cuda")
     g_first_s = time.perf_counter() - t0
-    launches = dict(event_fuse.LAUNCHES)
+    launches = grouped_by_kernel = dict(event_fuse.LAUNCHES)
     g_syncs = engine.HOST_SYNCS
     g_batches = int(s.n_batches)
     g_peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1080,6 +1295,7 @@ def main() -> None:
     g_wall_s = time.perf_counter() - t0
     check(np.array_equal(metrics.schedule_table(s2), metrics.schedule_table(s)),
           "grouped rerun schedule")
+    g_state, g_metrics, g_cfg = s, m, cfg  # phase 10's reactive base
     print(f"phase 6 grouped main path: curie_platform({plat.nb_nodes}) "
           f"(G={plat.n_groups()}), {len(wl)} jobs replayed from the synthesized "
           f"Curie SWF, EASY PSUS timeout 1800, grouped tables, on cuda: "
@@ -1469,6 +1685,10 @@ def main() -> None:
           f"tolerance {LOGITS_REL_TOL} of it); greedy first tokens kernel {xtok_k}, "
           f"plain {xtok_p}; phase wall {time.perf_counter() - t9:.1f} s", flush=True)
 
+    # ---- 10. power rules 9-10 at Curie scale, grouped ----
+    torch.cuda.empty_cache()
+    fc_by_kernel, dv_by_kernel = phase10(torch, np, swf, g_state, g_metrics, g_cfg)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
@@ -1484,6 +1704,12 @@ def main() -> None:
         if key in clusters:
             row.update(cluster=clusters[key], cluster_e64=clusters[kname, 64],
                        ms_e64=timing[kname, 64][0])
+        row["launches_by_path"] = {
+            "phase 5 dense": dense_by_kernel[kname],
+            "phase 6 grouped": grouped_by_kernel[kname],
+            "phase 10 forecast": fc_by_kernel[kname],
+            "phase 10 dvfs": dv_by_kernel[kname],
+        }
         if note:
             row["note"] = note
         return row

@@ -14,10 +14,11 @@ concrete Python bools (the reference's static specialization), the FCFS/EASY
 scheduler under every ``node_order`` ("id", "cheap", "idle-watts", "pack")
 and both ``allocation`` scopes ("any", "partition"), with or without
 ``merge_bursts``, on the dense per-node tables or the grouped tables
-(``grouped_tables``, :mod:`repro_torch.core.tables`), and power rules 6-7
-(PSUS, PSAS, PSAS+IPM, AlwaysOn). Everything else raises
-``NotImplementedError`` naming the ROADMAP item that ports it
-(:func:`check_supported`).
+(``grouped_tables``, :mod:`repro_torch.core.tables`), and power rules 6-10
+(PSUS, PSAS, PSAS+IPM, AlwaysOn; RL power commands, set by an in-graph
+controller or left pending; DVFS; Forecast). Sharded sweeps (``devices``)
+and the legacy loop (``fused_events=False``) raise ``NotImplementedError``
+naming the ROADMAP item that ports them (:func:`check_supported`).
 
 Loop structure and host syncs. The reference runs the whole simulation
 inside one ``lax.while_loop`` on the device. Eager PyTorch needs a host read
@@ -52,18 +53,22 @@ host. Capturing chunks of batches in a CUDA graph is later work.
 
 Kernel routing (:func:`event_horizon`): on the grouped path the
 per-(group, state) occupancy histogram and the next-transition min run
-through ``kernels/event_fuse.py::event_fuse_occ``; on the dense path of a
-single-group platform (with DVFS off, as always here) the per-state power
-histogram and the min run through ``event_fuse_ledger`` — each the CUDA
-kernel on a CUDA device. ``EngineConfig.fused_kernel=None`` means "the kernel
+through ``kernels/event_fuse.py::event_fuse_occ`` (under DVFS too: the
+counts are the kernel's and :func:`_group_draw` prices the ACTIVE column
+at each group's mode watts); on the dense path of a single-group platform
+with DVFS off the per-state power histogram and the min run through
+``event_fuse_ledger`` — each the CUDA kernel on a CUDA device. The ledger
+kernel knows only the base watts, so a dense DVFS run takes the per-node
+route. ``EngineConfig.fused_kernel=None`` means "the kernel
 on CUDA, the plain per-node route on the CPU"; ``False`` selects the
 per-node route anywhere, ``True`` the kernel's wrapper anywhere (its plain
 version on the CPU).
 
 Determinism: the per-node route reduces the ``[G, 5]`` ledger with a one-hot
-sum in a fixed order (no float atomics), and every scatter is either
-integer, a scatter-min, or writes distinct indices, so a rerun on the same
-device is bit-identical.
+sum in a fixed order (no float atomics), the DVFS mode ledgers add one
+value to one cell per group, and every scatter is either integer, a
+scatter-min, or writes distinct indices, so a rerun on the same device is
+bit-identical.
 """
 from __future__ import annotations
 
@@ -77,11 +82,15 @@ import torch
 from repro_torch.core.policy import (
     PolicyParams,
     alloc_min_speed,
+    apply_dvfs,
+    apply_forecast,
+    apply_rl_commands,
     effective_node_speed,
     ipm_wake,
     pack_key,
     timeout_switch_off,
 )
+from repro_torch.core.rl.actions import full_commands
 from repro_torch.core.tables import GroupTables, group_tables
 from repro_torch.core.types import (
     ACTIVE,
@@ -169,9 +178,8 @@ class SimState(NamedTuple):
     n_completions: torch.Tensor
     n_switch_on: torch.Tensor
     n_switch_off: torch.Tensor
-    # rule 8-10 state, carried for field parity with the reference: the
-    # rules this slice runs leave it at its initial values, except job_speed
-    # (each job's realized speed, set at its start)
+    # rule 8-10 state: pending RL commands, DVFS modes and mode ledgers,
+    # each job's realized speed (set at its start, rescaled by rule 9)
     rl_on_cmd: torch.Tensor  # i32[G]
     rl_off_cmd: torch.Tensor  # i32[G]
     dvfs_mode: torch.Tensor  # i32[G]
@@ -200,22 +208,13 @@ class GanttLog(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def check_supported(config: EngineConfig) -> None:
-    """Raise NotImplementedError for a configuration this slice does not run,
-    naming the ROADMAP item (Queue 1) that ports it."""
+    """Raise NotImplementedError for a configuration the port does not run
+    yet, naming the ROADMAP item (Queue 1) that ports it."""
     later = []
     if config.devices is not None:
         later.append("devices / sharded sweeps (item 8)")
     if not config.fused_events:
         later.append("the legacy loop, fused_events=False (item 3)")
-    if getattr(config.policy, "controller", None) is not None:
-        later.append("an in-graph RL controller (item 10)")
-    pp = config.policy.params(config.base)
-    if pp.rl_enabled:
-        later.append("rule 8, RL power commands (item 7)")
-    if pp.dvfs_enabled:
-        later.append("rule 9, DVFS (item 7)")
-    if pp.forecast_enabled:
-        later.append("rule 10, Forecast (item 7)")
     if later:
         raise NotImplementedError(
             f"{config.label()!r}: {', '.join(later)} not ported to the "
@@ -417,10 +416,14 @@ def _occupancy(s: SimState, const: EngineConst) -> torch.Tensor:
 
 
 def _group_draw(s: SimState, occ: torch.Tensor, const: EngineConst) -> torch.Tensor:
-    """f32[G, 5] instantaneous draw from the occupancy histogram (DVFS off:
-    the reference's ACTIVE-column override by the DVFS mode watts is ported
-    with rule 9)."""
-    return occ.to(F32) * const.tables.power
+    """f32[G, 5] instantaneous draw from the occupancy histogram: ``occ *
+    power``, with the ACTIVE column priced at each group's current DVFS mode
+    watts under rule 9 — the grouped spelling of :func:`_node_power_draw`."""
+    draw = occ.to(F32) * const.tables.power
+    if const.policy.dvfs_enabled:
+        mode_w = const.dvfs_watts.gather(1, s.dvfs_mode.long()[:, None])[:, 0]
+        draw[:, ACTIVE] = occ[:, ACTIVE].to(F32) * mode_w
+    return draw
 
 
 def _kahan_add(energy, comp, delta):
@@ -767,18 +770,53 @@ def _start_jobs(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimState:
 
 
 def _power_step(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimState:
-    """Rules 6-7, by the concrete policy flags (rules 8-10 never reach here:
-    :func:`check_supported` refuses them)."""
+    """Rules 6-10 by the concrete policy flags, in the reference's order:
+    rule 6, rule 7, the in-graph controller, rules 8, 9 and 10.
+
+    The controller (``RLController.controller``, ``f(s, const) -> (on, off)``
+    or ``(on, off, mode)``) runs on every batch (a controller turns quiet
+    batching off) and sets the pending command vectors, which rules 8-9
+    then apply; without one, commands set on the state beforehand are
+    applied."""
     pp = const.policy
     if pp.sleep_enabled:
         s = timeout_switch_off(s, const, ipm_cap=pp.ipm_enabled)
     if pp.ipm_enabled:
         s = ipm_wake(s, const)
+    controller = getattr(cfg.policy, "controller", None)
+    if controller is not None:
+        out = controller(s, const)
+        if getattr(cfg.policy, "dvfs", False) and len(out) < 3:
+            # a pair under RL:dvfs would pin every group at mode 0 (dvfs_rl
+            # bypasses the ladder): fail instead
+            raise ValueError(
+                "RLController(dvfs=True) needs a controller returning "
+                "(on, off, mode) — this one returns only (on, off), so no "
+                "mode command would ever be issued"
+            )
+        on, off, mode = full_commands(s, out)
+        dev = s.t.device
+        s = s._replace(**{
+            name: torch.broadcast_to(
+                torch.as_tensor(x, device=dev), like.shape
+            ).to(I32)
+            for name, x, like in (("rl_on_cmd", on, s.rl_on_cmd),
+                                  ("rl_off_cmd", off, s.rl_off_cmd),
+                                  ("rl_mode_cmd", mode, s.rl_mode_cmd))
+        })
+    if pp.rl_enabled:
+        s = apply_rl_commands(s, const, grouped=pp.rl_grouped)
+    if pp.dvfs_enabled:
+        s = apply_dvfs(s, const, terminate_overrun=cfg.terminate_overrun,
+                       rl=pp.dvfs_rl)
+    if pp.forecast_enabled:
+        s = apply_forecast(s, const, terminate_overrun=cfg.terminate_overrun,
+                           dvfs_ramp=pp.forecast_dvfs)
     return s
 
 
 def process_batch(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimState:
-    """One atomic event batch at time s.t (SEMANTICS.md rules 1-7)."""
+    """One atomic event batch at time s.t (SEMANTICS.md rules 1-10)."""
     s = _complete_jobs(s)
     s = _complete_transitions(s, const)
     s = _scheduler_pass(s, const, cfg)
@@ -794,8 +832,12 @@ def process_batch(s: SimState, const: EngineConst, cfg: EngineConfig) -> SimStat
 def _time_candidates(s: SimState, const: EngineConst):
     """Non-transition next-event candidates: (arrivals, finishes, policy).
 
-    The idle-timeout expiry candidate (``sleep_enabled``) may be <= t;
-    callers clamp it strictly-future."""
+    Policy candidates: the idle-timeout expiries (``sleep_enabled``), the RL
+    decision tick ``t + rl_interval`` (``rl_enabled``; ``INF_TIME`` when
+    unset, which stays within int32) and the forecast review tick ``t +
+    horizon`` (``forecast_enabled``; a zero horizon gives ``t``, which the
+    callers' strictly-future clamp drops, so it adds no batch). They may be
+    <= t; callers clamp them strictly-future."""
     t = s.t
     waiting_future = (s.job_status == WAITING) & (s.job_subtime > t)
     arr = torch.where(waiting_future, s.job_subtime, INF).amin()
@@ -808,6 +850,10 @@ def _time_candidates(s: SimState, const: EngineConst):
         policy_cands.append(
             torch.where(idle_unres & (expiry > t), expiry, INF).amin()
         )
+    if const.policy.rl_enabled:
+        policy_cands.append(t + const.rl_interval)
+    if const.policy.forecast_enabled:
+        policy_cands.append(t + const.forecast_horizon)
     return arr, fin, policy_cands
 
 
@@ -838,8 +884,14 @@ def next_time(
 
 
 def _node_power_draw(s: SimState, const: EngineConst) -> torch.Tensor:
-    """f32[N] instantaneous per-node draw (DVFS off)."""
-    return const.power.gather(1, s.node_state.long()[:, None])[:, 0]
+    """f32[N] instantaneous per-node draw; under rule 9 an ACTIVE node draws
+    its group's current-mode watts."""
+    node_power = const.power.gather(1, s.node_state.long()[:, None])[:, 0]
+    if const.policy.dvfs_enabled:
+        gid = const.group_id.long()
+        mode_w = const.dvfs_watts[gid, s.dvfs_mode.long()[gid]]
+        node_power = torch.where(s.node_state == ACTIVE, mode_w, node_power)
+    return node_power
 
 
 class EventAux(NamedTuple):
@@ -863,7 +915,9 @@ def _fused_kernel_on(cfg: EngineConfig, device: torch.device) -> bool:
 
 def _quiet_enabled(const: EngineConst, cfg: EngineConfig) -> bool:
     """Quiet-event batching applies when the rules a quiet batch skips are
-    statically absent (always true for the rules this slice runs)."""
+    statically absent: rules 8-10 and a controller may change state on any
+    batch (pending commands, the DVFS ladder, the forecast update), so they
+    turn it off."""
     pp = const.policy
     return (
         cfg.fused_events
@@ -907,9 +961,12 @@ def event_horizon(
     CUDA kernel on a CUDA device; see the module docstring for
     ``fused_kernel``) or the plain :func:`_occupancy`; the counts are exact
     either way, and the draw is their contraction with the group power
-    table. On the dense path of a single-group platform the histogram and
+    table, the ACTIVE column at the DVFS mode watts under rule 9. On the
+    dense path of a single-group platform with DVFS off the histogram and
     the min go through ``event_fuse_ledger``, fed ``const.power[0]`` — the
-    per-state table of the one group. The i32 min is exact either way; the
+    per-state table of the one group; under DVFS the ACTIVE watts follow the
+    mode table, which the kernel does not see, so the per-node route runs
+    instead (the reference's gate). The i32 min is exact either way; the
     ledger kernel's per-state sums differ from the per-node route only in
     reduction order, so the schedule is bit-exact and energy equal to
     rounding.
@@ -929,7 +986,8 @@ def event_horizon(
             aux_occ = _occupancy(s, const)
             tr = _next_transition(s)
         aux_power, aux_draw = None, _group_draw(s, aux_occ, const)
-    elif G == 1 and _fused_kernel_on(cfg, s.t.device):
+    elif (G == 1 and not const.policy.dvfs_enabled
+          and _fused_kernel_on(cfg, s.t.device)):
         draw8, tr_v = event_fuse.event_fuse_ledger(
             s.node_state[None], s.node_until[None], s.t.view(1),
             const.power[0],
@@ -972,11 +1030,20 @@ def accrue_energy(
     const: EngineConst,
     aux: Optional[EventAux] = None,
 ) -> SimState:
-    """Accrue energy and the waiting integral over ``[s.t, t_next)``.
+    """Accrue energy, the DVFS mode ledgers and the waiting integral over
+    ``[s.t, t_next)``.
 
     On the grouped path the draw is the contraction of the occupancy
     histogram (from the event pass, or computed here by the gantt loop,
     which runs without one) and the histogram is stored in ``SimState.occ``.
+
+    Under rule 9 each group adds ``dt`` to ``mode_time[g, mode[g]]`` and its
+    ACTIVE energy ``draw[g, ACTIVE] * dt`` to ``mode_energy[g, mode[g]]``, on
+    every route. On the per-node route the reference scatter-adds each
+    ACTIVE node's ``watts * dt``; here the group's fixed-order ledger sum is
+    used instead, since every node of a group shares its mode: the same
+    quantity to rounding, and no float atomics (which would make a CUDA
+    rerun order-dependent).
     """
     dt = torch.clamp(t_next - s.t, min=0).to(F32)
     occ = s.occ
@@ -986,7 +1053,7 @@ def accrue_energy(
         occ = _occupancy(s, const)
         draw = _group_draw(s, occ, const)
     elif aux is not None and aux.draw is not None:
-        draw = aux.draw  # kernel route: already [G=1, 5]
+        draw = aux.draw  # ledger-kernel route (DVFS off): already [G=1, 5]
     else:
         node_power = (
             aux.node_power
@@ -995,13 +1062,22 @@ def accrue_energy(
         )
         draw = _ledger(s, const, node_power)
     e, c = _kahan_add(s.energy, s.energy_c, draw * dt)
+    mode_time, mode_energy = s.mode_time, s.mode_energy
+    if const.policy.dvfs_enabled:
+        modes = torch.arange(mode_time.shape[1], dtype=I32, device=dt.device)
+        in_mode = s.dvfs_mode[:, None] == modes[None, :]  # one cell per group
+        mode_time = mode_time + torch.where(in_mode, dt, 0.0)
+        mode_energy = mode_energy + torch.where(
+            in_mode, (draw[:, ACTIVE] * dt)[:, None], 0.0
+        )
     n_waiting = (
         ((s.job_status == WAITING) & (s.job_subtime <= s.t))
         | (s.job_status == ALLOCATED)
     ).sum(dtype=F32)
     w, wc = _kahan_add(s.wait_integral, s.wait_c, n_waiting * dt)
     return s._replace(
-        energy=e, energy_c=c, wait_integral=w, wait_c=wc, occ=occ
+        energy=e, energy_c=c, mode_time=mode_time, mode_energy=mode_energy,
+        wait_integral=w, wait_c=wc, occ=occ,
     )
 
 

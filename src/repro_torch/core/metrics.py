@@ -26,6 +26,17 @@ def _active_powers_and_names(power_active, n_groups):
     return tuple(float(p) for p in power_active), ()
 
 
+def _dvfs_active_node_seconds(mode_energy, dvfs_watts):
+    """Active node-seconds from the DVFS ledgers: each ACTIVE node accrued
+    ``watts[g, m] * dt`` into ``mode_energy[g, m]``, so each cell divided by
+    its own mode draw gives its node-seconds (a zero-watt mode cannot be
+    recovered from energy and counts 0). Dividing ACTIVE energy by the base
+    draw is wrong as soon as a non-identity mode table ran."""
+    me = np.asarray(mode_energy, np.float64)
+    watts = np.asarray(dvfs_watts, np.float64)
+    return float((me / np.where(watts > 0, watts, np.inf)).sum())
+
+
 def metrics_from_state(
     s: SimState,
     power_active: Union[float, Sequence[float], PlatformSpec],
@@ -34,7 +45,10 @@ def metrics_from_state(
 
     ``power_active`` recovers active node-seconds from active-state energy;
     pass the PlatformSpec (or a per-group sequence) for heterogeneous
-    platforms so each group's energy is divided by its own draw.
+    platforms so each group's energy is divided by its own draw. When a
+    DVFS policy ran (the mode-residency ledger is non-zero) and the
+    PlatformSpec is given, utilization uses the per-mode ledger division
+    of :func:`_dvfs_active_node_seconds` instead.
     """
     s = np_state(s)
     exists = s["job_exists"]
@@ -48,11 +62,18 @@ def metrics_from_state(
     wasted = float(energy[IDLE] + energy[SWITCHING_ON] + energy[SWITCHING_OFF])
     G = energy_g.shape[0]
     powers, names = _active_powers_and_names(power_active, G)
+    dvfs_ran = float(s["mode_time"].sum()) > 0.0
     util = 0.0
     if makespan > 0:
-        active_node_s = sum(
-            energy_g[g, ACTIVE] / powers[g] for g in range(G) if powers[g]
-        )
+        if dvfs_ran and isinstance(power_active, PlatformSpec):
+            _, dvfs_watts, _ = power_active.group_dvfs_tables()
+            active_node_s = _dvfs_active_node_seconds(
+                s["mode_energy"], dvfs_watts
+            )
+        else:
+            active_node_s = sum(
+                energy_g[g, ACTIVE] / powers[g] for g in range(G) if powers[g]
+            )
         util = float(active_node_s / (s["node_state"].shape[0] * makespan))
     return SimMetrics(
         total_energy_j=total,

@@ -5,15 +5,22 @@ The declarative half — the :class:`PowerPolicy` stacks, :class:`PolicyParams`,
 is a copy of the JAX reference's ``core/policy.py``: a label names a point on
 the policy axis, and both engines read the same flags.
 
-The rule half is the PyTorch counterpart of the reference's rule functions for
-the slice of the policy axis this engine runs: rule 6 (idle-timeout switch-off,
-with the IPM demand cap) and rule 7 (IPM proactive wake), the ``"pack"``
-node-order key, plus the DVFS-off branches of the node-speed helpers used at
-job start. The engine only runs a single configuration, so flags are always
-concrete Python bools (``PolicyParams.static()``) and every gate is a Python
-branch. Rules 8-10 (RL commands, DVFS, Forecast) belong to a later slice of
-the port; the engine refuses their labels
-(``core/engine.py::check_supported``).
+The rule half is the PyTorch counterpart of the reference's rule functions:
+rule 6 (idle-timeout switch-off, with the IPM demand cap), rule 7 (IPM
+proactive wake), rule 8 (RL power commands, global or per group), rule 9
+(DVFS: the queue-pressure ladder or agent mode commands, and the
+remaining-work rescale) and rule 10 (the EWMA arrival forecast: proactive
+wake and the DVFS pre-ramp), the ``"pack"`` node-order key and the
+node-speed helpers used at job start. The engine only runs a single
+configuration, so flags are always concrete Python bools
+(``PolicyParams.static()``) and every gate is a Python branch; a rule that
+is off is never called.
+
+The f32 expressions that the engines and the oracle hold bit for bit (the
+EWMA update, the observed gap, the pressure floor and the DVFS rescale) are
+spelled as separate PyTorch ops in the reference's order, each rounding
+once: no ``lerp``, ``addcmul`` or other fused form. No rule reads a device
+value into Python.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from repro_torch.core.types import (
     IDLE,
     INF_TIME,
+    RUNNING,
     SLEEP,
     SWITCHING_OFF,
     SWITCHING_ON,
@@ -36,6 +44,7 @@ from repro_torch.core.types import (
 )
 
 I32 = torch.int32
+F32 = torch.float32
 INF = int(INF_TIME)
 
 
@@ -157,14 +166,70 @@ def pack_key(s, const) -> torch.Tensor:
     return counts[gid].to(torch.float32) + band
 
 
-def effective_node_speed(const, mode, enabled: bool) -> torch.Tensor:
-    """f32[N] node speed; the base ``const.speed`` with DVFS off (the DVFS
-    mode-table branch is ported with rule 9)."""
-    if enabled:
-        raise NotImplementedError(
-            "DVFS node speeds are not ported yet (ROADMAP Queue 1 item 7)"
+def _select_longest_idle(cand, idle_since, k):
+    """Boolean mask of the ``k`` longest-idle candidates (ties by node id).
+
+    ``cand`` is ``[N]`` with a 0-d ``k``, or ``[G, N]`` with ``k`` of
+    ``[G]``: one stable sort per row along the last dim, where the reference
+    vmaps the 1-D selection over the groups. ``k`` stays a tensor."""
+    key = torch.where(cand, idle_since, INF)
+    order = torch.argsort(key, dim=-1, stable=True)
+    k = torch.minimum(cand.sum(dim=-1, dtype=I32), k)
+    n = key.shape[-1]
+    sel_sorted = torch.arange(n, dtype=I32, device=key.device) < k[..., None]
+    return torch.zeros_like(cand).scatter(-1, order, sel_sorted) & cand
+
+
+def apply_rl_commands(s, const, grouped: bool):
+    """Rule 8: apply the pending RL power commands, then clear them.
+
+    ``rl_on_cmd``/``rl_off_cmd`` are ``i32[G]`` per-group command vectors.
+    Global mode (``grouped=False``): the counts are the vector sums, and
+    selection is cluster-wide (wake the lowest-id sleeping nodes, sleep the
+    longest-idle unreserved idle ones). Grouped mode: group g wakes up to
+    ``on[g]`` of its own sleeping nodes (lowest id first) and sleeps up to
+    ``off[g]`` of its own unreserved idle nodes (longest idle first)."""
+    cand_on = (s.node_job < 0) & (s.node_state == SLEEP)
+    cand_off = (s.node_job < 0) & (s.node_state == IDLE)
+    G = s.rl_on_cmd.shape[0]
+    if grouped:
+        groups = torch.arange(G, dtype=I32, device=cand_on.device)
+        same = const.group_id[None, :] == groups[:, None]  # [G, N]
+        ranks_on = torch.cumsum(cand_on[None, :] & same, dim=1, dtype=I32)
+        sel_on = cand_on & (same & (ranks_on <= s.rl_on_cmd[:, None])).any(0)
+        sel_off = _select_longest_idle(
+            cand_off[None, :] & same, s.node_idle_since, s.rl_off_cmd
+        ).any(0)
+    else:
+        sel_on = cand_on & (
+            torch.cumsum(cand_on, 0, dtype=I32) <= s.rl_on_cmd.sum(dtype=I32)
         )
-    return const.speed
+        sel_off = _select_longest_idle(
+            cand_off, s.node_idle_since, s.rl_off_cmd.sum(dtype=I32)
+        )
+    state = torch.where(sel_on, SWITCHING_ON, s.node_state)
+    state = torch.where(sel_off, SWITCHING_OFF, state)
+    until = torch.where(sel_on, s.t + const.t_on, s.node_until)
+    until = torch.where(sel_off, s.t + const.t_off, until)
+    return s._replace(
+        node_state=state,
+        node_until=until,
+        rl_on_cmd=torch.zeros_like(s.rl_on_cmd),
+        rl_off_cmd=torch.zeros_like(s.rl_off_cmd),
+        n_switch_on=s.n_switch_on + sel_on.sum(dtype=I32),
+        n_switch_off=s.n_switch_off + sel_off.sum(dtype=I32),
+    )
+
+
+def effective_node_speed(const, mode, enabled: bool) -> torch.Tensor:
+    """f32[N] node speed under the DVFS mode vector ``mode`` (i32[G]): each
+    node's group's speed in the group's mode when ``enabled``, the base
+    ``const.speed`` otherwise. Shared by job start (rule 5) and the rescale
+    (rule 9)."""
+    if not enabled:
+        return const.speed
+    gid = const.group_id.long()
+    return const.dvfs_speed[gid, mode.long()[gid]]
 
 
 def alloc_min_speed(node_job, node_speed, n_jobs: int) -> torch.Tensor:
@@ -178,6 +243,127 @@ def alloc_min_speed(node_job, node_speed, n_jobs: int) -> torch.Tensor:
     )
     return out.scatter_reduce(0, cj, src, reduce="amin", include_self=True)
 
+
+def apply_dvfs_modes(s, const, target, enabled=True, terminate_overrun=False):
+    """Install the DVFS mode vector ``target`` (i32[G]) where ``enabled``
+    and rescale the remaining work — the shared tail of rules 9 and 10.
+
+    ``enabled`` is True or a bool device scalar (rule 10's pre-ramp fires
+    only under a positive forecast). Every RUNNING, non-terminated job whose
+    allocation's effective speed changed gets its remaining wall time
+    rescaled by the f32 contract expression
+    ``max(ceil((f32(finish - t) * old_speed) / new_speed), 1)``; under
+    ``terminate_overrun`` the new finish is capped at ``start + reqtime``
+    and the job is marked terminated when the cap bites. The speeds are the
+    mode table's whether or not ``enabled`` holds: with it off every output
+    keeps its old value, so the table only feeds discarded lanes."""
+    gate = enabled is True
+    mode = target if gate else torch.where(enabled, target, s.dvfs_mode)
+    eff = effective_node_speed(const, mode, True)
+    J = s.job_status.shape[0]
+    alloc_min = alloc_min_speed(s.node_job, eff, J)
+    running = (s.job_status == RUNNING) & ~s.job_terminated
+    speed_min = torch.where(running, alloc_min, s.job_speed)
+    live = running if gate else running & enabled
+    changed = live & (speed_min != s.job_speed)
+    rem = torch.clamp(s.job_finish - s.t, min=1).to(F32)
+    work = rem * s.job_speed  # f32 remaining work (contract expression)
+    new_rem = torch.clamp(torch.ceil(work / speed_min).to(I32), min=1)
+    new_finish = s.t + new_rem
+    terminated = s.job_terminated
+    if terminate_overrun:
+        cap = s.job_start + s.job_reqtime
+        capped = changed & (new_finish > cap)
+        new_finish = torch.minimum(new_finish, cap)
+        terminated = terminated | capped
+    finish = torch.where(changed, new_finish, s.job_finish)
+    return s._replace(
+        dvfs_mode=mode,
+        job_speed=torch.where(live, speed_min, s.job_speed),
+        job_finish=finish,
+        job_eff=torch.where(changed, finish - s.job_start, s.job_eff),
+        job_terminated=terminated,
+    )
+
+
+def apply_dvfs(s, const, terminate_overrun: bool = False, rl: bool = False):
+    """Rule 9: per-group DVFS mode selection, then the install and rescale
+    of :func:`apply_dvfs_modes`.
+
+    ``rl=False``: the queue-pressure ladder, group g's mode
+    ``min(n_modes[g] - 1, demand * n_modes[g] // N)``. ``rl=True``: the
+    pending ``rl_mode_cmd`` (-1 = no change), clamped per group. The
+    command vector is cleared either way."""
+    N = s.node_state.shape[0]
+    n_modes = const.dvfs_n_modes
+    if rl:
+        clipped = torch.minimum(
+            torch.clamp(s.rl_mode_cmd, min=0), n_modes - 1
+        )
+        target = torch.where(s.rl_mode_cmd >= 0, clipped, s.dvfs_mode)
+    else:
+        target = torch.minimum(n_modes - 1, (queued_demand(s) * n_modes) // N)
+    s = apply_dvfs_modes(s, const, target.to(I32), True, terminate_overrun)
+    return s._replace(rl_mode_cmd=torch.full_like(s.rl_mode_cmd, -1))
+
+
+def forecast_pressure(s, const) -> torch.Tensor:
+    """i32 predicted extra node demand over the forecast horizon (rule 10):
+    ``floor((horizon / max(gap, 1)) * res)``, clipped to ``[0, N]`` in f32
+    before the i32 cast, so an extreme horizon/gap ratio saturates at N. A
+    zero horizon, or a predictor that never saw an arrival, predicts 0."""
+    gap = torch.clamp(s.fc_gap, min=1.0)
+    horizon = const.forecast_horizon.to(F32)
+    pressure = (horizon / gap) * s.fc_res
+    N = s.node_state.shape[0]
+    return torch.clamp(torch.floor(pressure), 0.0, float(N)).to(I32)
+
+
+def apply_forecast(s, const, terminate_overrun: bool = False,
+                   dvfs_ramp: bool = False):
+    """Rule 10: EWMA arrival-pressure forecast — predictor update, proactive
+    wake and, with ``dvfs_ramp`` (rule 9 composed), the DVFS pre-ramp.
+
+    Arrivals with ``fc_prev_t < subtime <= t`` are this batch's burst; its
+    observed gap ``f32(t - fc_last_arr) / f32(n_new)`` and mean ask feed the
+    strict-form EWMAs ``a*obs + (1-a)*ewma``. A positive predicted pressure
+    widens rule 7's deficit: sleeping nodes are woken (lowest id first) until
+    the unreserved IDLE/SWITCHING_ON capacity covers ``demand + f_extra``.
+    The pre-ramp raises each group toward the forecast-adjusted ladder, never
+    below rule 9's mode, through :func:`apply_dvfs_modes`."""
+    newly = s.job_exists & (s.job_subtime <= s.t) & (s.job_subtime > s.fc_prev_t)
+    n_new = newly.sum(dtype=I32)
+    denom = torch.clamp(n_new, min=1).to(F32)
+    gap_obs = (s.t - s.fc_last_arr).to(F32) / denom
+    res_obs = torch.where(newly, s.job_res, 0).sum(dtype=I32).to(F32) / denom
+    a = const.forecast_alpha
+    keep = 1.0 - a
+    upd = n_new > 0
+    s = s._replace(
+        fc_gap=torch.where(upd, a * gap_obs + keep * s.fc_gap, s.fc_gap),
+        fc_res=torch.where(upd, a * res_obs + keep * s.fc_res, s.fc_res),
+        fc_last_arr=torch.where(upd, s.t, s.fc_last_arr),
+        fc_prev_t=s.t,
+    )
+
+    f_extra = forecast_pressure(s, const)
+    deficit = queued_demand(s) + f_extra - _available(s)
+    cand = (s.node_job < 0) & (s.node_state == SLEEP)
+    sel = cand & (torch.cumsum(cand, 0, dtype=I32) <= deficit) & (f_extra > 0)
+    s = s._replace(
+        node_state=torch.where(sel, SWITCHING_ON, s.node_state),
+        node_until=torch.where(sel, s.t + const.t_on, s.node_until),
+        n_switch_on=s.n_switch_on + sel.sum(dtype=I32),
+    )
+    if not dvfs_ramp:
+        return s
+    N = s.node_state.shape[0]
+    n_modes = const.dvfs_n_modes
+    fc_mode = torch.minimum(
+        n_modes - 1, ((queued_demand(s) + f_extra) * n_modes) // N
+    )
+    target = torch.maximum(s.dvfs_mode, fc_mode.to(I32))
+    return apply_dvfs_modes(s, const, target, f_extra > 0, terminate_overrun)
 
 
 # ---------------------------------------------------------------------------

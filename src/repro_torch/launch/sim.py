@@ -23,9 +23,12 @@ replays. For example, the first 1000 jobs of a Curie-class trace on a
      "platform": "curie_platform.json", "scheduler": "EASY PSUS",
      "timeout": 1800, "grouped_tables": true, "gantt": false}
 
-Configurations the port does not run yet — RL labels and the ``rl`` block,
-``--experiment`` grids, DVFS and Forecast labels, the ``profiles``
-workload — raise ``NotImplementedError``.
+DVFS and Forecast labels run, alone and composed (``"EASY DVFS"``,
+``"EASY PSUS+DVFS"``, ``"EASY PSUS+Forecast"``, ...), with the rule 10
+operands ``forecast_horizon`` / ``forecast_alpha`` as the reference parses
+them. Configurations the port does not run yet — RL labels and the ``rl``
+block (they need a checkpointed network), ``--experiment`` grids, the
+``profiles`` workload — raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -95,8 +98,9 @@ def run(config: Dict[str, Any], device: Optional[str] = None) -> Dict[str, Any]:
     base, pol = from_label(sched)
     if isinstance(pol, RLController) or config.get("rl") is not None:
         raise NotImplementedError(
-            f"{sched!r}: RL schedulers and the 'rl' config block are not "
-            "ported to the PyTorch engine yet (ROADMAP Queue 1 item 10)"
+            f"{sched!r}: RL schedulers and the 'rl' config block drive the "
+            "engine with a checkpointed network, which is not ported to the "
+            "PyTorch engine yet (ROADMAP Queue 1 item 10)"
         )
     wl = resolve_workload(config["workload"])
     plat = resolve_platform(config.get("platform", wl.nb_res))
@@ -188,7 +192,10 @@ def main(argv=None):
         default="EASY PSUS",
         metavar="LABEL",
         help="a policy.from_label scheduler label: "
-             f"{', '.join(scheduler_labels())}",
+             f"{', '.join(scheduler_labels(include_dvfs=True))}"
+             ", or '<PSM>+DVFS' / '<PSM>+Forecast' composing rule 9 / "
+             "rule 10 onto any stack (e.g. 'EASY PSAS+IPM+DVFS', "
+             "'EASY PSUS+Forecast')",
     )
     ap.add_argument("--timeout", type=int, default=None)
     ap.add_argument("--terminate-overrun", action="store_true")

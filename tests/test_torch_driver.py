@@ -13,7 +13,7 @@ import pytest
 from repro.launch.sim import main as main_ref
 from repro.launch.sim import run as run_ref
 from repro_torch.launch import sim as tsim
-from repro_torch.workloads.platform import curie_platform
+from repro_torch.workloads.platform import curie_platform, dvfs_platform_example
 from repro_torch.workloads.traces import synthesize_curie_swf
 
 HETERO_PLATFORM_JSON = {
@@ -142,16 +142,51 @@ def test_grouped_swf_replay_metrics_are_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize(
+    "extra",
+    [
+        {"scheduler": "EASY PSUS+DVFS", "grouped_tables": True, "gantt": False},
+        {"scheduler": "EASY PSUS+Forecast", "forecast_horizon": 1800,
+         "forecast_alpha": 0.5},
+        {"scheduler": "FCFS DVFS+Forecast", "forecast_horizon": 600,
+         "node_order": "id", "gantt": False},
+    ],
+    ids=["dvfs-grouped", "forecast-gantt", "dvfs-forecast"],
+)
+def test_dvfs_and_forecast_labels_match_the_reference(tmp_path, extra):
+    """Rules 9-10 through both packages' ``run`` on the reference's DVFS
+    platform (as a JSON file), the forecast operands parsed from the
+    config: the same metrics (floats to rel 1e-5, the rest equal), the same
+    job log, and the gantt log when it is drawn."""
+    dvfs_platform_example(16).save(str(tmp_path / "dvfs.json"))
+    cfg = {**_config(tmp_path), "platform": str(tmp_path / "dvfs.json"), **extra}
+    ref = run_ref({**cfg, "out": str(tmp_path / "ref")})
+    port = tsim.run({**cfg, "out": str(tmp_path / "port")}, device="cpu")
+    assert set(port) == set(ref)
+    for k, v in ref.items():
+        if isinstance(v, float):
+            assert port[k] == pytest.approx(v, rel=1e-5), k
+        else:
+            assert port[k] == v, k
+    # the mode columns appear exactly when DVFS ran
+    assert any(k.startswith("mode_s.") for k in port) == ("DVFS" in cfg["scheduler"])
+    names = ["jobs.csv"] + (["gantt.csv"] if cfg.get("gantt", True) else [])
+    for name in names:
+        assert _read(tmp_path / "port" / name) == _read(tmp_path / "ref" / name), name
+
+
+@pytest.mark.parametrize(
     "config",
     [
         {"scheduler": "EASY RL"},
         {"rl": {"checkpoint": "x"}},
-        {"scheduler": "EASY PSUS+DVFS", "grouped_tables": True},
-        {"scheduler": "FCFS PSUS+Forecast", "merge_bursts": True},
+        {"scheduler": "EASY RL:dvfs", "grouped_tables": True},
+        {"scheduler": "FCFS RL:groups", "merge_bursts": True},
         {"workload": "profiles"},
     ],
 )
 def test_unported_configs_fail_loudly(tmp_path, config):
+    """RL labels and the ``rl`` block need a checkpointed network (ROADMAP
+    item 10); the ``profiles`` workload is not ported either."""
     cfg = {"workload": "preset:fig3_small", "out": str(tmp_path / "o"), **config}
     with pytest.raises(NotImplementedError):
         tsim.run(cfg, device="cpu")

@@ -213,18 +213,21 @@ def test_convert_rejects_incomplete_or_mistyped_arrays():
 @pytest.mark.parametrize(
     "label,kw",
     [
-        ("EASY RL:groups", {"grouped_tables": True}),
-        ("EASY PSUS+DVFS", {"grouped_tables": True}),
-        ("FCFS PSAS+IPM+Forecast", {"node_order": "pack"}),
+        ("EASY RL:groups", {"grouped_tables": True, "devices": 2}),
+        ("EASY PSUS+DVFS", {"grouped_tables": True, "fused_events": False}),
+        ("FCFS PSAS+IPM+Forecast", {"node_order": "pack", "devices": "all"}),
         ("EASY PSUS", {"devices": 1}),
         ("EASY PSUS", {"devices": 2}),
         ("EASY PSUS", {"fused_events": False}),
-        ("EASY RL", {}),
-        ("EASY DVFS", {}),
-        ("EASY PSUS+Forecast", {}),
+        ("EASY RL", {"devices": 1}),
+        ("EASY DVFS", {"fused_events": False}),
+        ("EASY PSUS+Forecast", {"devices": 4}),
     ],
 )
 def test_unported_configs_raise(label, kw):
+    """Sharded sweeps (``devices``) and the legacy loop are not ported; rules
+    8-10 are (each label here runs without its option,
+    ``test_torch_rules.py``)."""
     tp = tplat.PlatformSpec(nb_nodes=8)
     tw = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=5, nb_res=8))
     _, tc = _configs(label, **kw)
@@ -254,6 +257,7 @@ def test_package_imports_neither_jax_nor_reference():
         "import repro_torch.core.convert, repro_torch.core.metrics\n"
         "import repro_torch.core.ref.pydes, repro_torch.kernels.event_fuse\n"
         "import repro_torch.core.tables, repro_torch.workloads.traces\n"
+        "import repro_torch.core.rl.actions\n"
         "import repro_torch.experiments\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
