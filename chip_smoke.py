@@ -14,9 +14,10 @@ Phases (each prints a line; any failed check exits non-zero):
 3. kernels: each event kernel against its plain PyTorch version on the
    card, bit for bit, at the engine's shapes and more (rows that start off a
    16-byte boundary, arrays at different alignments, G = 64 and
-   ``MAX_GROUPS``, dead lanes), with the allocator's free memory poisoned so
-   an unwritten output cannot pass; the ledger and occupancy kernels' cluster
-   size at each timed shape, their ptxas lines, and the device time of a
+   ``MAX_GROUPS``, dead lanes, one table a row: ``[E, 5]`` watts and ``[E,
+   N]`` group ids), with the allocator's free memory poisoned so an
+   unwritten output cannot pass; the ledger and occupancy kernels timed at
+   E = 1, 8 and 64, their cluster size at each timed shape, their ptxas lines, and the device time of a
    1-element fill (the card's practical launch floor) beside theirs, and
    each wrapper's host time in turns with the fill's (fill, wrapper,
    wrapper, fill);
@@ -83,7 +84,21 @@ Phases (each prints a line; any failed check exits non-zero):
    plain per-node route (energy and mode ledgers to rel 1e-5); the Forecast
    run at horizon 0 must give phase 6's schedule and energy bit for bit;
    the first 100 batches of each and of phase 6's configuration are
-   profiled (device ops a batch, device busy share).
+   profiled (device ops a batch, device busy share);
+11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
+   ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
+   x timeouts ``300 + 300 i``, on phase 5's inputs at E = 1 (EASY PSUS
+   1800 alone), 8 and 64, and on phase 6's inputs, grouped, at E = 8
+   (timeouts 600-2400) — one event-kernel launch per loop iteration for the
+   grid (``event_fuse_ledger``, dense; ``event_fuse_occ``, grouped), at most
+   two host syncs an iteration; the E = 1 sweep and the E = 64 row EASY
+   PSUS 1800 equal phase 5's run bit for bit, each E = 8 row its E = 64
+   row, the row FCFS PSAS+IPM 600 a single run of it, and the grouped row
+   EASY PSUS 1800 phase 6's run; per grid the wall and the wall a scenario,
+   iterations, µs and host syncs an iteration, the first 100 iterations
+   profiled (device ops an iteration, busy share) and peak device memory.
+   No sweep row runs the oracle on the card: the CPU tests hold rows
+   against it and against the JAX sweep.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -209,6 +224,10 @@ OCC_DEAD_SHAPES = [(13, 131, 3), (1, 11200, 3), (2, 11201, 3)]
 SHIFTED = (2, 11201, 3)
 SHIFTS = (1, 3, 2)
 OCC_MAIN = (1, 11200, 3)
+# held with one table a row (a sweep over platforms): [E, 5] watts for the
+# ledger at (E, N), [E, N] group ids for the occupancy kernel at (E, N, G)
+ROW_TABLE_SHAPES = [(13, 131), (8, 11200), (64, 11200), (3, 11199)]
+ROW_OCC_SHAPES = [(13, 131, 3), (8, 11200, 3), (64, 11200, 3), (2, 11201, 64)]
 LABELS = [
     f"{base} {psm}"
     for base in ("FCFS", "EASY")
@@ -238,25 +257,29 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def kernel_inputs(torch, np, e, n, seed=0):
+def kernel_inputs(torch, np, e, n, seed=0, per_row=False):
     """States 0..4 with ``until`` straddling ``t``, made from a seed:
-    (state, until, t, power) on the card."""
+    (state, until, t, power) on the card; ``power`` is [5], or with
+    ``per_row`` [E, 5] integer watts, one table a row."""
     rng = np.random.default_rng(seed + 1000 * e + n)
     state = rng.integers(0, 5, (e, n)).astype(np.int32)
     t = rng.integers(1000, 50000, (e,)).astype(np.int32)
     until = (t[:, None] + rng.integers(-1000, 1000, (e, n))).astype(np.int32)
     power = np.asarray([9.0, 190.0, 190.0, 190.0, 9.0], np.float32)
+    if per_row:
+        power = rng.integers(1, 400, (e, 5)).astype(np.float32)
     return [torch.from_numpy(x).cuda() for x in (state, until, t, power)]
 
 
-def occ_inputs(torch, np, e, n, g, seed=0, dead=False):
+def occ_inputs(torch, np, e, n, g, seed=0, dead=False, per_row=False):
     """(state, until, t, group_id, G) on the card: the kernel inputs above
-    with sorted group ids (contiguous groups, as platforms lay them out).
-    With ``dead``, every fifth state is 7 and the first and last group ids
-    are -1 and G: nodes that count in no cell."""
+    with sorted group ids (contiguous groups, as platforms lay them out),
+    [N], or with ``per_row`` [E, N], one table a row. With ``dead``, every
+    fifth state is 7 and the first and last group ids are -1 and G: nodes
+    that count in no cell."""
     state, until, t, _ = kernel_inputs(torch, np, e, n, seed)
     rng = np.random.default_rng(seed + 7 * n + g)
-    gid = np.sort(rng.integers(0, g, n)).astype(np.int32)
+    gid = np.sort(rng.integers(0, g, (e, n) if per_row else n), axis=-1).astype(np.int32)
     if dead:
         state[:, ::5] = 7
         gid[0], gid[-1] = -1, g
@@ -571,21 +594,29 @@ def profile_batches(torch, engine, plat, wl, cfg, n_batches=100, dev="cuda"):
     ``n_batches`` batches of a run, with the device activity profiled only:
     the run is cut by ``max_batches`` (its truncation warning is
     silenced)."""
+    return profile_window(
+        torch, lambda cut: int(engine.simulate(plat, wl, cut, device=dev).n_batches),
+        cfg, n_batches)
+
+
+def profile_window(torch, run, cfg, n_batches=100):
+    """:func:`profile_batches` of ``run(config) -> batches run`` (a single
+    run's batches, or a sweep's loop iterations): a warm-up of the cut
+    window, then the window profiled."""
     import warnings
 
     t_window = time.perf_counter()
     cut = dataclasses.replace(cfg, max_batches=n_batches)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        engine.simulate(plat, wl, cut, device=dev)  # warm-up
+        run(cut)  # warm-up
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            s = engine.simulate(plat, wl, cut, device=dev)
+            nb = run(cut)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    nb = int(s.n_batches)
     ops_ms = [e.device_time_total / 1e3 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     check(nb == n_batches and ops_ms,
@@ -775,6 +806,174 @@ def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
     return fc_by_kernel, dv_by_kernel
 
 
+SWEEP_SCHEDULERS = ("EASY PSUS", "FCFS PSAS+IPM")  # benchmarks/bench_scale.py's grid
+
+
+def sweep_grid(k, timeouts=None):
+    """``bench_scale.py``'s scheduler x timeout grid of ``k`` rows (timeouts
+    300 + 300 i), or the two schedulers x ``timeouts``; scheduler-major."""
+    timeouts = timeouts or [300 + 300 * i for i in range(k // 2)]
+    return [{"scheduler": s, "timeout": t} for s in SWEEP_SCHEDULERS for t in timeouts]
+
+
+def sweep_sync_check(torch, dev="cuda"):
+    """(host reads the sweep counted, synchronizing calls PyTorch reported,
+    iterations) of a 16-node grid of 8 mixed rows: ``sweep.run_sim`` alone
+    under ``torch.cuda.set_sync_debug_mode("warn")``, so the loop is shown
+    to read the device only where it counts a read."""
+    import warnings
+
+    from repro_torch.core import engine, sweep
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.workloads.generator import GeneratorConfig, generate_workload
+    from repro_torch.workloads.platform import PlatformSpec
+    plat = PlatformSpec(nb_nodes=16)
+    wl = generate_workload(GeneratorConfig(n_jobs=60, nb_res=16, seed=3))
+    cfg = EngineConfig(timeout=300)
+    base = engine.make_const(plat, cfg, device=dev)
+    rows = [sweep._scenario_const(sc, base, plat, cfg, torch.device(dev))[0]
+            for sc in sweep_grid(8, [60, 300, 900, 1800])]
+    grid = sweep.make_grid(rows, dev)
+    s0 = sweep.replicate_state(engine.init_state(plat, wl, cfg, device=dev), len(rows))
+    torch.cuda.synchronize()
+    engine.HOST_SYNCS = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            s = sweep.run_sim(s0, grid, cfg, engine.default_batch_cap(len(wl)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reported = sum("synchroniz" in str(r.message) for r in rec)
+    return engine.HOST_SYNCS, reported, int(s.n_batches.max())
+
+
+def phase11(torch, np, swf, d_state, g_state, dev="cuda", nodes=11200, max_jobs=1000):
+    """Phase 11: the batched sweep at Curie scale. Dense grids at E = 1, 8
+    and 64 on phase 5's inputs and a grouped grid at E = 8 on phase 6's,
+    each row held bit for bit against a single run (``d_state``: phase 5's
+    run; ``g_state``: phase 6's) or against the same scenario's row of
+    another grid. Returns the event kernels' launches of the timed dense
+    grids (summed) and of the grouped grid."""
+    from repro_torch.core import engine, sweep
+    from repro_torch.core.policy import from_label
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.workloads.generator import PRESETS, generate_workload
+    from repro_torch.workloads.platform import PlatformSpec, curie_platform
+    from repro_torch.workloads.traces import replay_workload
+    t11 = time.perf_counter()
+    dense_plat = PlatformSpec(nb_nodes=nodes)
+    # phase 5's workload (the cea_curie preset cut to max_jobs jobs)
+    dense_wl = generate_workload(dataclasses.replace(
+        PRESETS["cea_curie"], n_jobs=max_jobs, nb_res=nodes,
+        max_res=min(PRESETS["cea_curie"].max_res, nodes)))
+    base, pol = from_label("EASY PSUS")
+    dense_cfg = EngineConfig(base=base, policy=pol, timeout=1800)
+    g_plat = curie_platform(nodes)
+    g_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
+    g_cfg = dataclasses.replace(dense_cfg, grouped_tables=True)
+    grids = [
+        ("dense E=1", dense_plat, dense_wl, dense_cfg,
+         [{"scheduler": "EASY PSUS", "timeout": 1800}], "event_fuse_ledger"),
+        ("dense E=8", dense_plat, dense_wl, dense_cfg, sweep_grid(8), "event_fuse_ledger"),
+        ("dense E=64", dense_plat, dense_wl, dense_cfg, sweep_grid(64), "event_fuse_ledger"),
+        ("grouped E=8", g_plat, g_wl, g_cfg, sweep_grid(8, [600, 1200, 1800, 2400]),
+         "event_fuse_occ"),
+    ]
+    runs = {}
+    for name, plat, wl, cfg, scen, kname in grids:
+        def run(c, plat=plat, wl=wl, scen=scen):
+            return int(sweep.sweep(plat, wl, scen, c, device=dev).states.n_batches.max())
+
+        # the first call: the profiled window's warm-up, then its window
+        prof = profile_window(torch, run, cfg)
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        engine.HOST_SYNCS = 0
+        live_mib = torch.cuda.memory_allocated() / 2**20  # earlier phases' tensors
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = sweep.sweep(plat, wl, scen, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(event_fuse.LAUNCHES)
+        syncs = engine.HOST_SYNCS
+        nb = b.states.n_batches.cpu().numpy()
+        iters = int(nb.max())
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20 - live_mib
+        check(not b.states.truncated.any() and bool(sweep.all_done(b.states).all()),
+              f"phase 11 {name}: a row truncated or left jobs")
+        check(launches[kname] == iters,
+              f"phase 11 {name}: {kname} launches {launches} != iterations {iters}")
+        check(all(v == 0 for k, v in launches.items() if k != kname)
+              and fa.LAUNCHES["flash_attention"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0,
+              f"phase 11 {name}: other kernels launched: {launches}")
+        check(syncs <= 2 * iters, f"phase 11 {name}: {syncs} host syncs for {iters} iterations")
+        runs[name] = dict(batch=b, scen=scen, wall=wall, iters=iters, nb=nb, syncs=syncs,
+                          launches=launches[kname], prof=prof, peak=peak_mib)
+        print(f"phase 11 {name}: {len(scen)} scenarios on {plat.nb_nodes} nodes, "
+              f"{len(wl)} jobs: wall {wall:.2f} s (a call after the profiled window "
+              f"and its warm-up), {wall / len(scen):.3f} s a scenario; iterations "
+              f"{iters} (rows' n_batches {int(nb.min())}..{iters}), "
+              f"{1e6 * wall / iters:.1f} us an iteration; {kname} launches "
+              f"{launches[kname]}; host syncs {syncs} ({syncs / iters:.3f} an "
+              f"iteration); first 100 iterations profiled: {prof[0]:.1f} device ops "
+              f"an iteration, device {1e3 * prof[1]:.1f} us an iteration, wall "
+              f"{1e3 * prof[2]:.1f} us (profiled), busy {100 * prof[3]:.1f} %; peak "
+              f"device memory {peak_mib:.1f} MiB above the {live_mib:.1f} MiB live "
+              "before it", flush=True)
+
+    def row(name, scheduler, timeout):
+        r = runs[name]
+        i = r["scen"].index({"scheduler": scheduler, "timeout": timeout})
+        return r["batch"].state_at(i)
+
+    def same_bits(a, b, what):
+        da, db = metrics_np(a), metrics_np(b)
+        bad = [k for k in da if not (da[k].dtype == db[k].dtype
+                                     and np.array_equal(da[k], db[k]))]
+        check(not bad, f"phase 11: {what}: fields {bad} differ")
+
+    from repro_torch.core.metrics import np_state as metrics_np
+    syncs, reported, small_iters = sweep_sync_check(torch, dev)
+    check(reported == syncs, f"phase 11: PyTorch reports {reported} synchronizing calls "
+          f"in a small grid's loop, the sweep counts {syncs} host reads")
+    same_bits(row("dense E=1", "EASY PSUS", 1800), d_state, "E=1 sweep == phase 5's run")
+    same_bits(row("dense E=64", "EASY PSUS", 1800), d_state,
+              "E=64 row EASY PSUS 1800 == phase 5's run")
+    for sc in runs["dense E=8"]["scen"]:
+        same_bits(row("dense E=8", **sc), row("dense E=64", **sc),
+                  f"E=8 row {sc} == its E=64 row")
+    base, pol = from_label("FCFS PSAS+IPM")
+    t0 = time.perf_counter()
+    single = engine.simulate(dense_plat, dense_wl,
+                             dataclasses.replace(dense_cfg, base=base, policy=pol,
+                                                 timeout=600), device=dev)
+    single_wall = time.perf_counter() - t0
+    same_bits(row("dense E=8", "FCFS PSAS+IPM", 600), single,
+              "E=8 row FCFS PSAS+IPM 600 == its single run")
+    same_bits(row("grouped E=8", "EASY PSUS", 1800), g_state,
+              "grouped E=8 row EASY PSUS 1800 == phase 6's run")
+    m = {name: r["batch"].metrics for name, r in runs.items()}
+    print("phase 11 rows: E=1 and the E=64 row EASY PSUS 1800 == phase 5's run bit for "
+          "bit; each E=8 row == its E=64 row; the E=8 row FCFS PSAS+IPM 600 == its "
+          f"single run on the card ({single_wall:.2f} s); the grouped row EASY PSUS "
+          f"1800 == phase 6's run; a 16-node grid of 8 rows under "
+          f"torch.cuda.set_sync_debug_mode: {reported} synchronizing calls reported "
+          f"== the sweep's {syncs} host reads in {small_iters} iterations; "
+          "dense E=64 total energy kWh by timeout, EASY PSUS "
+          + ", ".join(f"{sc['timeout']}: {mm.total_energy_j / 3.6e6:.1f}"
+                      for sc, mm in zip(runs["dense E=64"]["scen"], m["dense E=64"])
+                      if sc["scheduler"] == "EASY PSUS" and sc["timeout"] % 1800 == 0)
+          + f"; phase wall {time.perf_counter() - t11:.1f} s", flush=True)
+    dense = sum(runs[n]["launches"] for n in ("dense E=1", "dense E=8", "dense E=64"))
+    return dense, runs["grouped E=8"]["launches"]
+
+
 def main() -> None:
     import torch
 
@@ -868,6 +1067,8 @@ def main() -> None:
         event_fuse.event_fuse_ledger_plain,
         [((e, n), kernel_inputs(torch, np, e, n), not (e and n))
          for e, n in EXACT_SHAPES + ZERO_SHAPES]
+        + [((e, n, "per-row watts"), kernel_inputs(torch, np, e, n, per_row=True), False)
+           for e, n in ROW_TABLE_SHAPES]
         + [((e_sh, n_sh, "shifted", SHIFTS[:2]), ledger_shifted, False)],
         empty_pair(lambda args: (8,)),
     )
@@ -878,6 +1079,9 @@ def main() -> None:
          for e, n, g in OCC_SHAPES + OCC_ZERO_SHAPES]
         + [((e, n, g, "dead lanes"), occ_inputs(torch, np, e, n, g, dead=True),
             False) for e, n, g in OCC_DEAD_SHAPES]
+        + [((e, n, g, "per-row group ids"),
+            occ_inputs(torch, np, e, n, g, per_row=True), False)
+           for e, n, g in ROW_OCC_SHAPES]
         + [((*SHIFTED, "shifted", SHIFTS), occ_shifted, False)],
         empty_pair(lambda args: (args[4], 8)),
     )
@@ -897,13 +1101,13 @@ def main() -> None:
     print(f"phase 3 kernels: launch floor, a 1-element fill: device time "
           f"{1e3 * floor_ms:.3f} us", flush=True)
     timing, clusters = {}, {}
-    for e, n in (MAIN_SHAPE, (64, 11200)):
+    for e, n in (MAIN_SHAPE, (8, 11200), (64, 11200)):
         timing["event_fuse_ledger", e] = time_kernel(
             torch, "event_fuse_ledger", event_fuse.event_fuse_ledger,
             event_fuse.event_fuse_ledger_plain, kernel_inputs(torch, np, e, n),
             ledger_bound(e, n), f"E={e} N={n}", floor_ms, fill)
         clusters["event_fuse_ledger", e] = event_fuse.CLUSTER["event_fuse_ledger"]
-    for e, n, g in (OCC_MAIN, (64, 11200, 3)):
+    for e, n, g in (OCC_MAIN, (8, 11200, 3), (64, 11200, 3)):
         timing["event_fuse_occ", e] = time_kernel(
             torch, "event_fuse_occ", event_fuse.event_fuse_occ,
             event_fuse.event_fuse_occ_plain, occ_inputs(torch, np, e, n, g),
@@ -916,7 +1120,8 @@ def main() -> None:
     for kname in ("event_fuse_ledger", "event_fuse_occ"):
         max_c, sms = event_fuse.cluster_setup(kname, 0)
         print(f"phase 3 kernels: {kname} runs clusters of "
-              f"{clusters[kname, 1]} CTAs at E=1 and {clusters[kname, 64]} at E=64 "
+              f"{clusters[kname, 1]} CTAs at E=1, {clusters[kname, 8]} at E=8 and "
+              f"{clusters[kname, 64]} at E=64 "
               f"(the card holds clusters of up to {max_c} on {sms} SMs); ptxas: "
               f"{'; '.join(report[kname])}", flush=True)
     # flash attention: tolerance, not bits (f32 sums in another order)
@@ -1092,7 +1297,9 @@ def main() -> None:
     print(f"phase 3 kernels: each event kernel == its plain version bit for bit: "
           f"event_fuse_ledger and event_fuse at {EXACT_SHAPES}, "
           f"event_fuse_occ at (E, N, G) {OCC_SHAPES}, with dead lanes at "
-          f"{OCC_DEAD_SHAPES}, the ledger and occupancy kernels with state, "
+          f"{OCC_DEAD_SHAPES}, one table a row ([E, 5] watts at {ROW_TABLE_SHAPES}, "
+          f"[E, N] group ids at (E, N, G) {ROW_OCC_SHAPES}), "
+          f"the ledger and occupancy kernels with state, "
           f"until and group ids {SHIFTS} int32s off a 16-byte boundary at "
           f"{SHIFTED}, and zero sizes, free memory poisoned with NaN; "
           f"max_abs_err {err}", flush=True)
@@ -1241,6 +1448,7 @@ def main() -> None:
           f"s, second run {wall_s:.2f} s = "
           f"{1e6 * wall_s / n_batches:.1f} us/batch; oracle {oracle_s:.2f} "
           f"s; peak device memory {peak_mib:.1f} MiB", flush=True)
+    d_state = s  # phase 11's dense reference run
 
     # ---- 6. the main path at CEA-Curie scale, grouped ----
     plat = curie_platform(11200)
@@ -1689,6 +1897,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     fc_by_kernel, dv_by_kernel = phase10(torch, np, swf, g_state, g_metrics, g_cfg)
 
+    # ---- 11. the batched sweep at Curie scale ----
+    torch.cuda.empty_cache()
+    sweep_dense, sweep_grouped = phase11(torch, np, swf, d_state, g_state)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
@@ -1702,13 +1914,16 @@ def main() -> None:
             "fill_host_ms": fill_host_ms,
         }
         if key in clusters:
-            row.update(cluster=clusters[key], cluster_e64=clusters[kname, 64],
+            row.update(cluster=clusters[key], cluster_e8=clusters[kname, 8],
+                       ms_e8=timing[kname, 8][0], cluster_e64=clusters[kname, 64],
                        ms_e64=timing[kname, 64][0])
         row["launches_by_path"] = {
             "phase 5 dense": dense_by_kernel[kname],
             "phase 6 grouped": grouped_by_kernel[kname],
             "phase 10 forecast": fc_by_kernel[kname],
             "phase 10 dvfs": dv_by_kernel[kname],
+            "sweep_dense": sweep_dense if kname == "event_fuse_ledger" else 0,
+            "sweep_grouped": sweep_grouped if kname == "event_fuse_occ" else 0,
         }
         if note:
             row["note"] = note

@@ -8,7 +8,7 @@ and a port state comes back as numpy arrays of the same names and dtypes.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -38,7 +38,10 @@ def _require(d: Mapping, fields) -> None:
 def state_from_arrays(
     d: Mapping[str, np.ndarray], device: DeviceLike = None
 ) -> SimState:
-    """A :class:`SimState` on ``device`` from numpy arrays keyed by field."""
+    """A :class:`SimState` on ``device`` from numpy arrays keyed by field.
+    Stacked arrays (the reference's ``SimBatch.states``, a leading scenario
+    axis on every field) give the batched ``[E]`` state of
+    ``core/sweep.py``."""
     dev = resolve_device(device)
     _require(d, SimState._fields)
     return SimState(**{k: _tensor(k, d[k], dev) for k in SimState._fields})
@@ -80,3 +83,10 @@ def const_from_arrays(
 def state_to_arrays(s: SimState) -> Dict[str, np.ndarray]:
     """numpy arrays keyed by field name (copied to the host)."""
     return {k: v.detach().cpu().numpy() for k, v in s._asdict().items()}
+
+
+def state_rows_to_arrays(s: SimState) -> List[Dict[str, np.ndarray]]:
+    """A batched ``[E]`` state (a sweep's) as E dicts of numpy arrays, one a
+    row, each keyed like :func:`state_to_arrays` (one copy to the host)."""
+    d = state_to_arrays(s)
+    return [{k: v[i] for k, v in d.items()} for i in range(d["t"].shape[0])]

@@ -18,7 +18,8 @@ and both ``allocation`` scopes ("any", "partition"), with or without
 (PSUS, PSAS, PSAS+IPM, AlwaysOn; RL power commands, set by an in-graph
 controller or left pending; DVFS; Forecast). Sharded sweeps (``devices``)
 and the legacy loop (``fused_events=False``) raise ``NotImplementedError``
-naming the ROADMAP item that ports them (:func:`check_supported`).
+naming the ROADMAP item that ports them (:func:`check_supported`). The
+batched sweep over a scenario axis is ``core/sweep.py``.
 
 Loop structure and host syncs. The reference runs the whole simulation
 inside one ``lax.while_loop`` on the device. Eager PyTorch needs a host read
@@ -212,7 +213,7 @@ def check_supported(config: EngineConfig) -> None:
     yet, naming the ROADMAP item (Queue 1) that ports it."""
     later = []
     if config.devices is not None:
-        later.append("devices / sharded sweeps (item 8)")
+        later.append("devices / sharded sweeps (item 8b)")
     if not config.fused_events:
         later.append("the legacy loop, fused_events=False (item 3)")
     if later:

@@ -16,6 +16,14 @@ configuration, so flags are always concrete Python bools
 (``PolicyParams.static()``) and every gate is a Python branch; a rule that
 is off is never called.
 
+The batched sweep (``core/sweep.py``) carries the flags as ``[E]`` bool
+tensors (:meth:`PolicyParams.traced`, :func:`stack_params`) and runs rules
+6-7 over ``[E, N]`` and ``[E, J]`` state through the ``*_rows`` functions
+below: each flag reaches them as a *row gate*, ``True`` (every row),
+``False`` (no row) or an ``[E]`` bool tensor, and a row whose gate is off
+selects no node, so its fields and counters stay bit for bit as they were
+(the reference's §Traced policy axis).
+
 The f32 expressions that the engines and the oracle hold bit for bit (the
 EWMA update, the observed gap, the pressure floor and the DVFS rescale) are
 spelled as separate PyTorch ops in the reference's order, each rounding
@@ -51,9 +59,9 @@ INF = int(INF_TIME)
 class PolicyParams(NamedTuple):
     """The policy axis: per-scenario behaviour flags (all bool).
 
-    The PyTorch engine runs one configuration at a time and carries these as
-    concrete Python bools (:meth:`static`); the traced spelling of the JAX
-    reference's sweeps has no counterpart here yet.
+    The single run carries these as concrete Python bools (:meth:`static`);
+    the batched sweep as ``[E]`` bool tensors, one element a scenario
+    (:func:`stack_params`).
     """
 
     backfill: Any  # EASY backfilling; False = FCFS stop-at-head (rule 4)
@@ -70,6 +78,23 @@ class PolicyParams(NamedTuple):
     def static(self) -> "PolicyParams":
         """The concrete Python-bool spelling (single-config specialization)."""
         return PolicyParams(*[bool(v) for v in self])
+
+    def traced(self, device) -> "PolicyParams":
+        """The tensor spelling: a 0-d bool tensor a flag on ``device`` (the
+        reference's ``traced()``; :func:`stack_params` stacks rows of it)."""
+        return PolicyParams(
+            *[torch.tensor(bool(v), device=device) for v in self]
+        )
+
+
+def stack_params(rows, device) -> PolicyParams:
+    """K scenario rows of flags (each a :class:`PolicyParams` of bools or
+    0-d tensors) as one :class:`PolicyParams` of ``[K]`` bool tensors on
+    ``device``: the scenario axis of a sweep."""
+    return PolicyParams(*[
+        torch.tensor([bool(r[i]) for r in rows], dtype=torch.bool, device=device)
+        for i in range(len(PolicyParams._fields))
+    ])
 
 
 def static_bool(flag) -> Optional[bool]:
@@ -139,6 +164,70 @@ def ipm_wake(s, const):
         node_state=torch.where(sel, SWITCHING_ON, s.node_state),
         node_until=torch.where(sel, s.t + const.t_on, s.node_until),
         n_switch_on=s.n_switch_on + sel.sum(dtype=I32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# rules 6-7 over a scenario axis: [E, N] and [E, J] state, [E] row gates
+# ---------------------------------------------------------------------------
+
+def queued_demand_rows(s) -> torch.Tensor:
+    """i32[E]: :func:`queued_demand` of each row."""
+    waiting = (s.job_status == WAITING) & (s.job_subtime <= s.t[:, None])
+    return torch.where(waiting, s.job_res, 0).sum(dim=-1, dtype=I32)
+
+
+def available_rows(s) -> torch.Tensor:
+    """i32[E]: :func:`_available` of each row."""
+    return (
+        (s.node_job < 0)
+        & ((s.node_state == IDLE) | (s.node_state == SWITCHING_ON))
+    ).sum(dim=-1, dtype=I32)
+
+
+def _gated(sel, gate):
+    """``sel`` [E, N] with the rows whose gate is off cleared."""
+    return sel if gate is True else sel & gate[:, None]
+
+
+def timeout_switch_off_rows(s, const, enabled, ipm_cap):
+    """Rule 6 on each row whose ``enabled`` gate is on; rows whose
+    ``ipm_cap`` gate is on are capped as in :func:`timeout_switch_off`
+    (``enabled`` is not ``False``: the caller skips a rule no row runs).
+    ``const`` holds ``[E, ...]`` tables."""
+    t = s.t[:, None]
+    cand = _gated(
+        (s.node_job < 0)
+        & (s.node_state == IDLE)
+        & (t - s.node_idle_since >= const.timeout[:, None]),
+        enabled,
+    )
+    sel = cand
+    if ipm_cap is not False:
+        allowed = torch.clamp(available_rows(s) - queued_demand_rows(s), min=0)
+        capped = _select_longest_idle(cand, s.node_idle_since, allowed)
+        sel = capped if ipm_cap is True else torch.where(
+            ipm_cap[:, None], capped, cand
+        )
+    return s._replace(
+        node_state=torch.where(sel, SWITCHING_OFF, s.node_state),
+        node_until=torch.where(sel, t + const.t_off, s.node_until),
+        n_switch_off=s.n_switch_off + sel.sum(dim=-1, dtype=I32),
+    )
+
+
+def ipm_wake_rows(s, const, enabled):
+    """Rule 7 on each row whose ``enabled`` gate is on (not ``False``)."""
+    deficit = queued_demand_rows(s) - available_rows(s)
+    cand = (s.node_job < 0) & (s.node_state == SLEEP)
+    sel = _gated(
+        cand & (torch.cumsum(cand, dim=-1, dtype=I32) <= deficit[:, None]),
+        enabled,
+    )
+    return s._replace(
+        node_state=torch.where(sel, SWITCHING_ON, s.node_state),
+        node_until=torch.where(sel, s.t[:, None] + const.t_on, s.node_until),
+        n_switch_on=s.n_switch_on + sel.sum(dim=-1, dtype=I32),
     )
 
 

@@ -4,9 +4,9 @@
 // repro/kernels/event_fuse.py:
 //
 //   event_fuse_ledger  (_event_ledger_kernel)  the dense path, one group:
-//       sums[e, s] = count(state == s) * power[s] for s < 5; columns 5..7 0
+//       sums[e, s] = count(state == s) * power[e][s] for s < 5; columns 5..7 0
 //   event_fuse_occ     (_event_occ_kernel)     the grouped-tables path:
-//       occ[e, g, s] = count(gid == g and state == s) as f32 for s < 5;
+//       occ[e, g, s] = count(gid[e] == g and state == s) as f32 for s < 5;
 //       columns 5..7 of each group row 0
 //   event_fuse         (_event_kernel)         the scalar draw:
 //       draw[e] = sum over s < 5 of count(state == s) * power[s]
@@ -17,6 +17,11 @@
 //             until > t[e]; INF_TIME when there is none.
 //
 // States outside 0..4, and group ids outside 0..G-1, count nowhere.
+//
+// The watts (ledger) and the group ids (occupancy) are one table shared by
+// every row, or one table a row (a sweep whose scenarios differ in their
+// platform): the row's table starts `stride` elements after the previous
+// row's, and a stride of 0 is the shared form. Nothing else depends on it.
 //
 // Bound: each kernel reads 4 bytes per node and array (state and until; the
 // occupancy kernel also the group id) and writes a few bytes per row. At the
@@ -213,7 +218,8 @@ event_fuse_ledger_kernel(const int* __restrict__ node_state,
                          const float* __restrict__ power,
                          float* __restrict__ out,  // sums [e, 8], then next [e]
                          int rows,
-                         int n) {
+                         int n,
+                         int power_stride) {
   // in the leader: each CTA's five counts and min, one slot per CTA
   __shared__ int slots[kMaxCluster][kStates + 1];
   __shared__ int sh[kStates + 1][kWarps];
@@ -276,9 +282,10 @@ event_fuse_ledger_kernel(const int* __restrict__ node_state,
     v = k < kStates ? 0 : kInfTime;
     for (int r = 0; r < c; ++r) v = k < kStates ? v + slots[r][k] : min(v, slots[r][k]);
   }
+  const float* pw = power + static_cast<size_t>(e) * power_stride;
   if (k < kCols)
     out[static_cast<size_t>(e) * kCols + k] =
-        k < kStates ? __fmul_rn(static_cast<float>(v), power[k]) : 0.0f;
+        k < kStates ? __fmul_rn(static_cast<float>(v), pw[k]) : 0.0f;
   if (k == kStates) reinterpret_cast<int*>(out + static_cast<size_t>(rows) * kCols)[e] = v;
 }
 
@@ -290,7 +297,8 @@ event_fuse_occ_kernel(const int* __restrict__ node_state,
                       float* __restrict__ out,  // occ [e, G, 8], then next [e]
                       int rows,
                       int n,
-                      int n_groups) {
+                      int n_groups,
+                      int gid_stride) {
   // [cells] this CTA's histogram, then [cells] the cluster's (the leader's)
   extern __shared__ int smem[];
   __shared__ int acc_min;
@@ -314,10 +322,11 @@ event_fuse_occ_kernel(const int* __restrict__ node_state,
 
   const int* state = node_state + static_cast<size_t>(e) * n;
   const int* until = node_until + static_cast<size_t>(e) * n;
+  const int* gid = group_id + static_cast<size_t>(e) * gid_stride;
   const int te = t[e];
   const Slice sl = cta_slice(state, n, rank, c);
   const bool vec_u = same_alignment(until, state);
-  const bool vec_g = same_alignment(group_id, state);
+  const bool vec_g = same_alignment(gid, state);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   int mn = kInfTime;
@@ -329,7 +338,7 @@ event_fuse_occ_kernel(const int* __restrict__ node_state,
       const int i0 = k < sl.k1 ? 4 * k - sl.a : n;
       s[j] = load_quad(state, i0, n, true, -1);
       u[j] = load_quad(until, i0, n, vec_u, 0);
-      g[j] = load_quad(group_id, i0, n, vec_g, -1);
+      g[j] = load_quad(gid, i0, n, vec_g, -1);
     }
 #pragma unroll
     for (int j = 0; j < kQuads; ++j) {
@@ -458,7 +467,8 @@ int setup_clusters(void (*kernel)(Params...), size_t smem, int* max_cluster) {
 
 // Plain C entry points, bound with ctypes. Pointers are device pointers of
 // contiguous tensors: node_state/node_until int32 [e, n], t int32 [e],
-// power float32 [5], group_id int32 [n]; `out` is one buffer holding the
+// power float32 [5] (power_stride 0) or [e, 5] (power_stride 5), group_id
+// int32 [n] (gid_stride 0) or [e, n] (gid_stride n); `out` is one buffer holding the
 // float32 sums [e, 8] (or occ [e, n_groups, 8]) followed by the int32 next
 // [e]; draw float32 [e] and next int32 [e] for the scalar draw. Each
 // launches on `stream` and returns the launch's error (0 = launched).
@@ -477,13 +487,15 @@ extern "C" int event_fuse_cluster_setup(int which, int* max_cluster) {
 
 extern "C" int event_fuse_ledger_launch(const void* node_state, const void* node_until,
                                         const void* t, const void* power, void* out,
-                                        int e, int n, int c, void* stream) {
-  if (c < 1 || c > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+                                        int e, int n, int c, int power_stride,
+                                        void* stream) {
+  if (c < 1 || c > kMaxCluster || power_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_clusters(event_fuse_ledger_kernel, e, c, 0, stream,
                          static_cast<const int*>(node_state),
                          static_cast<const int*>(node_until),
                          static_cast<const int*>(t), static_cast<const float*>(power),
-                         static_cast<float*>(out), e, n);
+                         static_cast<float*>(out), e, n, power_stride);
 }
 
 extern "C" int event_fuse_launch(const void* node_state, const void* node_until,
@@ -502,14 +514,15 @@ extern "C" int event_fuse_launch(const void* node_state, const void* node_until,
 // anything is launched.
 extern "C" int event_fuse_occ_launch(const void* node_state, const void* node_until,
                                      const void* t, const void* group_id, void* out,
-                                     int e, int n, int n_groups, int c, void* stream) {
+                                     int e, int n, int n_groups, int c, int gid_stride,
+                                     void* stream) {
   const size_t smem = occ_smem(n_groups);
   if (n_groups <= 0 || smem > 2 * static_cast<size_t>(kMaxHistBytes) || c < 1 ||
-      c > kMaxCluster)
+      c > kMaxCluster || gid_stride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_clusters(event_fuse_occ_kernel, e, c, smem, stream,
                          static_cast<const int*>(node_state),
                          static_cast<const int*>(node_until),
                          static_cast<const int*>(t), static_cast<const int*>(group_id),
-                         static_cast<float*>(out), e, n, n_groups);
+                         static_cast<float*>(out), e, n, n_groups, gid_stride);
 }

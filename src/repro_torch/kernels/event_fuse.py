@@ -11,6 +11,11 @@ none) — the pair ``engine.event_horizon`` needs each batch:
   zero): the dense single-group path;
 * :func:`event_fuse_occ` — per-(group, state) occupancy counts ``[E, G, 8]``
   f32 (columns 5-7 of each group row zero): the grouped-tables path;
+
+The ledger's watts ``power`` and the occupancy's ``group_id`` are either
+one table for every row (``[5]``, ``[N]``) or one table a row (``[E, 5]``,
+``[E, N]``: a sweep whose scenarios differ in their platform); the kernel
+reads a row's table at a row offset, 0 for the shared form.
 * :func:`event_fuse` — the scalar draw ``[E]`` f32 (``sum_s count(state ==
   s) * power[s]``); no engine path calls it.
 
@@ -59,9 +64,9 @@ CLUSTER: Dict[str, int] = {}
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "event_fuse_ledger": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
+    "event_fuse_ledger": [_VOIDP] * 5 + [_INT] * 4 + [_VOIDP],
     "event_fuse": [_VOIDP] * 6 + [_INT, _INT, _VOIDP],
-    "event_fuse_occ": [_VOIDP] * 5 + [_INT] * 4 + [_VOIDP],
+    "event_fuse_occ": [_VOIDP] * 5 + [_INT] * 5 + [_VOIDP],
 }
 # the order of event_fuse_cluster_setup's `which`
 _CLUSTER_KERNELS = ("event_fuse_ledger", "event_fuse_occ")
@@ -105,9 +110,10 @@ def event_fuse_ledger_plain(
     node_state: torch.Tensor,  # [E, N] i32
     node_until: torch.Tensor,  # [E, N] i32
     t: torch.Tensor,  # [E] i32
-    power: torch.Tensor,  # [5] f32
+    power: torch.Tensor,  # [5] or [E, 5] f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (sums [E, 8] f32, next [E] i32)."""
+    """Plain PyTorch version: (sums [E, 8] f32, next [E] i32); a ``[5]``
+    ``power`` broadcasts over the rows."""
     e = node_state.shape[0]
     sums = torch.zeros((e, COLS), dtype=torch.float32, device=node_state.device)
     sums[:, :N_STATES] = _state_counts(node_state).to(torch.float32) * power
@@ -133,11 +139,12 @@ def event_fuse_occ_plain(
     node_state: torch.Tensor,  # [E, N] i32
     node_until: torch.Tensor,  # [E, N] i32
     t: torch.Tensor,  # [E] i32
-    group_id: torch.Tensor,  # [N] i32
+    group_id: torch.Tensor,  # [N] or [E, N] i32
     n_groups: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (occ [E, G, 8] f32, next [E] i32). Counts are
-    int32 (an int32 ``index_add_`` is exact in any order) cast to f32."""
+    """Plain PyTorch version: (occ [E, G, 8] f32, next [E] i32); an ``[N]``
+    ``group_id`` broadcasts over the rows. Counts are int32 (an int32
+    ``index_add_`` is exact in any order) cast to f32."""
     e, n = node_state.shape
     dev = node_state.device
     live = (
@@ -175,11 +182,13 @@ def cluster_size(e: int, n: int, sms: int, max_cluster: int, min_nodes: int) -> 
     return c
 
 
-def _check(name, node_state, node_until, t, key, x, shape, dtype) -> torch.device:
+def _check(name, node_state, node_until, t, key, x, shape, dtype,
+           per_row=False) -> torch.device:
     """The call's device, once the arguments are what the kernel takes: the
     node arrays [E, N] i32, ``t`` [E] i32 and the argument ``key``, ``x``,
-    of ``shape`` and ``dtype``, all on one cpu or cuda device and, on cuda,
-    contiguous. A message is built only for the fault that raises."""
+    of ``shape`` (or, with ``per_row``, of ``[E, *shape]``: one table a row)
+    and ``dtype``, all on one cpu or cuda device and, on cuda, contiguous. A
+    message is built only for the fault that raises."""
     shp = node_state.shape
     if len(shp) != 2 or node_until.shape != shp:
         raise ValueError(
@@ -192,8 +201,13 @@ def _check(name, node_state, node_until, t, key, x, shape, dtype) -> torch.devic
             ("t", t, shp[:1], torch.int32),
             (key, x, shape, dtype))
     for k, a, a_shape, a_dtype in want:
-        if a.shape != a_shape:
-            raise ValueError(f"{name}: {k} must be {list(a_shape)}, got {tuple(a.shape)}")
+        if a.shape != a_shape and not (k == key and per_row
+                                       and a.shape == shp[:1] + a_shape):
+            also = (f" or {list(shp[:1] + a_shape)} (one table a row)"
+                    if k == key and per_row else "")
+            raise ValueError(
+                f"{name}: {k} must be {list(a_shape)}, got {tuple(a.shape)}{also}"
+            )
         if a.dtype != a_dtype:
             raise TypeError(f"{name}: {k} must be {a_dtype}, got {a.dtype}")
         if a.device != dev:
@@ -273,9 +287,11 @@ def event_fuse_ledger(
     node_state: torch.Tensor,  # [E, N] i32
     node_until: torch.Tensor,  # [E, N] i32
     t: torch.Tensor,  # [E] i32
-    power: torch.Tensor,  # [5] f32
+    power: torch.Tensor,  # [5] or [E, 5] f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused (per-state power sums [E, 8] f32, next transition [E] i32).
+    """Fused (per-state power sums [E, 8] f32, next transition [E] i32),
+    with the watts ``power`` shared by the rows (``[5]``) or one table a row
+    (``[E, 5]``).
 
     CUDA tensors launch the kernel (and raise if it cannot launch); CPU
     tensors take the plain version. Zero-size ``E`` or ``N`` short-circuits:
@@ -284,7 +300,7 @@ def event_fuse_ledger(
     """
     name = "event_fuse_ledger"
     dev = _check(name, node_state, node_until, t, "power", power, (N_STATES,),
-                 torch.float32)
+                 torch.float32, per_row=True)
     e, n = node_state.shape
     if e == 0 or n == 0:
         return _empty_pair((e, COLS), e, dev)
@@ -293,7 +309,8 @@ def event_fuse_ledger(
     fn, c = _plan(name, dev.index, e, n)
     sums, nxt = _outputs(node_state, (e, COLS), e)
     _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
-            t.data_ptr(), power.data_ptr(), sums.data_ptr(), e, n, c)
+            t.data_ptr(), power.data_ptr(), sums.data_ptr(), e, n, c,
+            N_STATES if power.dim() == 2 else 0)
     CLUSTER[name] = c
     return sums, nxt
 
@@ -326,13 +343,14 @@ def event_fuse_occ(
     node_state: torch.Tensor,  # [E, N] i32
     node_until: torch.Tensor,  # [E, N] i32
     t: torch.Tensor,  # [E] i32
-    group_id: torch.Tensor,  # [N] i32
+    group_id: torch.Tensor,  # [N] or [E, N] i32
     n_groups: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused (occupancy counts [E, G, 8] f32, next transition [E] i32) —
-    the grouped path. ``G = n_groups`` is at most :data:`MAX_GROUPS` (the
-    kernel's shared-memory histogram). Routing, zero-size contract and the
-    one allocation as in :func:`event_fuse_ledger`."""
+    the grouped path, with the group ids shared by the rows (``[N]``) or one
+    table a row (``[E, N]``). ``G = n_groups`` is at most :data:`MAX_GROUPS`
+    (the kernel's shared-memory histogram). Routing, zero-size contract and
+    the one allocation as in :func:`event_fuse_ledger`."""
     name = "event_fuse_occ"
     n_groups = int(n_groups)
     if not 1 <= n_groups <= MAX_GROUPS:
@@ -340,7 +358,7 @@ def event_fuse_occ(
             f"{name}: n_groups must be in 1..{MAX_GROUPS}, got {n_groups}"
         )
     dev = _check(name, node_state, node_until, t, "group_id", group_id,
-                 node_state.shape[1:], torch.int32)
+                 node_state.shape[1:], torch.int32, per_row=True)
     e, n = node_state.shape
     if e == 0 or n == 0:
         return _empty_pair((e, n_groups, COLS), e, dev)
@@ -349,6 +367,7 @@ def event_fuse_occ(
     fn, c = _plan(name, dev.index, e, n)
     occ, nxt = _outputs(node_state, (e, n_groups, COLS), e)
     _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
-            t.data_ptr(), group_id.data_ptr(), occ.data_ptr(), e, n, n_groups, c)
+            t.data_ptr(), group_id.data_ptr(), occ.data_ptr(), e, n, n_groups, c,
+            n if group_id.dim() == 2 else 0)
     CLUSTER[name] = c
     return occ, nxt

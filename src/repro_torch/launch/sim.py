@@ -211,8 +211,9 @@ def main(argv=None):
         ap.error(str(e.args[0]) if e.args else str(e))
     if args.experiment:
         raise NotImplementedError(
-            "--experiment grids run on the batched sweep, which is not "
-            "ported to the PyTorch engine yet (ROADMAP Queue 1 items 8-9)"
+            "--experiment grids run through the experiment runner, which is "
+            "not ported to the PyTorch engine yet (ROADMAP Queue 1 items 8-9; "
+            "the batched sweep itself is repro_torch.core.sweep)"
         )
     if args.config:
         config = _load_mini_yaml(args.config)
