@@ -52,7 +52,9 @@ Phases (each prints a line; any failed check exits non-zero):
    trace replayed on the 3-group 11 200-node Curie platform, EASY PSUS,
    timeout 1800 s, grouped tables — the occupancy kernel must have launched
    once per event batch, and the schedule must equal the oracle's and a
-   dense port run's of the same inputs; a second run is timed;
+   dense port run's of the same inputs; a second run is timed. The oracle
+   of phases 5 and 6 is host work: two worker processes, started before
+   phase 1, compute it while phases 1-4 run;
 7. command line: ``python -m repro_torch.launch.sim`` on the card writes
    its outputs;
 8. LM serve: ``repro_torch.launch.serve --per-slot-positions`` serves the
@@ -77,7 +79,8 @@ Phases (each prints a line; any failed check exits non-zero):
    two 1024-token prompts go through ``prefill`` by the kernel route and
    by the plain route, whose last-position logits must agree;
 10. power rules at Curie scale, grouped: EASY PSUS+Forecast (horizon
-   1800 s) on phase 6's inputs, and EASY PSUS+DVFS on the DVFS platform at
+   1800 s) on the first 500 of phase 6's jobs (against phase 6's
+   configuration on them), and EASY PSUS+DVFS on the DVFS platform at
    11 200 nodes with phase 5's workload (timeout 900 s, ``node_order=
    "cheap"``, ``terminate_overrun``) — the occupancy kernel must have
    launched once a batch and the schedule must equal the same run's on the
@@ -87,18 +90,39 @@ Phases (each prints a line; any failed check exits non-zero):
    profiled (device ops a batch, device busy share);
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
-   x timeouts ``300 + 300 i``, on phase 5's inputs at E = 1 (EASY PSUS
-   1800 alone), 8 and 64, and on phase 6's inputs, grouped, at E = 8
-   (timeouts 600-2400) — one event-kernel launch per loop iteration for the
-   grid (``event_fuse_ledger``, dense; ``event_fuse_occ``, grouped), at most
-   two host syncs an iteration; the E = 1 sweep and the E = 64 row EASY
-   PSUS 1800 equal phase 5's run bit for bit, each E = 8 row its E = 64
-   row, the row FCFS PSAS+IPM 600 a single run of it, and the grouped row
-   EASY PSUS 1800 phase 6's run; per grid the wall and the wall a scenario,
+   x timeouts ``300 + 300 i``, on the first 500 jobs of phase 5's inputs
+   at E = 1 (EASY PSUS 1800 alone), 8 and 64, and of phase 6's inputs,
+   grouped, at E = 8 (timeouts 600-2400) — one event-kernel launch per loop
+   iteration for the grid (``event_fuse_ledger``, dense; ``event_fuse_occ``,
+   grouped), at most two host syncs an iteration; the E = 1 sweep and the
+   E = 64 row EASY PSUS 1800 equal phase 5's configuration run alone on the
+   same jobs bit for bit, each E = 8 row its E = 64 row, the row FCFS
+   PSAS+IPM 600 a single run of it, and the grouped row EASY PSUS 1800
+   phase 6's configuration run alone; per grid the wall and the wall a scenario,
    iterations, µs and host syncs an iteration, the first 100 iterations
    profiled (device ops an iteration, busy share) and peak device memory.
    No sweep row runs the oracle on the card: the CPU tests hold rows
-   against it and against the JAX sweep.
+   against it and against the JAX sweep;
+12. the RL stack (``repro_torch.core.rl``): (a) 16 envs of the grouped
+   Curie platform (11 200 nodes), each on one of 16 consecutive 500-job
+   windows of phase 6's trace, EASY RL:groups at a 600 s decision interval,
+   256 batched steps of fixed actions ``(3t + b) mod n_actions`` — one
+   ``event_fuse_occ`` launch a step, at most two host syncs a step, every
+   row's state and per-step observations, rewards and done equal to the same
+   steps on the plain per-node route (``fused_kernel=False``), rows 0 and 15
+   equal to their own ``HPCGymEnv`` episodes bit for bit (state,
+   observations, rewards), ms a step, env steps/s, the busy share of the
+   first 100 steps and peak memory; (b) eight A2C updates on that batch
+   (16 envs, 16 steps): finite losses, entropy above 0, parameters moved;
+   (c) ``benchmarks/bench_rl.py``'s configuration (256 envs, 64 nodes, 64
+   jobs, EASY RL) for 64 batched steps with one ``event_fuse_ledger`` launch
+   each, every row equal to the plain per-node route's as in (a), then one
+   A2C and one PPO update; (d) (b)'s policy saved with
+   ``save_policy`` and run by ``python -m repro_torch.launch.sim`` (EASY
+   RL:groups) on phase 4's 280-node Curie inputs, equal to the plain
+   per-node route bit for bit with one ``event_fuse_occ`` launch a batch;
+   (e) a sweep of EASY DVFS, EASY PSUS+DVFS and EASY RL on phase 4's
+   280-node DVFS inputs, each row equal to its single run bit for bit.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -117,10 +141,14 @@ from __future__ import annotations
 
 import atexit
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
+import multiprocessing
 import os
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -207,14 +235,17 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 LOGITS_REL_TOL = 1e-3
 INF_TIME = 2**30
 # rows of 11 199 and 11 201 nodes start off a 16-byte boundary from row 1 on
+# (256, 64): phase 12 (c)'s RL-throughput batch
 EXACT_SHAPES = [(1, 16), (1, 131), (13, 131), (1, 11200), (64, 11200),
-                (3, 11199), (2, 11201)]
+                (3, 11199), (2, 11201), (256, 64)]
 ZERO_SHAPES = [(0, 16), (4, 0), (0, 0)]
 MAIN_SHAPE = (1, 11200)  # what engine.event_horizon hands the kernels
-# (E, N, G) for the occupancy kernel; the main path's is (1, 11200, 3)
+# (E, N, G) for the occupancy kernel; the main path's is (1, 11200, 3),
+# phase 12 (a)'s grouped RL batch (16, 11200, 3)
 OCC_SHAPES = [(1, 16, 1), (13, 131, 3), (1, 11200, 3), (64, 11200, 3),
               (1, 11200, 64), (3, 11199, 3), (2, 11201, 3), (2, 11201, 64),
-              (1, 11200, 1536), (3, 5003, 1536)]  # 1536: event_fuse.MAX_GROUPS
+              (1, 11200, 1536), (3, 5003, 1536),  # 1536: event_fuse.MAX_GROUPS
+              (16, 11200, 3)]
 OCC_ZERO_SHAPES = [(0, 16, 3), (4, 0, 3), (0, 0, 3)]
 # shapes also run with dead lanes: states 7 and group ids -1 and G, which
 # the occupancy counts must skip
@@ -233,6 +264,10 @@ LABELS = [
     for base in ("FCFS", "EASY")
     for psm in ("PSUS", "PSAS", "PSAS+IPM")
 ] + ["EASY AlwaysOn"]
+# depth cuts that keep the script inside its time: phase 10's Forecast run
+# and phase 11's grids replay the first 500 jobs, not 1000
+FORECAST_JOBS = 500
+SWEEP_JOBS = 500
 GROUPED_OPTIONS = [
     ({"node_order": "pack"}, label) for label in ("EASY PSUS", "FCFS PSAS")
 ] + [
@@ -557,12 +592,23 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def held_against_oracle(metrics, run_pydes, np, plat, wl, cfg, s):
-    """(schedule == the port's oracle's, the largest relative error of total
-    energy, wasted energy and each DVFS mode-energy cell, metrics)."""
+def oracle_of(plat, wl, cfg):
+    """The port's sequential oracle on the host: (metrics, schedule table,
+    seconds it took). Module-level, so that a worker process can run it."""
+    from repro_torch.core.ref.pydes import run_pydes
+
+    t0 = time.perf_counter()
     m_o, des = run_pydes(plat, wl, cfg)
+    return m_o, des.schedule_table(), time.perf_counter() - t0
+
+
+def held_against_oracle(metrics, np, plat, wl, cfg, s, oracle=None):
+    """(schedule == the port's oracle's, the largest relative error of total
+    energy, wasted energy and each DVFS mode-energy cell, metrics).
+    ``oracle`` is :func:`oracle_of`'s result, computed here when None."""
+    m_o, table, _ = oracle or oracle_of(plat, wl, cfg)
     m = metrics.metrics_from_state(s, plat)
-    same = np.array_equal(metrics.schedule_table(s), des.schedule_table())
+    same = np.array_equal(metrics.schedule_table(s), table)
     rel = abs(m.total_energy_j - m_o.total_energy_j) / max(m_o.total_energy_j, 1.0)
     rel_w = abs(m.wasted_energy_j - m_o.wasted_energy_j) / max(m_o.wasted_energy_j, 1.0)
     me, me_o = np.asarray(m.energy_by_mode_j), np.asarray(m_o.energy_by_mode_j)
@@ -702,13 +748,14 @@ def time_kernel(torch, name, fn, plain, args, bound, shape, floor_ms, fill):
     return k_ms, p_ms, k_host, fill_host
 
 
-def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
+def phase10(torch, np, swf, g_state, g_cfg, dev="cuda", nodes=11200,
             max_jobs=1000):
-    """Phase 10: the grouped Forecast and DVFS runs at Curie scale on
-    ``dev``, each against its plain per-node route, the Forecast run at
-    horizon 0 against phase 6's run (``g_state``, ``g_metrics``, ``g_cfg``),
-    and the profiled windows. Returns the event kernels' launches of the
-    Forecast and the DVFS run."""
+    """Phase 10: the grouped Forecast (the trace's first ``FORECAST_JOBS``
+    jobs) and DVFS (``max_jobs``) runs at Curie scale on ``dev``, each
+    against its plain per-node route, the Forecast run at horizon 0 against
+    phase 6's run (``g_state``, ``g_cfg``, ``max_jobs`` jobs), and the
+    profiled windows. Returns the event kernels' launches of the Forecast
+    and the DVFS run."""
     from repro_torch.core import engine, metrics
     from repro_torch.core.policy import from_label
     from repro_torch.core.types import EngineConfig
@@ -720,7 +767,8 @@ def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
     from repro_torch.workloads.traces import replay_workload
     t10 = time.perf_counter()
     curie = curie_platform(nodes)
-    fc_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
+    fc_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp",
+                            max_jobs=FORECAST_JOBS)
     dvfs_plat = dvfs_platform_example(nodes)
     # phase 5's workload (the cea_curie preset cut to max_jobs jobs)
     dvfs_wl = generate_workload(dataclasses.replace(
@@ -761,7 +809,8 @@ def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
         runs10[name] = dict(state=s, wall=wall, plain_wall=plain_wall, n_batches=nb,
                             syncs=syncs, occ=launches["event_fuse_occ"], rel=rel,
                             m=metrics.metrics_from_state(s, plat), by_kernel=launches)
-    fc0 = engine.simulate(curie, fc_wl, dataclasses.replace(fc_cfg, forecast_horizon=0),
+    g_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
+    fc0 = engine.simulate(curie, g_wl, dataclasses.replace(fc_cfg, forecast_horizon=0),
                           device=dev)
     check(np.array_equal(metrics.schedule_table(fc0), metrics.schedule_table(g_state)),
           "phase 10: Forecast at horizon 0 == phase 6's EASY PSUS schedule")
@@ -776,6 +825,9 @@ def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
     fc, dv = runs10["forecast"], runs10["dvfs"]
     fc_by_kernel, dv_by_kernel = fc["by_kernel"], dv["by_kernel"]
     fm, dm = fc["m"], dv["m"]
+    # the reactive base at the Forecast run's depth: phase 6's configuration
+    base_s = engine.simulate(curie, fc_wl, g_cfg, device=dev)
+    bm = metrics.metrics_from_state(base_s, curie)
     for name, r in runs10.items():
         print(f"phase 10 {name}: n_batches {r['n_batches']}, occ kernel launches "
               f"{r['occ']}, host syncs {r['syncs']} ({r['syncs'] / r['n_batches']:.3f}"
@@ -784,11 +836,12 @@ def phase10(torch, np, swf, g_state, g_metrics, g_cfg, dev="cuda", nodes=11200,
               f"{r['plain_wall']:.2f} s, schedule equal, energy and mode ledgers max rel "
               f"diff {r['rel']:.2e})", flush=True)
     print(f"phase 10 forecast: EASY PSUS+Forecast horizon 1800 on curie_platform({nodes}), "
-          f"{len(fc_wl)} replayed jobs: switch-ons {int(fc['state'].n_switch_on)} (phase 6 "
-          f"EASY PSUS {int(g_state.n_switch_on)}), total {fm.total_energy_j / 3.6e6:.1f} "
-          f"kWh ({g_metrics.total_energy_j / 3.6e6:.1f}), mean wait {fm.mean_wait_s:.1f} s "
-          f"({g_metrics.mean_wait_s:.1f}), makespan {fm.makespan_s} s "
-          f"({g_metrics.makespan_s}); horizon 0: schedule, energy, batches and switch "
+          f"{len(fc_wl)} replayed jobs: switch-ons {int(fc['state'].n_switch_on)} (phase "
+          f"6's EASY PSUS on these jobs {int(base_s.n_switch_on)}), total {fm.total_energy_j / 3.6e6:.1f} "
+          f"kWh ({bm.total_energy_j / 3.6e6:.1f}), mean wait {fm.mean_wait_s:.1f} s "
+          f"({bm.mean_wait_s:.1f}), makespan {fm.makespan_s} s "
+          f"({bm.makespan_s}); horizon 0 on phase 6's {len(g_wl)} jobs: schedule, "
+          "energy, batches and switch "
           f"counts == phase 6's bit for bit", flush=True)
     names = dvfs_plat.group_names()
     print(f"phase 10 dvfs: EASY PSUS+DVFS timeout 900 on dvfs_platform_example({nodes}), "
@@ -848,13 +901,13 @@ def sweep_sync_check(torch, dev="cuda"):
     return engine.HOST_SYNCS, reported, int(s.n_batches.max())
 
 
-def phase11(torch, np, swf, d_state, g_state, dev="cuda", nodes=11200, max_jobs=1000):
+def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS):
     """Phase 11: the batched sweep at Curie scale. Dense grids at E = 1, 8
     and 64 on phase 5's inputs and a grouped grid at E = 8 on phase 6's,
-    each row held bit for bit against a single run (``d_state``: phase 5's
-    run; ``g_state``: phase 6's) or against the same scenario's row of
-    another grid. Returns the event kernels' launches of the timed dense
-    grids (summed) and of the grouped grid."""
+    both cut to their first ``max_jobs`` jobs, each row held bit for bit
+    against a single run of its scenario on the same inputs or against the
+    same scenario's row of another grid. Returns the event kernels'
+    launches of the timed dense grids (summed) and of the grouped grid."""
     from repro_torch.core import engine, sweep
     from repro_torch.core.policy import from_label
     from repro_torch.core.types import EngineConfig
@@ -942,9 +995,13 @@ def phase11(torch, np, swf, d_state, g_state, dev="cuda", nodes=11200, max_jobs=
     syncs, reported, small_iters = sweep_sync_check(torch, dev)
     check(reported == syncs, f"phase 11: PyTorch reports {reported} synchronizing calls "
           f"in a small grid's loop, the sweep counts {syncs} host reads")
-    same_bits(row("dense E=1", "EASY PSUS", 1800), d_state, "E=1 sweep == phase 5's run")
+    # phase 5's and phase 6's configurations, single runs on these inputs
+    d_state = engine.simulate(dense_plat, dense_wl, dense_cfg, device=dev)
+    g_state = engine.simulate(g_plat, g_wl, g_cfg, device=dev)
+    same_bits(row("dense E=1", "EASY PSUS", 1800), d_state,
+              "E=1 sweep == its single run")
     same_bits(row("dense E=64", "EASY PSUS", 1800), d_state,
-              "E=64 row EASY PSUS 1800 == phase 5's run")
+              "E=64 row EASY PSUS 1800 == its single run")
     for sc in runs["dense E=8"]["scen"]:
         same_bits(row("dense E=8", **sc), row("dense E=64", **sc),
                   f"E=8 row {sc} == its E=64 row")
@@ -957,12 +1014,13 @@ def phase11(torch, np, swf, d_state, g_state, dev="cuda", nodes=11200, max_jobs=
     same_bits(row("dense E=8", "FCFS PSAS+IPM", 600), single,
               "E=8 row FCFS PSAS+IPM 600 == its single run")
     same_bits(row("grouped E=8", "EASY PSUS", 1800), g_state,
-              "grouped E=8 row EASY PSUS 1800 == phase 6's run")
+              "grouped E=8 row EASY PSUS 1800 == its single run")
     m = {name: r["batch"].metrics for name, r in runs.items()}
-    print("phase 11 rows: E=1 and the E=64 row EASY PSUS 1800 == phase 5's run bit for "
-          "bit; each E=8 row == its E=64 row; the E=8 row FCFS PSAS+IPM 600 == its "
-          f"single run on the card ({single_wall:.2f} s); the grouped row EASY PSUS "
-          f"1800 == phase 6's run; a 16-node grid of 8 rows under "
+    print(f"phase 11 rows ({max_jobs} jobs): E=1 and the E=64 row EASY PSUS 1800 == "
+          "phase 5's configuration run alone on these jobs, bit for bit; each E=8 row "
+          "== its E=64 row; the E=8 row FCFS PSAS+IPM 600 == its single run on the card "
+          f"({single_wall:.2f} s); the grouped row EASY PSUS 1800 == phase 6's "
+          f"configuration run alone; a 16-node grid of 8 rows under "
           f"torch.cuda.set_sync_debug_mode: {reported} synchronizing calls reported "
           f"== the sweep's {syncs} host reads in {small_iters} iterations; "
           "dense E=64 total energy kWh by timeout, EASY PSUS "
@@ -974,6 +1032,351 @@ def phase11(torch, np, swf, d_state, g_state, dev="cuda", nodes=11200, max_jobs=
     return dense, runs["grouped E=8"]["launches"]
 
 
+RL_ENVS = 16  # phase 12 (a)-(b): envs in the grouped Curie batch
+RL_WINDOW = 500  # jobs a window of the synthesized Curie SWF
+RL_STEPS = 256  # batched steps of phase 12 (a)
+RL_ROWS = (0, 15)  # rows held against their own HPCGymEnv episodes
+
+
+def phase12(torch, np, swf, tmp, dev="cuda", nodes=11200):
+    """Phase 12: the RL stack on ``dev``. (a) the grouped env over 16 Curie
+    windows, rows 0 and 15 against their own single envs; (b) A2C on it;
+    (c) the reference's RL-throughput configuration with one A2C and one
+    PPO update; (d) a saved policy through ``python -m
+    repro_torch.launch.sim`` (EASY RL:groups) against the plain per-node
+    route; (e) a sweep of DVFS and RL rows against their single runs.
+    Returns the event kernels' launches of each part, by kernel."""
+    from repro_torch.core import engine, metrics, sweep
+    from repro_torch.core.policy import RLController, from_label
+    from repro_torch.core.rl import a2c, env, networks, ppo
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.training.checkpoint import save_policy
+    from repro_torch.workloads.generator import GeneratorConfig, generate_workload
+    from repro_torch.workloads.platform import (
+        PlatformSpec, curie_platform, dvfs_platform_example,
+    )
+    from repro_torch.workloads.traces import rebase_submit_times, replay_workload
+    from repro_torch.workloads.workload import Workload
+
+    t12 = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest",
+          "phase 12: f32 matmuls in full f32 (no TF32)")
+    by_part = {}
+
+    def reset_counts():
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        engine.HOST_SYNCS = 0
+
+    def launches(part, kname, want):
+        got = dict(event_fuse.LAUNCHES)
+        by_part[part] = got
+        check(got[kname] == want and all(v == 0 for k, v in got.items() if k != kname)
+              and fa.LAUNCHES["flash_attention"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0,
+              f"phase 12 {part}: launches {got}, {want} {kname} expected")
+
+    # ---- (a) the grouped env over 16 Curie windows ----
+    plat = curie_platform(nodes)
+    trace = replay_workload(swf, nb_nodes=nodes, oversize="clamp",
+                            max_jobs=RL_ENVS * RL_WINDOW)
+    wls = [rebase_submit_times(Workload(nodes, trace.jobs[i * RL_WINDOW:(i + 1) * RL_WINDOW]))
+           for i in range(RL_ENVS)]
+    cfg = env.EnvConfig(
+        engine=EngineConfig(policy=RLController(grouped=True), rl_decision_interval=600,
+                            grouped_tables=True),
+        feature="compact_groups", action="group_target_fraction",
+        reward="group_waste_wait", n_groups=plat.n_groups(), max_steps=512)
+    cfg = dataclasses.replace(cfg, engine=engine.trim_window(cfg.engine, RL_WINDOW))
+    const = engine.make_const(plat, cfg.engine, device=dev)
+    sims0 = a2c.make_batched_sims(plat, wls, cfg, device=dev)
+    grid = env.make_env_grid(const, RL_ENVS)
+    actions = ((3 * torch.arange(RL_STEPS, device=dev)[:, None]
+                + torch.arange(RL_ENVS, device=dev)) % cfg.n_actions).to(torch.int32)
+    rows = list(RL_ROWS)
+
+    def plain_route(c):
+        """``c`` with the event pass on the plain per-node route."""
+        return dataclasses.replace(
+            c, engine=dataclasses.replace(c.engine, fused_kernel=False))
+
+    def same_run(part, got, want):
+        """Two batched runs, each (final state, [(obs, reward, done)] a
+        step), equal bit for bit in every row."""
+        (sa, ka), (sb, kb) = got, want
+        bad = [f for f, x, y in zip(engine.SimState._fields, sa.sim, sb.sim)
+               if not torch.equal(x, y)]
+        bad += [f for f in ("steps", "done") if not torch.equal(getattr(sa, f),
+                                                                 getattr(sb, f))]
+        bad += [f"per-step {f}" for f, x, y in zip(("obs", "reward", "done"),
+                                                   zip(*ka), zip(*kb))
+                if not torch.equal(torch.stack(x), torch.stack(y))]
+        check(not bad, f"phase 12 {part}: the kernel run's {bad} != the plain "
+              "route's")
+
+    def run_env(n_steps, keep, c=cfg):
+        st, obs = env.batched_reset(c, grid, sims0)
+        kept = []
+        for t in range(n_steps):
+            st, obs, r, d, _ = env.batched_step(c, grid, st, actions[t])
+            if keep:
+                kept.append((obs, r, d))
+        return st, kept
+
+    torch.cuda.synchronize()
+    live_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    st, kept = run_env(RL_STEPS, True)
+    torch.cuda.synchronize()
+    env_wall = time.perf_counter() - t0
+    env_syncs = engine.HOST_SYNCS
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20 - live_mib
+    launches("env grouped", "event_fuse_occ", RL_STEPS)
+    check(env_syncs <= 2 * RL_STEPS,
+          f"phase 12 (a): {env_syncs} host syncs for {RL_STEPS} steps")
+    n_done = int(st.done.sum())
+    # the first 100 steps profiled (a warm run of the same steps came first)
+    n_prof = min(100, RL_STEPS)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_env(n_prof, False)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev_ms = [e.device_time_total / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(dev_ms, "phase 12 (a): the profiler saw no device op")
+    busy = sum(dev_ms) / (1e3 * prof_wall)
+    # the whole batch again on the plain per-node route (no event kernel)
+    reset_counts()
+    t0 = time.perf_counter()
+    plain_run = run_env(RL_STEPS, True, plain_route(cfg))
+    torch.cuda.synchronize()
+    env_plain_wall = time.perf_counter() - t0
+    check(not any(event_fuse.LAUNCHES.values()),
+          f"phase 12 (a): the plain route launched {dict(event_fuse.LAUNCHES)}")
+    same_run("(a)", (st, kept), plain_run)
+    del plain_run
+    # rows 0 and 15 against their own single envs, step by step
+    obs_k, rew_k, done_k = (torch.stack(x)[:, rows].cpu() for x in zip(*kept))
+    t0 = time.perf_counter()
+    for j, b in enumerate(rows):
+        single = env.HPCGymEnv(plat, wls[b], cfg, device=dev)
+        single.reset()
+        for t in range(RL_STEPS):
+            ob, rb, db, _ = single.step(int(actions[t, b]))
+            check(torch.equal(ob.cpu(), obs_k[t, j]) and rb == float(rew_k[t, j])
+                  and db == bool(done_k[t, j]),
+                  f"phase 12 (a): row {b} step {t} != its HPCGymEnv step")
+        da = metrics.np_state(engine.SimState(*[x[b] for x in st.sim]))
+        db_ = metrics.np_state(single.state.sim)
+        bad = [k for k in da if not np.array_equal(da[k], db_[k])]
+        check(not bad, f"phase 12 (a): row {b} state fields {bad} != its HPCGymEnv's")
+    single_wall = time.perf_counter() - t0
+    print(f"phase 12 (a) env: {RL_ENVS} envs on curie_platform({nodes}), grouped, "
+          f"EASY RL:groups interval 600, group_target_fraction / compact_groups / "
+          f"group_waste_wait, 16 consecutive {RL_WINDOW}-job windows of the Curie SWF: "
+          f"{RL_STEPS} batched steps in {env_wall:.2f} s = {1e3 * env_wall / RL_STEPS:.2f} "
+          f"ms a step, {RL_ENVS * RL_STEPS / env_wall:.0f} env steps/s; "
+          f"event_fuse_occ launches {by_part['env grouped']['event_fuse_occ']}, host syncs "
+          f"{env_syncs} ({env_syncs / RL_STEPS:.3f} a step); {n_done} envs done; first "
+          f"{n_prof} steps profiled: {len(dev_ms) / n_prof:.1f} device ops a step, device "
+          f"{sum(dev_ms) / n_prof * 1e3:.1f} us a step, busy {100 * busy:.1f} %; peak device "
+          f"memory {peak_mib:.1f} MiB above the {live_mib:.1f} MiB live; every row's "
+          f"state and per-step observations, rewards and done == the plain per-node "
+          f"route's bit for bit ({env_plain_wall:.2f} s); rows {rows} == their "
+          f"HPCGymEnv episodes bit for bit (state, observations, rewards, done; "
+          f"{single_wall:.1f} s for both)", flush=True)
+
+    # ---- (b) A2C on (a)'s batch ----
+    acfg = a2c.A2CConfig(n_envs=RL_ENVS, n_steps=16)
+    key = torch.Generator(device=dev).manual_seed(acfg.seed)
+    params = networks.policy_init(key, cfg.obs_size, cfg.n_actions, acfg.hidden)
+    before = [p.detach().clone() for p in params.parameters()]
+    update, opt = a2c.make_update_fn(cfg, const, sims0, acfg)
+    env_states, obs = env.batched_reset(cfg, grid, sims0)
+    ts = a2c.TrainState(params, opt.init(params.parameters()), env_states, obs, key)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = []
+    for _ in range(8):
+        ts, m = update(ts)
+        hist.append({k: float(v) for k, v in m.items()})
+    a2c_wall = time.perf_counter() - t0
+    launches("a2c grouped", "event_fuse_occ", 8 * acfg.n_steps)
+    moved = sum(float((a - b.detach()).abs().sum())
+                for a, b in zip(before, params.parameters()))
+    check(all(np.isfinite(h["loss"]) and h["entropy"] > 0 for h in hist) and moved > 0,
+          f"phase 12 (b): A2C losses {[h['loss'] for h in hist]}, moved {moved}")
+    print(f"phase 12 (b) A2C: n_envs {RL_ENVS}, n_steps {acfg.n_steps}, 8 updates in "
+          f"{a2c_wall:.2f} s = {a2c_wall / 8:.3f} s an update, "
+          f"{8 * acfg.n_steps * RL_ENVS / a2c_wall:.0f} env steps/s in training; loss "
+          f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, entropy "
+          f"{hist[-1]['entropy']:.4f}, parameters moved {moved:.4f} (sum |delta|)",
+          flush=True)
+
+    # ---- (c) the reference's RL-throughput configuration ----
+    tplat = PlatformSpec(nb_nodes=64)
+    twl = generate_workload(GeneratorConfig(n_jobs=64, nb_res=64, seed=0))
+    tcfg = env.EnvConfig(engine=EngineConfig(policy=RLController(), rl_decision_interval=600),
+                         max_steps=64 * 4)
+    tcfg = dataclasses.replace(tcfg, engine=engine.trim_window(tcfg.engine, len(twl)))
+    tconst = engine.make_const(tplat, tcfg.engine, device=dev)
+    tsims = a2c.make_batched_sims(tplat, [twl] * 256, tcfg, device=dev)
+    tgrid = env.make_env_grid(tconst, 256)
+    zeros = torch.zeros(256, dtype=torch.int32, device=dev)
+
+    def run_thr(c, n_steps=64):
+        s, _ = env.batched_reset(c, tgrid, tsims)
+        kept = []
+        for _ in range(n_steps):
+            s, ob, r, d, _ = env.batched_step(c, tgrid, s, zeros)
+            kept.append((ob, r, d))
+        return s, kept
+
+    run_thr(tcfg, 1)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thr_run = run_thr(tcfg)
+    torch.cuda.synchronize()
+    thr_wall = time.perf_counter() - t0
+    launches("rl-throughput env", "event_fuse_ledger", 64)
+    thr_syncs = engine.HOST_SYNCS
+    # the same 64 steps on the plain per-node route (no event kernel)
+    reset_counts()
+    t0 = time.perf_counter()
+    plain_run = run_thr(plain_route(tcfg))
+    torch.cuda.synchronize()
+    thr_plain_wall = time.perf_counter() - t0
+    check(not any(event_fuse.LAUNCHES.values()),
+          f"phase 12 (c): the plain route launched {dict(event_fuse.LAUNCHES)}")
+    same_run("(c)", thr_run, plain_run)
+    del thr_run, plain_run
+    key = torch.Generator(device=dev).manual_seed(0)
+    losses = {}
+    reset_counts()
+    for name, mod, lcfg in (
+            ("A2C", a2c, a2c.A2CConfig(n_envs=256, n_steps=8)),
+            ("PPO", ppo, ppo.PPOConfig(n_envs=256, n_steps=8, n_epochs=2,
+                                       n_minibatches=4))):
+        params = networks.policy_init(key, tcfg.obs_size, tcfg.n_actions, lcfg.hidden)
+        upd, o = mod.make_update_fn(tcfg, tconst, tsims, lcfg)
+        s0, ob0 = env.batched_reset(tcfg, tgrid, tsims)
+        t0 = time.perf_counter()
+        _, m = upd(a2c.TrainState(params, o.init(params.parameters()), s0, ob0, key))
+        losses[name] = (float(m["loss"]), time.perf_counter() - t0)
+        check(np.isfinite(losses[name][0]), f"phase 12 (c): {name} loss {losses[name][0]}")
+    launches("rl-throughput learners", "event_fuse_ledger", 16)
+    print(f"phase 12 (c) RL throughput (benchmarks/bench_rl.py defaults): 256 envs on a "
+          f"64-node PlatformSpec, 64 jobs, EASY RL interval 600, target_fraction: 64 "
+          f"batched steps in {thr_wall:.3f} s = {256 * 64 / thr_wall:.0f} env steps/s, "
+          f"event_fuse_ledger launches 64, host syncs {thr_syncs}; every row's state and "
+          f"per-step observations, rewards and done == the plain per-node route's bit "
+          f"for bit ({thr_plain_wall:.3f} s); one A2C update (n_steps "
+          f"8) loss {losses['A2C'][0]:.4f} in {losses['A2C'][1]:.2f} s, one PPO update "
+          f"(n_epochs 2, n_minibatches 4) loss {losses['PPO'][0]:.4f} in "
+          f"{losses['PPO'][1]:.2f} s", flush=True)
+
+    # ---- (d) the saved policy through the command line ----
+    ckpt = os.path.join(tmp, "policy")
+    save_policy(ckpt, ts.params, obs_size=cfg.obs_size, n_actions=cfg.n_actions,
+                feature=cfg.feature, action=cfg.action, n_levels=cfg.n_action_levels,
+                hidden=acfg.hidden, grouped=True, n_groups=plat.n_groups())
+    small = os.path.join(tmp, "curie280.json")
+    curie_platform(280).save(small)
+    run_cfg = {"workload": {"swf": swf, "nb_nodes": 280, "oversize": "clamp",
+                            "max_jobs": 120},
+               "platform": small, "scheduler": "EASY RL:groups", "timeout": 1800,
+               "grouped_tables": True, "gantt": False,
+               "rl": {"checkpoint": ckpt, "decision_interval": 600}}
+    out = os.path.join(tmp, "rl_out")
+    cfg_path = os.path.join(tmp, "rl_cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump({**run_cfg, "out": out}, f)
+    # python -m repro_torch.launch.sim --config, in this process so that its
+    # kernel launches are counted (runpy is what -m runs)
+    reset_counts()
+    argv, sys.argv = sys.argv, ["repro_torch.launch.sim", "--config", cfg_path]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            runpy.run_module("repro_torch.launch.sim", run_name="__main__",
+                             alter_sys=True)
+    finally:
+        sys.argv = argv
+    cli_wall = time.perf_counter() - t0
+    cli_launches = dict(event_fuse.LAUNCHES)
+    wrote = sorted(os.listdir(out))
+    check(wrote == ["jobs.csv", "metrics.json"], f"phase 12 (d): outputs {wrote}")
+    with open(os.path.join(out, "metrics.json")) as f:
+        cli_row = json.load(f)
+    check(json.loads(printed.getvalue()) == cli_row,
+          "phase 12 (d): the printed metrics != metrics.json")
+    jobs = np.loadtxt(os.path.join(out, "jobs.csv"), delimiter=",", skiprows=1,
+                      usecols=(0, 3, 4), dtype=np.int64, ndmin=2)
+    # the plain per-node route of the same configuration (the module is
+    # imported only now: runpy runs it as __main__, not as an import)
+    from repro_torch.launch import sim as tsim
+
+    wl280, plat280, sched, ecfg = tsim.engine_config(run_cfg, dev)
+    s_p = engine.simulate(plat280, wl280, dataclasses.replace(ecfg, fused_kernel=False),
+                          device=dev)
+    n_batches = int(s_p.n_batches)
+    by_part["launch RL:groups"] = cli_launches
+    check(cli_launches["event_fuse_occ"] == n_batches
+          and cli_launches["event_fuse_ledger"] == cli_launches["event_fuse"] == 0,
+          f"phase 12 (d): launches {cli_launches}, {n_batches} event_fuse_occ expected")
+    dp = metrics.np_state(s_p)
+    ids = wl280.arrays()["job_id"]
+    check(np.array_equal(jobs[:, 0], ids)
+          and np.array_equal(jobs[:, 1], dp["job_start"][:len(ids)])
+          and np.array_equal(jobs[:, 2], dp["job_finish"][:len(ids)]),
+          "phase 12 (d): the command line's schedule != the plain route's")
+    m_p = metrics.metrics_from_state(s_p, plat280)
+    check(cli_row == json.loads(json.dumps({"scheduler": sched, "timeout": ecfg.timeout,
+                                            **m_p.row()})),
+          "phase 12 (d): the command line's metrics (energy included) != the plain "
+          "route's")
+    print(f"phase 12 (d) launch: (b)'s policy saved and run by python -m "
+          f"repro_torch.launch.sim (EASY RL:groups, decision interval 600) on "
+          f"curie_platform(280), 120 replayed jobs, grouped tables: wrote {wrote} in "
+          f"{cli_wall:.1f} s, {n_batches} batches with one event_fuse_occ launch each; "
+          f"its schedule and metrics.json (energy included) == the plain per-node route "
+          f"bit for bit; total {m_p.total_energy_j / 3.6e6:.3f} kWh, mean wait "
+          f"{m_p.mean_wait_s:.1f} s", flush=True)
+
+    # ---- (e) a sweep of DVFS and RL rows ----
+    dplat = dvfs_platform_example(280)
+    labels = ["EASY DVFS", "EASY PSUS+DVFS", "EASY RL"]
+    scfg = EngineConfig(timeout=1800, node_order="cheap", grouped_tables=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    b = sweep.sweep(dplat, wl280, labels, scfg, device=dev)
+    sweep_wall = time.perf_counter() - t0
+    iters = int(b.states.n_batches.max())
+    launches("sweep dvfs/rl", "event_fuse_occ", iters)
+    for i, label in enumerate(labels):
+        base, pol = from_label(label)
+        single = engine.simulate(dplat, wl280, dataclasses.replace(scfg, base=base,
+                                                                   policy=pol), device=dev)
+        da, ds = metrics.np_state(b.state_at(i)), metrics.np_state(single)
+        bad = [k for k in da if not np.array_equal(da[k], ds[k])]
+        check(not bad, f"phase 12 (e): sweep row {label} fields {bad} != its single run")
+    print(f"phase 12 (e) sweep: {labels} on dvfs_platform_example(280), 120 replayed "
+          f"jobs, grouped: {iters} iterations in {sweep_wall:.2f} s with one "
+          f"event_fuse_occ launch each; each row == its single run bit for bit; phase "
+          f"wall {time.perf_counter() - t12:.1f} s", flush=True)
+    return by_part
+
+
 def main() -> None:
     import torch
 
@@ -983,7 +1386,6 @@ def main() -> None:
 
     from repro_torch.core import engine, metrics
     from repro_torch.core.policy import from_label, scheduler_labels
-    from repro_torch.core.ref.pydes import run_pydes
     from repro_torch.core.types import EngineConfig
     import torch.nn.functional as F
 
@@ -1003,6 +1405,23 @@ def main() -> None:
     from repro_torch.workloads.traces import replay_workload, synthesize_curie_swf
 
     t_script = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    swf = synthesize_curie_swf(os.path.join(tmp, "curie.swf"))  # seed 1300
+    # phases 5-6's inputs; their oracles are host work that needs no card,
+    # so two worker processes compute them while phases 1-4 run
+    base, pol = from_label("EASY PSUS")
+    dense_in = (PlatformSpec(nb_nodes=11200),
+                generate_workload(dataclasses.replace(PRESETS["cea_curie"], n_jobs=1000)),
+                EngineConfig(base=base, policy=pol, timeout=1800))
+    grouped_in = (curie_platform(11200),
+                  replay_workload(swf, nb_nodes=11200, oversize="clamp", max_jobs=1000),
+                  EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True))
+    oracle_pool = multiprocessing.get_context("spawn").Pool(2)
+    atexit.register(oracle_pool.terminate)
+    oracles = [oracle_pool.apply_async(oracle_of, args) for args in (dense_in, grouped_in)]
+    oracle_pool.close()
+
     # ---- 1. device ----
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -1317,8 +1736,7 @@ def main() -> None:
             cfg = EngineConfig(base=base, policy=pol, timeout=300,
                                terminate_overrun=True, node_order=order)
             s = engine.simulate(plat, wl, cfg, device="cuda")
-            same, rel, _ = held_against_oracle(
-                metrics, run_pydes, np, plat, wl, cfg, s)
+            same, rel, _ = held_against_oracle(metrics, np, plat, wl, cfg, s)
             check(same, f"{label} on {order}-ordered platform: schedule")
             check(rel <= 1e-5, f"{label}: energy rel err {rel}")
             n_label_runs += 1
@@ -1338,7 +1756,7 @@ def main() -> None:
         cfg = EngineConfig(base=base, policy=pol, timeout=300, terminate_overrun=True,
                            node_order="cheap", forecast_horizon=900)
         s = engine.simulate(plat, wl, cfg, device="cuda")
-        same, rel, m = held_against_oracle(metrics, run_pydes, np, plat, wl, cfg, s)
+        same, rel, m = held_against_oracle(metrics, np, plat, wl, cfg, s)
         check(same, f"{label} on the DVFS platform: schedule")
         check(rel <= 1e-5, f"{label} on the DVFS platform: energy rel err {rel}")
         worst = max(worst, rel)
@@ -1350,9 +1768,6 @@ def main() -> None:
           f"in the slow and turbo modes) in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    atexit.register(shutil.rmtree, tmp, True)
-    swf = synthesize_curie_swf(os.path.join(tmp, "curie.swf"))  # seed 1300
     t0 = time.perf_counter()
     plat = curie_platform(280)
     wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=120)
@@ -1366,8 +1781,7 @@ def main() -> None:
         s = engine.simulate(plat, wl, cfg, device="cuda")
         check(event_fuse.LAUNCHES["event_fuse_occ"] == int(s.n_batches),
               f"grouped {label} {opts}: occupancy kernel launches")
-        same, rel, _ = held_against_oracle(
-            metrics, run_pydes, np, plat, wl, cfg, s)
+        same, rel, _ = held_against_oracle(metrics, np, plat, wl, cfg, s)
         check(same, f"grouped {label} {opts}: schedule")
         check(rel <= 1e-5, f"grouped {label} {opts}: energy rel err {rel}")
         worst = max(worst, rel)
@@ -1390,7 +1804,7 @@ def main() -> None:
             s = engine.simulate(splat, wl, cfg, device="cuda")
             check(event_fuse.LAUNCHES["event_fuse_occ"] == int(s.n_batches),
                   f"grouped {label}{suffix}: occupancy kernel launches")
-            same, rel, _ = held_against_oracle(metrics, run_pydes, np, splat, wl, cfg, s)
+            same, rel, _ = held_against_oracle(metrics, np, splat, wl, cfg, s)
             check(same, f"grouped {label}{suffix}: schedule")
             check(rel <= 1e-5, f"grouped {label}{suffix}: energy rel err {rel}")
             worst = max(worst, rel)
@@ -1401,11 +1815,7 @@ def main() -> None:
           f"n_batches, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the main path at CEA-Curie scale, dense ----
-    gcfg = dataclasses.replace(PRESETS["cea_curie"], n_jobs=1000)
-    wl = generate_workload(gcfg)
-    plat = PlatformSpec(nb_nodes=11200)
-    base, pol = from_label("EASY PSUS")
-    cfg = EngineConfig(base=base, policy=pol, timeout=1800)
+    plat, wl, cfg = dense_in
     event_fuse.reset_launches()
     fa.reset_launches()
     ssd.reset_launches()
@@ -1428,9 +1838,9 @@ def main() -> None:
     draw_launches = launches["event_fuse"]
     check(not bool(s.truncated), "main path hit its batch cap")
     t0 = time.perf_counter()
-    same, rel, m = held_against_oracle(
-        metrics, run_pydes, np, plat, wl, cfg, s)
-    oracle_s = time.perf_counter() - t0
+    oracle = oracles[0].get()
+    oracle_wait_s, oracle_s = time.perf_counter() - t0, oracle[2]
+    same, rel, m = held_against_oracle(metrics, np, plat, wl, cfg, s, oracle)
     check(same, "main path schedule == oracle")
     check(rel <= 1e-5, f"main path energy rel err {rel}")
     t0 = time.perf_counter()
@@ -1447,13 +1857,11 @@ def main() -> None:
           f"{m.total_energy_j / 3.6e6:.1f} kWh; wall first run {first_s:.2f} "
           f"s, second run {wall_s:.2f} s = "
           f"{1e6 * wall_s / n_batches:.1f} us/batch; oracle {oracle_s:.2f} "
-          f"s; peak device memory {peak_mib:.1f} MiB", flush=True)
-    d_state = s  # phase 11's dense reference run
+          f"s in a worker process (waited for {oracle_wait_s:.2f} s); peak device "
+          f"memory {peak_mib:.1f} MiB", flush=True)
 
     # ---- 6. the main path at CEA-Curie scale, grouped ----
-    plat = curie_platform(11200)
-    wl = replay_workload(swf, nb_nodes=11200, oversize="clamp", max_jobs=1000)
-    cfg = EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True)
+    plat, wl, cfg = grouped_in
     event_fuse.reset_launches()
     fa.reset_launches()
     ssd.reset_launches()
@@ -1493,9 +1901,10 @@ def main() -> None:
     check(np.allclose(d_g["energy"], d_d["energy"], rtol=1e-6, atol=0.0),
           f"grouped energy == dense to rtol 1e-6 (max rel {e_rel:.2e})")
     t0 = time.perf_counter()
-    same, rel, m = held_against_oracle(
-        metrics, run_pydes, np, plat, wl, cfg, s)
-    g_oracle_s = time.perf_counter() - t0
+    oracle = oracles[1].get()
+    g_oracle_wait_s, g_oracle_s = time.perf_counter() - t0, oracle[2]
+    oracle_pool.join()
+    same, rel, m = held_against_oracle(metrics, np, plat, wl, cfg, s, oracle)
     check(same, "grouped main path schedule == oracle")
     check(rel <= 1e-5, f"grouped main path energy rel err {rel}")
     t0 = time.perf_counter()
@@ -1503,7 +1912,7 @@ def main() -> None:
     g_wall_s = time.perf_counter() - t0
     check(np.array_equal(metrics.schedule_table(s2), metrics.schedule_table(s)),
           "grouped rerun schedule")
-    g_state, g_metrics, g_cfg = s, m, cfg  # phase 10's reactive base
+    g_state, g_cfg = s, cfg  # phase 10's reactive base
     print(f"phase 6 grouped main path: curie_platform({plat.nb_nodes}) "
           f"(G={plat.n_groups()}), {len(wl)} jobs replayed from the synthesized "
           f"Curie SWF, EASY PSUS timeout 1800, grouped tables, on cuda: "
@@ -1515,7 +1924,8 @@ def main() -> None:
           f"s, second run {g_wall_s:.2f} s = {1e6 * g_wall_s / g_batches:.1f} "
           f"us/batch; dense port run of the same inputs {dense_s:.2f} s = "
           f"{1e6 * dense_s / int(s_dense.n_batches):.1f} us/batch; oracle "
-          f"{g_oracle_s:.2f} s; peak device memory {g_peak_mib:.1f} MiB",
+          f"{g_oracle_s:.2f} s in a worker process (waited for {g_oracle_wait_s:.2f} "
+          f"s); peak device memory {g_peak_mib:.1f} MiB",
           flush=True)
 
     # ---- 7. the command line on the card ----
@@ -1895,11 +2305,15 @@ def main() -> None:
 
     # ---- 10. power rules 9-10 at Curie scale, grouped ----
     torch.cuda.empty_cache()
-    fc_by_kernel, dv_by_kernel = phase10(torch, np, swf, g_state, g_metrics, g_cfg)
+    fc_by_kernel, dv_by_kernel = phase10(torch, np, swf, g_state, g_cfg)
 
     # ---- 11. the batched sweep at Curie scale ----
     torch.cuda.empty_cache()
-    sweep_dense, sweep_grouped = phase11(torch, np, swf, d_state, g_state)
+    sweep_dense, sweep_grouped = phase11(torch, np, swf)
+
+    # ---- 12. the RL stack ----
+    torch.cuda.empty_cache()
+    rl_by_part = phase12(torch, np, swf, tmp)
 
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
@@ -1924,6 +2338,7 @@ def main() -> None:
             "phase 10 dvfs": dv_by_kernel[kname],
             "sweep_dense": sweep_dense if kname == "event_fuse_ledger" else 0,
             "sweep_grouped": sweep_grouped if kname == "event_fuse_occ" else 0,
+            **{f"phase 12 {part}": got[kname] for part, got in rl_by_part.items()},
         }
         if note:
             row["note"] = note

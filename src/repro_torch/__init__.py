@@ -2,7 +2,8 @@
 
 The port of the JAX reference package ``repro`` to PyTorch, with the
 reference's TPU kernels rewritten by hand for NVIDIA Hopper: the simulator
-(``core/``, ``workloads/``, ``launch/sim.py``) and the LM serve paths of
+(``core/``, ``workloads/``, ``launch/sim.py``), its RL stack (``core/rl/``,
+``training/``) and the LM serve paths of
 ``internlm2-1.8b`` and ``xlstm-350m`` (``configs/``, ``models/``,
 ``launch/serve.py``). Module names mirror the
 reference (``core/engine.py``, ``models/transformer.py``, ...) so each

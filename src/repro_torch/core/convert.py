@@ -5,6 +5,9 @@ The dict keys are the field names of the reference's ``SimState`` and
 ``EngineConst`` (identical in the port), so a state taken from the JAX
 engine with ``repro.core.metrics.np_state`` continues in the PyTorch engine,
 and a port state comes back as numpy arrays of the same names and dtypes.
+An RL policy crosses the same way: the reference's parameter tree of numpy
+arrays becomes the port's ``ActorCritic`` and back
+(:func:`policy_params_from_arrays`, :func:`policy_params_to_arrays`).
 """
 from __future__ import annotations
 
@@ -90,3 +93,47 @@ def state_rows_to_arrays(s: SimState) -> List[Dict[str, np.ndarray]]:
     row, each keyed like :func:`state_to_arrays` (one copy to the host)."""
     d = state_to_arrays(s)
     return [{k: v[i] for k, v in d.items()} for i in range(d["t"].shape[0])]
+
+
+def policy_params_from_arrays(tree: Mapping, device: DeviceLike = None):
+    """An :class:`~repro_torch.core.rl.networks.ActorCritic` on ``device``
+    from the reference's policy tree ``{"torso", "pi", "v"}``, each a list
+    of ``{"w": [in, out], "b": [out]}`` f32 layers (numpy arrays, as
+    ``np.asarray`` gives them from the JAX tree)."""
+    from torch import nn
+    from torch.nn.utils import skip_init
+
+    from repro_torch.core.rl.networks import ActorCritic
+
+    dev = resolve_device(device)
+
+    def layers(key):
+        out = []
+        for i, layer in enumerate(tree[key]):
+            w = _tensor(f"{key}.{i}.w", layer["w"], dev)
+            b = _tensor(f"{key}.{i}.b", layer["b"], dev)
+            if w.dtype != torch.float32 or w.dim() != 2 or b.shape != w.shape[1:]:
+                raise ValueError(
+                    f"{key}.{i}: expected f32 w [in, out] and b [out], got "
+                    f"{tuple(w.shape)} {w.dtype} and {tuple(b.shape)}"
+                )
+            lin = skip_init(nn.Linear, w.shape[0], w.shape[1], device=dev)
+            with torch.no_grad():
+                lin.weight.copy_(w.T)
+                lin.bias.copy_(b)
+            out.append(lin)
+        return nn.ModuleList(out)
+
+    _require(tree, ("torso", "pi", "v"))
+    return ActorCritic(layers("torso"), layers("pi"), layers("v"))
+
+
+def policy_params_to_arrays(model) -> Dict[str, list]:
+    """The reference's policy tree (numpy f32, ``w`` as ``[in, out]``) of an
+    :class:`~repro_torch.core.rl.networks.ActorCritic`."""
+
+    def layers(mods):
+        return [{"w": m.weight.detach().cpu().numpy().T.copy(),
+                 "b": m.bias.detach().cpu().numpy().copy()} for m in mods]
+
+    return {"torso": layers(model.torso), "pi": layers(model.pi), "v": layers(model.v)}

@@ -16,13 +16,15 @@ configuration, so flags are always concrete Python bools
 (``PolicyParams.static()``) and every gate is a Python branch; a rule that
 is off is never called.
 
-The batched sweep (``core/sweep.py``) carries the flags as ``[E]`` bool
-tensors (:meth:`PolicyParams.traced`, :func:`stack_params`) and runs rules
-6-7 over ``[E, N]`` and ``[E, J]`` state through the ``*_rows`` functions
-below: each flag reaches them as a *row gate*, ``True`` (every row),
-``False`` (no row) or an ``[E]`` bool tensor, and a row whose gate is off
-selects no node, so its fields and counters stay bit for bit as they were
-(the reference's §Traced policy axis).
+The batched sweep (``core/sweep.py``) and the batched RL env carry the
+flags as ``[E]`` bool tensors (:meth:`PolicyParams.traced`,
+:func:`stack_params`) and run rules 6-9 over ``[E, N]`` and ``[E, J]``
+state through the ``*_rows`` functions below: each flag reaches them as a
+*row gate*, ``True`` (every row), ``False`` (no row) or an ``[E]`` bool
+tensor, and a row whose gate is off selects no node, so its fields and
+counters stay bit for bit as they were (the reference's §Traced policy
+axis); each row whose gate is on equals the single-state function on that
+row bit for bit (per-row selections are stable row sorts).
 
 The f32 expressions that the engines and the oracle hold bit for bit (the
 EWMA update, the observed gap, the pressure floor and the DVFS rescale) are
@@ -169,6 +171,7 @@ def ipm_wake(s, const):
 
 # ---------------------------------------------------------------------------
 # rules 6-7 over a scenario axis: [E, N] and [E, J] state, [E] row gates
+# (rules 8-9 over rows follow rule 8 and rule 9 below)
 # ---------------------------------------------------------------------------
 
 def queued_demand_rows(s) -> torch.Tensor:
@@ -310,6 +313,154 @@ def apply_rl_commands(s, const, grouped: bool):
     )
 
 
+def apply_rl_commands_rows(s, const, grouped, enabled):
+    """Rule 8 on each row whose ``enabled`` gate is on (not ``False``), over
+    ``[E, N]`` state and ``[E, G]`` command vectors. ``grouped`` is a row
+    gate too: its rows select per group, the others cluster-wide, each row
+    exactly as :func:`apply_rl_commands` selects for one state (the per-group
+    sorts run over ``[E, G, N]``). A row whose gate is off keeps its nodes,
+    counters and commands."""
+    cand_on = (s.node_job < 0) & (s.node_state == SLEEP)
+    cand_off = (s.node_job < 0) & (s.node_state == IDLE)
+    G = s.rl_on_cmd.shape[-1]
+    if grouped is not False:
+        groups = torch.arange(G, dtype=I32, device=cand_on.device)
+        same = const.group_id[:, None, :] == groups[:, None]  # [E, G, N]
+        ranks_on = torch.cumsum(cand_on[:, None, :] & same, dim=-1, dtype=I32)
+        on_g = cand_on & (same & (ranks_on <= s.rl_on_cmd[..., None])).any(1)
+        off_g = _select_longest_idle(
+            cand_off[:, None, :] & same, s.node_idle_since[:, None, :],
+            s.rl_off_cmd,
+        ).any(1)
+    if grouped is not True:
+        on_all = cand_on & (
+            torch.cumsum(cand_on, dim=-1, dtype=I32)
+            <= s.rl_on_cmd.sum(dim=-1, dtype=I32)[:, None]
+        )
+        off_all = _select_longest_idle(
+            cand_off, s.node_idle_since, s.rl_off_cmd.sum(dim=-1, dtype=I32)
+        )
+    if grouped is True:
+        sel_on, sel_off = on_g, off_g
+    elif grouped is False:
+        sel_on, sel_off = on_all, off_all
+    else:
+        sel_on = torch.where(grouped[:, None], on_g, on_all)
+        sel_off = torch.where(grouped[:, None], off_g, off_all)
+    sel_on, sel_off = _gated(sel_on, enabled), _gated(sel_off, enabled)
+    t = s.t[:, None]
+    state = torch.where(sel_on, SWITCHING_ON, s.node_state)
+    state = torch.where(sel_off, SWITCHING_OFF, state)
+    until = torch.where(sel_on, t + const.t_on, s.node_until)
+    until = torch.where(sel_off, t + const.t_off, until)
+
+    def cleared(cmd):
+        if enabled is True:
+            return torch.zeros_like(cmd)
+        return torch.where(enabled[:, None], 0, cmd)
+
+    return s._replace(
+        node_state=state,
+        node_until=until,
+        rl_on_cmd=cleared(s.rl_on_cmd),
+        rl_off_cmd=cleared(s.rl_off_cmd),
+        n_switch_on=s.n_switch_on + sel_on.sum(dim=-1, dtype=I32),
+        n_switch_off=s.n_switch_off + sel_off.sum(dim=-1, dtype=I32),
+    )
+
+
+def effective_node_speed_rows(const, mode, enabled) -> torch.Tensor:
+    """f32[E, N]: :func:`effective_node_speed` of each row, the mode table's
+    speed on the rows whose ``enabled`` gate is on and the base speed on the
+    others (``const`` holds ``[E, ...]`` tables, ``mode`` is ``[E, G]``)."""
+    if enabled is False:
+        return const.speed
+    E = mode.shape[0]
+    M = const.dvfs_speed.shape[-1]
+    gid = const.group_id.long()
+    node_mode = mode.long().gather(1, gid)
+    table = const.dvfs_speed.reshape(E, -1).gather(1, gid * M + node_mode)
+    if enabled is True:
+        return table
+    return torch.where(enabled[:, None], table, const.speed)
+
+
+def alloc_min_speed_rows(node_job, node_speed, n_jobs: int) -> torch.Tensor:
+    """f32[E, J]: :func:`alloc_min_speed` of each row (a scatter-min, exact
+    in any order)."""
+    cj = torch.clamp(node_job, min=0).long()
+    src = torch.where(node_job >= 0, node_speed, float("inf"))
+    out = torch.full(
+        (node_job.shape[0], n_jobs), float("inf"), dtype=torch.float32,
+        device=node_job.device,
+    )
+    return out.scatter_reduce(1, cj, src, reduce="amin", include_self=True)
+
+
+def apply_dvfs_modes_rows(s, const, target, enabled, terminate_overrun=False):
+    """:func:`apply_dvfs_modes` of each row: ``target`` is ``[E, G]`` and
+    ``enabled`` a row gate (not ``False``); a row whose gate is off keeps
+    its modes and jobs. The contract expressions are the single state's, op
+    for op."""
+    mode = target if enabled is True else torch.where(
+        enabled[:, None], target, s.dvfs_mode
+    )
+    eff = effective_node_speed_rows(const, mode, True)
+    J = s.job_status.shape[-1]
+    alloc_min = alloc_min_speed_rows(s.node_job, eff, J)
+    running = (s.job_status == RUNNING) & ~s.job_terminated
+    speed_min = torch.where(running, alloc_min, s.job_speed)
+    live = _gated(running, enabled)
+    changed = live & (speed_min != s.job_speed)
+    t = s.t[:, None]
+    rem = torch.clamp(s.job_finish - t, min=1).to(F32)
+    work = rem * s.job_speed  # f32 remaining work (contract expression)
+    new_rem = torch.clamp(torch.ceil(work / speed_min).to(I32), min=1)
+    new_finish = t + new_rem
+    terminated = s.job_terminated
+    if terminate_overrun:
+        cap = s.job_start + s.job_reqtime
+        capped = changed & (new_finish > cap)
+        new_finish = torch.minimum(new_finish, cap)
+        terminated = terminated | capped
+    finish = torch.where(changed, new_finish, s.job_finish)
+    return s._replace(
+        dvfs_mode=mode,
+        job_speed=torch.where(live, speed_min, s.job_speed),
+        job_finish=finish,
+        job_eff=torch.where(changed, finish - s.job_start, s.job_eff),
+        job_terminated=terminated,
+    )
+
+
+def apply_dvfs_rows(s, const, enabled, rl, terminate_overrun=False):
+    """Rule 9 on each row whose ``enabled`` gate is on (not ``False``): the
+    queue-pressure ladder, or on the rows of the ``rl`` gate the pending mode
+    commands, then :func:`apply_dvfs_modes_rows`; each row as
+    :func:`apply_dvfs` runs for one state."""
+    N = s.node_state.shape[-1]
+    n_modes = const.dvfs_n_modes  # [E, G]
+    if rl is not True:
+        ladder = torch.minimum(
+            n_modes - 1, (queued_demand_rows(s)[:, None] * n_modes) // N
+        )
+    if rl is not False:
+        clipped = torch.minimum(torch.clamp(s.rl_mode_cmd, min=0), n_modes - 1)
+        commanded = torch.where(s.rl_mode_cmd >= 0, clipped, s.dvfs_mode)
+    if rl is True:
+        target = commanded
+    elif rl is False:
+        target = ladder
+    else:
+        target = torch.where(rl[:, None], commanded, ladder)
+    s = apply_dvfs_modes_rows(s, const, target.to(I32), enabled, terminate_overrun)
+    cmd = s.rl_mode_cmd
+    return s._replace(
+        rl_mode_cmd=torch.full_like(cmd, -1) if enabled is True
+        else torch.where(enabled[:, None], -1, cmd)
+    )
+
+
 def effective_node_speed(const, mode, enabled: bool) -> torch.Tensor:
     """f32[N] node speed under the DVFS mode vector ``mode`` (i32[G]): each
     node's group's speed in the group's mode when ``enabled``, the base
@@ -404,7 +555,7 @@ def forecast_pressure(s, const) -> torch.Tensor:
     gap = torch.clamp(s.fc_gap, min=1.0)
     horizon = const.forecast_horizon.to(F32)
     pressure = (horizon / gap) * s.fc_res
-    N = s.node_state.shape[0]
+    N = s.node_state.shape[-1]
     return torch.clamp(torch.floor(pressure), 0.0, float(N)).to(I32)
 
 

@@ -13,8 +13,13 @@ the vector sums); group translators (``GROUP_ACTIONS``) need an
 (``DVFS_ACTIONS``) an ``RLController(dvfs=True)`` one.
 
 ``action`` is a Python int or an integer tensor on the state's device; no
-translator reads a device value into Python. Per-group counts are int32
-``index_add_`` sums, exact in any order (deterministic on CUDA).
+translator reads a device value into Python. Each translator takes one
+state (``[N]`` node arrays, a scalar action, ``[G]`` commands out) or a
+batch of ``[B]`` rows (the batched RL env's ``[B, N]`` state and its
+sweep-shaped ``[B, ...]`` tables, a ``[B]`` action tensor, ``[B, G]``
+commands out), row ``b`` of the batch equal to the single state's commands
+bit for bit. Per-group counts are int32 ``scatter_add_`` sums, exact in any
+order (deterministic on CUDA).
 """
 from __future__ import annotations
 
@@ -43,22 +48,30 @@ def full_commands(s, ret):
 
 def _global(s, n_on, n_off):
     """Global scalar commands in slot 0 of the ``[G]`` command vectors."""
-    G = s.rl_on_cmd.shape[0]
+    G = s.rl_on_cmd.shape[-1]
     slot0 = torch.arange(G, device=s.t.device) == 0
-    return (torch.where(slot0, n_on.to(I32), 0),
-            torch.where(slot0, n_off.to(I32), 0))
+    return (torch.where(slot0, n_on.to(I32)[..., None], 0),
+            torch.where(slot0, n_off.to(I32)[..., None], 0))
 
 
 def _on_like(s) -> torch.Tensor:
-    """bool[N]: nodes powered or powering up."""
+    """bool[..., N]: nodes powered or powering up."""
     st = s.node_state
     return (st == IDLE) | (st == ACTIVE) | (st == SWITCHING_ON)
+
+
+def group_counts(group_id, values, G: int) -> torch.Tensor:
+    """i32[..., G]: ``values`` (i32[..., N]) summed over each group's nodes
+    (the reference's ``zeros(G).at[group_id].add``), exact in any order."""
+    out = torch.zeros((*values.shape[:-1], G), dtype=I32, device=values.device)
+    gid = group_id.long().expand(values.shape)
+    return out.scatter_add_(-1, gid, values)
 
 
 def delta_nodes(s, const, action, n_levels: int = 5, step_frac: float = 0.125):
     """Symmetric delta: action k in [0, 2*n_levels] toggles
     ``(k - n_levels) * step_frac * N`` nodes (negative = switch off)."""
-    N = s.node_state.shape[0]
+    N = s.node_state.shape[-1]
     step = max(int(step_frac * N), 1)
     delta = torch.clamp((_action(s, action) - n_levels) * step, -N, N)
     return _global(s, torch.clamp(delta, min=0), torch.clamp(-delta, min=0))
@@ -67,11 +80,11 @@ def delta_nodes(s, const, action, n_levels: int = 5, step_frac: float = 0.125):
 def target_on_fraction(s, const, action, n_levels: int = 9):
     """action k -> target #powered nodes = round(N * k/(n_levels-1));
     the commands bridge the gap from the powered/powering count."""
-    N = s.node_state.shape[0]
+    N = s.node_state.shape[-1]
     target = torch.round(
         N * _action(s, action).to(F32) / float(n_levels - 1)
     ).to(I32)
-    gap = target - _on_like(s).sum(dtype=I32)
+    gap = target - _on_like(s).sum(dim=-1, dtype=I32)
     return _global(s, torch.clamp(gap, min=0), torch.clamp(-gap, min=0))
 
 
@@ -79,18 +92,14 @@ def group_target_fraction(s, const, action, n_levels: int = 9):
     """Group-targeted action space: action = g * n_levels + k sets group g's
     target powered-node count to round(N_g * k/(n_levels-1)); only that
     group receives commands this decision."""
-    G = s.rl_on_cmd.shape[0]
+    G = s.rl_on_cmd.shape[-1]
     a = _action(s, action)
-    g = torch.clamp(a // n_levels, 0, G - 1)
-    k = a % n_levels
+    g = torch.clamp(a // n_levels, 0, G - 1)[..., None]
+    k = (a % n_levels)[..., None]
     gids = torch.arange(G, dtype=I32, device=a.device)
-    gid = const.group_id.long()
-    group_sizes = torch.zeros(G, dtype=I32, device=a.device).index_add_(
-        0, gid, torch.ones_like(const.group_id)
-    )
-    on_like_g = torch.zeros(G, dtype=I32, device=a.device).index_add_(
-        0, gid, _on_like(s).to(I32)
-    )
+    on_like = _on_like(s).to(I32)
+    group_sizes = group_counts(const.group_id, torch.ones_like(on_like), G)
+    on_like_g = group_counts(const.group_id, on_like, G)
     target = torch.round(
         group_sizes.to(F32) * k.to(F32) / float(n_levels - 1)
     ).to(I32)
@@ -104,13 +113,13 @@ def group_mode(s, const, action, n_levels: int):
     ``n_levels`` is the platform's mode-table width
     (``PlatformSpec.n_dvfs_modes()``); rule 9 clamps k per group. Emits no
     on/off commands."""
-    G = s.rl_on_cmd.shape[0]
+    G = s.rl_on_cmd.shape[-1]
     a = _action(s, action)
-    g = torch.clamp(a // n_levels, 0, G - 1)
-    k = a % n_levels
+    g = torch.clamp(a // n_levels, 0, G - 1)[..., None]
+    k = (a % n_levels)[..., None]
     gids = torch.arange(G, dtype=I32, device=a.device)
     mode = torch.where(gids == g, k, -1).to(I32)
-    zeros = torch.zeros(G, dtype=I32, device=a.device)
+    zeros = torch.zeros_like(s.rl_on_cmd)
     return zeros, zeros, mode
 
 

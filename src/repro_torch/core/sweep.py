@@ -11,14 +11,18 @@ host loop runs every row. The functions keep the reference's names; each
 is the batched spelling of the single run's function of the same name in
 ``core/engine.py``, which stays as it is.
 
-What a sweep runs: FCFS and EASY rows under rules 6-7 (PSUS, PSAS,
-PSAS+IPM, AlwaysOn) in one grid, a timeout per row (``None`` = never), a
-platform per row (same node, group and DVFS-mode counts), dense and grouped
-tables, ``node_order`` "id", "cheap" and "idle-watts", ``allocation="any"``
-and the batch cap, with truncation per row. A grid where a row sets rule
-8-10 flags, an in-graph controller, ``node_order="pack"``,
+What a sweep runs: FCFS and EASY rows under rules 6-9 (PSUS, PSAS,
+PSAS+IPM, AlwaysOn; RL power commands without a controller, as the RL env
+sets them; DVFS, the ladder or agent mode commands, and every ``+DVFS``
+composition) in one grid, a timeout per row (``None`` = never), a platform
+per row (same node, group and DVFS-mode counts), dense and grouped tables,
+``node_order`` "id", "cheap" and "idle-watts", ``allocation="any"`` and the
+batch cap, with truncation per row. A grid where a row sets the rule 10
+flag, an in-graph controller, ``node_order="pack"``,
 ``allocation="partition"``, ``merge_bursts`` or more than one device raises
 ``NotImplementedError`` naming ROADMAP item 8b (:func:`check_supported`).
+The RL env (``core/rl/env.py``) steps its ``[B]`` rows on this module's
+:class:`Grid` and batch functions, one full batch a step.
 
 The port's analogue of the reference's "one compile per grid": one program
 per *iteration*, whatever E is. Each iteration of :func:`run_sim` makes
@@ -39,8 +43,8 @@ per *iteration*, whatever E is. Each iteration of :func:`run_sim` makes
   made per attempt;
 * one event-kernel launch for the whole grid (:func:`event_horizon`:
   ``event_fuse_occ`` on ``[E, N]`` on the grouped path, ``event_fuse_ledger``
-  on the dense single-group path, each on a CUDA device unless
-  ``fused_kernel`` says otherwise).
+  on the dense single-group path when no row runs DVFS, each on a CUDA
+  device unless ``fused_kernel`` says otherwise).
 
 A row stops where its single run stops: it is *frozen* once it is no longer
 live, every field kept by ``torch.where(live, new, old)`` (a Kahan add of a
@@ -88,6 +92,10 @@ from repro_torch.core.engine import (
 from repro_torch.core.metrics import metrics_from_state
 from repro_torch.core.policy import (
     PowerPolicy,
+    alloc_min_speed_rows,
+    apply_dvfs_rows,
+    apply_rl_commands_rows,
+    effective_node_speed_rows,
     from_label,
     ipm_wake_rows,
     stack_params,
@@ -118,8 +126,8 @@ I32 = torch.int32
 F32 = torch.float32
 INF = int(INF_TIME)
 
-# rule 8-10 flags a sweep row may not set yet
-_LATER_FLAGS = ("rl_enabled", "dvfs_enabled", "forecast_enabled")
+# rule 8-10 flags a sweep row may not set yet (rule 10)
+_LATER_FLAGS = ("forecast_enabled",)
 
 
 # ---------------------------------------------------------------------------
@@ -702,11 +710,12 @@ def _start_jobs(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
     )
     start = (s.job_status == ALLOCATED) & (ready_count == s.job_res)
     node_starts = (nj >= 0) & start.gather(1, cj)
-    # realized wall time = nominal work / slowest allocated node (rules 8-10
-    # are off in a sweep, so a node's speed is its base speed)
-    src = torch.where(nj >= 0, g.const.speed, float("inf"))
-    speed_min = torch.full((E, J), float("inf"), dtype=F32, device=nj.device)
-    speed_min = speed_min.scatter_reduce(1, cj, src, reduce="amin", include_self=True)
+    # realized wall time = nominal work / slowest allocated node, at each
+    # row's current DVFS mode speed on its DVFS rows
+    node_speed = effective_node_speed_rows(
+        g.const, s.dvfs_mode, g.gate("dvfs_enabled")
+    )
+    speed_min = alloc_min_speed_rows(nj, node_speed, J)
     speed_min = torch.where(start, speed_min, 1.0)
     realized = torch.clamp(
         torch.ceil(s.job_run.to(F32) / speed_min).to(I32), min=1
@@ -731,23 +740,32 @@ def _start_jobs(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
     )
 
 
-def _power_step(s: SimState, g: Grid) -> SimState:
-    """Rules 6-7 on the rows whose flags ask for them."""
+def _power_step(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
+    """Rules 6-9 on the rows whose flags ask for them, in the single run's
+    order: rule 6, rule 7, rule 8 (pending RL commands, which the RL env
+    sets), rule 9 (the ladder, or agent mode commands on ``dvfs_rl`` rows)."""
     sleep, ipm = g.gate("sleep_enabled"), g.gate("ipm_enabled")
     if sleep is not False:
         s = timeout_switch_off_rows(s, g.const, sleep, ipm)
     if ipm is not False:
         s = ipm_wake_rows(s, g.const, ipm)
+    rl = g.gate("rl_enabled")
+    if rl is not False:
+        s = apply_rl_commands_rows(s, g.const, g.gate("rl_grouped"), rl)
+    dvfs = g.gate("dvfs_enabled")
+    if dvfs is not False:
+        s = apply_dvfs_rows(s, g.const, dvfs, g.gate("dvfs_rl"),
+                            cfg.terminate_overrun)
     return s
 
 
 def process_batch(s: SimState, g: Grid, cfg: EngineConfig, live, live_d) -> SimState:
-    """One atomic event batch at each row's ``t`` (rules 1-7)."""
+    """One atomic event batch at each row's ``t`` (rules 1-9)."""
     s = _complete_jobs(s)
     s = _complete_transitions(s, g)
     s = _scheduler_pass(s, g, cfg, live, live_d)
     s = _start_jobs(s, g, cfg)
-    s = _power_step(s, g)
+    s = _power_step(s, g, cfg)
     return s._replace(n_batches=s.n_batches + 1)
 
 
@@ -797,8 +815,36 @@ def _occupancy(s: SimState, g: Grid) -> torch.Tensor:
 
 
 def _node_power_draw(s: SimState, g: Grid) -> torch.Tensor:
-    """f32[E, N]: each node's draw in its state (DVFS is off in a sweep)."""
-    return g.const.power.gather(2, s.node_state.long()[..., None])[..., 0]
+    """f32[E, N]: each node's draw in its state; on the DVFS rows an ACTIVE
+    node draws its group's current-mode watts."""
+    node_power = g.const.power.gather(2, s.node_state.long()[..., None])[..., 0]
+    dvfs = g.gate("dvfs_enabled")
+    if dvfs is False:
+        return node_power
+    mode_w = _mode_watts(s, g).gather(1, g.const.group_id.long())
+    active = s.node_state == ACTIVE
+    if dvfs is not True:
+        active = active & dvfs[:, None]
+    return torch.where(active, mode_w, node_power)
+
+
+def _mode_watts(s: SimState, g: Grid) -> torch.Tensor:
+    """f32[E, G]: each group's ACTIVE watts in its current DVFS mode."""
+    return g.const.dvfs_watts.gather(2, s.dvfs_mode.long()[..., None])[..., 0]
+
+
+def _group_draw(s: SimState, g: Grid, occ: torch.Tensor) -> torch.Tensor:
+    """f32[E, G, 5]: ``engine._group_draw`` of each row, the ACTIVE column
+    at the mode watts on the DVFS rows."""
+    draw = occ.to(F32) * g.const.tables.power
+    dvfs = g.gate("dvfs_enabled")
+    if dvfs is False:
+        return draw
+    active = occ[..., ACTIVE].to(F32) * _mode_watts(s, g)
+    if dvfs is not True:
+        active = torch.where(dvfs[:, None], active, draw[..., ACTIVE])
+    draw[..., ACTIVE] = active
+    return draw
 
 
 def _ledger(s: SimState, g: Grid, node_power: torch.Tensor) -> torch.Tensor:
@@ -820,7 +866,9 @@ def event_horizon(
     draw for the coming interval and the quiet classification ``[E]``, with
     ONE event-kernel call for the grid: ``event_fuse_occ`` on the grouped
     path, ``event_fuse_ledger`` on the dense path of a single-group platform
-    (DVFS is off in every sweep row), else the per-node route."""
+    when no row runs DVFS (the kernel knows only the base watts: the single
+    run's gate), else the per-node route. The RL rows add their decision
+    tick; a row under rule 8 or 9 is never quiet."""
     G = s.energy.shape[1]
     aux_occ = aux_power = aux_draw = None
     t = s.t
@@ -834,8 +882,8 @@ def event_horizon(
         else:
             aux_occ = _occupancy(s, g)
             tr = _next_transition(s)
-        aux_draw = aux_occ.to(F32) * g.const.tables.power
-    elif G == 1 and kernel:
+        aux_draw = _group_draw(s, g, aux_occ)
+    elif G == 1 and kernel and g.gate("dvfs_enabled") is False:
         draw8, tr = event_fuse.event_fuse_ledger(
             s.node_state, s.node_until, t, g.ledger_power
         )
@@ -857,11 +905,20 @@ def event_horizon(
         if sleep is not True:
             c = torch.where(sleep, c, INF)
         nt = torch.minimum(nt, torch.where(c > t, c, INF))
+    rl = g.gate("rl_enabled")
+    if rl is not False:
+        c = t + g.const.rl_interval
+        if rl is not True:
+            c = torch.where(rl, c, INF)
+        nt = torch.minimum(nt, torch.where(c > t, c, INF))
     busy = (
         ((s.job_status == WAITING) & (s.job_subtime <= t2))
         | (s.job_status == ALLOCATED)
     ).any(dim=-1)
     quiet = (arr > nt) & (fin > nt) & ~busy
+    if rl is not False or g.gate("dvfs_enabled") is not False:
+        pp = g.const.policy
+        quiet = quiet & ~(pp.rl_enabled | pp.dvfs_enabled)
     return nt, EventAux(node_power=aux_power, draw=aux_draw, occ=aux_occ, quiet=quiet)
 
 
@@ -879,12 +936,24 @@ def accrue_energy(s: SimState, t_next: torch.Tensor, g: Grid, aux: EventAux) -> 
     else:
         draw = _ledger(s, g, aux.node_power)
     e, c = _kahan_add(s.energy, s.energy_c, draw * dt[:, None, None])
+    mode_time, mode_energy = s.mode_time, s.mode_energy
+    dvfs = g.gate("dvfs_enabled")
+    if dvfs is not False:
+        modes = torch.arange(mode_time.shape[-1], dtype=I32, device=dt.device)
+        in_mode = s.dvfs_mode[..., None] == modes  # one cell per group
+        if dvfs is not True:
+            in_mode = in_mode & dvfs[:, None, None]
+        mode_time = mode_time + torch.where(in_mode, dt[:, None, None], 0.0)
+        mode_energy = mode_energy + torch.where(
+            in_mode, (draw[..., ACTIVE] * dt[:, None])[..., None], 0.0
+        )
     n_waiting = (
         ((s.job_status == WAITING) & (s.job_subtime <= s.t[:, None]))
         | (s.job_status == ALLOCATED)
     ).sum(dim=-1, dtype=F32)
     w, wc = _kahan_add(s.wait_integral, s.wait_c, n_waiting * dt)
-    return s._replace(energy=e, energy_c=c, wait_integral=w, wait_c=wc, occ=occ)
+    return s._replace(energy=e, energy_c=c, mode_time=mode_time,
+                      mode_energy=mode_energy, wait_integral=w, wait_c=wc, occ=occ)
 
 
 def all_done(s: SimState) -> torch.Tensor:
@@ -892,11 +961,14 @@ def all_done(s: SimState) -> torch.Tensor:
     return (s.job_status == DONE).all(dim=-1)
 
 
-def _freeze(live: torch.Tensor, new: SimState, old: SimState) -> SimState:
-    """``new`` on the live rows, ``old`` on the others, field by field (a
-    field the batch did not touch is the same tensor and is kept)."""
+def freeze(live: torch.Tensor, new: SimState, old: SimState) -> SimState:
+    """``new`` where ``live``, ``old`` elsewhere, field by field: ``live`` is
+    a bool per row (``[E]`` rows) or one bool (a single state). A field the
+    batch did not touch is the same tensor and is kept. Selecting, not
+    re-adding, keeps a frozen row's Kahan ledgers as they were."""
     return SimState(*[
-        n if n is o else torch.where(live.view(-1, *([1] * (n.dim() - 1))), n, o)
+        n if n is o
+        else torch.where(live.view(live.shape + (1,) * (n.dim() - live.dim())), n, o)
         for n, o in zip(new, old)
     ])
 
@@ -928,7 +1000,7 @@ def run_sim(s: SimState, g: Grid, cfg: EngineConfig, max_batches: int) -> SimSta
         else:
             s = process_batch(s, g, cfg, live, live_d)
         if live_d is not None:
-            s = _freeze(live_d, s, old)
+            s = freeze(live_d, s, old)
         nt, aux = event_horizon(s, g, cfg)
     return s._replace(truncated=~done & (nt < INF))
 

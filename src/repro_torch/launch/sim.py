@@ -26,23 +26,36 @@ replays. For example, the first 1000 jobs of a Curie-class trace on a
 DVFS and Forecast labels run, alone and composed (``"EASY DVFS"``,
 ``"EASY PSUS+DVFS"``, ``"EASY PSUS+Forecast"``, ...), with the rule 10
 operands ``forecast_horizon`` / ``forecast_alpha`` as the reference parses
-them. Configurations the port does not run yet — RL labels and the ``rl``
-block (they need a checkpointed network), ``--experiment`` grids, the
-``profiles`` workload — raise ``NotImplementedError``.
+them. RL labels (``"EASY RL"``, ``"EASY RL:groups"``, ``"EASY RL:dvfs"``)
+need an ``rl: {checkpoint: <dir>, decision_interval: s}`` block: the policy
+saved by ``training.checkpoint.save_policy`` (of either package) drives the
+run greedily through the engine's in-graph controller hook, features ->
+logits -> argmax -> action translator, all on the device. Configurations
+the port does not run yet — ``--experiment`` grids, the ``profiles``
+workload — raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 import os
 import warnings
 from typing import Any, Dict, Optional
 
+import torch
+
 from repro_torch.core import engine
 from repro_torch.core.gantt import intervals_from_log, render_png, write_csv
 from repro_torch.core.metrics import metrics_from_state, np_state
 from repro_torch.core.policy import RLController, from_label, scheduler_labels
+from repro_torch.core.rl.actions import (
+    ACTION_TRANSLATORS,
+    DVFS_ACTIONS,
+    action_space_size,
+)
+from repro_torch.core.rl.features import extract, feature_size
 from repro_torch.core.types import EngineConfig
 from repro_torch.device import resolve_device
 from repro_torch.experiments import (
@@ -50,6 +63,7 @@ from repro_torch.experiments import (
     resolve_platform,
     resolve_workload,
 )
+from repro_torch.training.checkpoint import load_policy
 
 # single-run config keys (the reference's set)
 _KNOWN_KEYS = {
@@ -57,6 +71,15 @@ _KNOWN_KEYS = {
     "node_order", "allocation", "rl", "gantt", "out", "grouped_tables",
     "merge_bursts", "forecast_horizon", "forecast_alpha",
 }
+_KNOWN_RL_KEYS = {"checkpoint", "decision_interval"}
+
+
+def _validate_keys(config: Dict[str, Any]) -> None:
+    """Reject unknown config keys loudly instead of silently ignoring typos."""
+    check_unknown_keys(config, _KNOWN_KEYS, "config")
+    rl = config.get("rl")
+    if isinstance(rl, dict):
+        check_unknown_keys(rl, _KNOWN_RL_KEYS, "rl config")
 
 
 def _load_mini_yaml(path: str) -> Dict[str, Any]:
@@ -89,21 +112,91 @@ def _load_mini_yaml(path: str) -> Dict[str, Any]:
     return out
 
 
-def run(config: Dict[str, Any], device: Optional[str] = None) -> Dict[str, Any]:
-    """One simulation from a config dict; writes the outputs and returns the
-    metrics row (the reference's ``run``)."""
-    check_unknown_keys(config, _KNOWN_KEYS, "config")
-    dev = resolve_device(device)
-    sched = config.get("scheduler", "EASY PSUS")
-    base, pol = from_label(sched)
-    if isinstance(pol, RLController) or config.get("rl") is not None:
-        raise NotImplementedError(
-            f"{sched!r}: RL schedulers and the 'rl' config block drive the "
-            "engine with a checkpointed network, which is not ported to the "
-            "PyTorch engine yet (ROADMAP Queue 1 item 10)"
+def _checkpoint_controller(params, meta):
+    """Greedy in-graph controller: features -> argmax logits -> commands,
+    on the state's device (no host read)."""
+    translate = ACTION_TRANSLATORS[meta["action"]]
+    window = meta.get("feature_window", 8)
+
+    def controller(s, const):
+        with torch.no_grad():
+            logits, _ = params(extract(meta["feature"], s, const, window))
+        return translate(s, const, torch.argmax(logits), meta["n_levels"])
+
+    return controller
+
+
+def _resolve_rl_policy(pol, config, plat, device):
+    """Attach the checkpointed greedy controller to an RLController policy
+    (the reference's checks and messages)."""
+    rl = config.get("rl") or {}
+    if "checkpoint" not in rl:
+        raise ValueError(
+            "RL schedulers need an rl: {checkpoint: <dir>} config block "
+            "(a policy saved by training.checkpoint.save_policy)"
         )
+    params, meta = load_policy(rl["checkpoint"], device=device)
+    expected_obs = feature_size(
+        meta["feature"], meta.get("feature_window", 8), plat.n_groups()
+    )
+    if meta["obs_size"] != expected_obs:
+        raise ValueError(
+            f"RL checkpoint obs_size={meta['obs_size']} does not fit this "
+            f"platform ({plat.n_groups()} node groups -> obs_size "
+            f"{expected_obs} for feature {meta['feature']!r}); retrain or "
+            "pick a matching platform"
+        )
+    if bool(meta.get("grouped", False)) != pol.grouped:
+        raise ValueError(
+            f"RL checkpoint was trained with grouped={meta.get('grouped')} "
+            f"actions but scheduler label requests grouped={pol.grouped}; "
+            "use the matching 'RL' / 'RL:groups' label"
+        )
+    if bool(meta.get("dvfs", False)) != pol.dvfs:
+        raise ValueError(
+            f"RL checkpoint was trained with dvfs={meta.get('dvfs', False)} "
+            f"but scheduler label requests dvfs={pol.dvfs}; use the "
+            "matching 'RL' / 'RL:dvfs' label"
+        )
+    if pol.dvfs and meta["action"] in DVFS_ACTIONS and (
+        meta["n_levels"] != plat.n_dvfs_modes()
+    ):
+        raise ValueError(
+            f"RL checkpoint commands {meta['n_levels']} DVFS modes but "
+            f"this platform's mode-table width is {plat.n_dvfs_modes()}"
+            "; mode commands would be mis-decoded — retrain or pick a "
+            "matching platform"
+        )
+    if pol.grouped:
+        ckpt_groups = int(meta.get("n_groups", 1))
+        expected_actions = action_space_size(
+            meta["action"], meta["n_levels"], plat.n_groups()
+        )
+        if ckpt_groups != plat.n_groups() or meta["n_actions"] != expected_actions:
+            raise ValueError(
+                f"RL checkpoint was trained for {ckpt_groups} node groups "
+                f"({meta['n_actions']} actions) but this platform has "
+                f"{plat.n_groups()} groups ({expected_actions} actions for "
+                f"action {meta['action']!r}); group-targeted commands would "
+                "be mis-decoded — retrain or pick a matching platform"
+            )
+    controller = _checkpoint_controller(params, meta)
+    return dataclasses.replace(pol, controller=controller), rl
+
+
+def engine_config(config: Dict[str, Any], device=None):
+    """(workload, platform, scheduler label, EngineConfig) of a single-run
+    config, an RL label's checkpointed controller loaded onto ``device``."""
+    _validate_keys(config)
+    dev = resolve_device(device)
     wl = resolve_workload(config["workload"])
     plat = resolve_platform(config.get("platform", wl.nb_res))
+    sched = config.get("scheduler", "EASY PSUS")
+    base, pol = from_label(sched)
+    rl_interval = None
+    if isinstance(pol, RLController):
+        pol, rl = _resolve_rl_policy(pol, config, plat, dev)
+        rl_interval = rl.get("decision_interval")
     # heterogeneous platforms default to cost-aware node selection
     node_order = config.get(
         "node_order", "cheap" if plat.is_heterogeneous else "id"
@@ -116,12 +209,21 @@ def run(config: Dict[str, Any], device: Optional[str] = None) -> Dict[str, Any]:
         record_gantt=bool(config.get("gantt", True)),
         node_order=node_order,
         allocation=config.get("allocation", "any"),
+        rl_decision_interval=rl_interval,
         grouped_tables=bool(config.get("grouped_tables", False)),
         merge_bursts=bool(config.get("merge_bursts", False)),
         forecast_horizon=config.get("forecast_horizon"),
         forecast_alpha=float(config.get("forecast_alpha", 0.25)),
     )
     engine.check_supported(ecfg)
+    return wl, plat, sched, ecfg
+
+
+def run(config: Dict[str, Any], device: Optional[str] = None) -> Dict[str, Any]:
+    """One simulation from a config dict; writes the outputs and returns the
+    metrics row (the reference's ``run``)."""
+    dev = resolve_device(device)
+    wl, plat, sched, ecfg = engine_config(config, dev)
     out_dir = config.get("out", "out/sim")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -192,7 +294,7 @@ def main(argv=None):
         default="EASY PSUS",
         metavar="LABEL",
         help="a policy.from_label scheduler label: "
-             f"{', '.join(scheduler_labels(include_dvfs=True))}"
+             f"{', '.join(scheduler_labels(include_rl=True, include_dvfs=True))}"
              ", or '<PSM>+DVFS' / '<PSM>+Forecast' composing rule 9 / "
              "rule 10 onto any stack (e.g. 'EASY PSAS+IPM+DVFS', "
              "'EASY PSUS+Forecast')",

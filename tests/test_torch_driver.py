@@ -177,16 +177,12 @@ def test_dvfs_and_forecast_labels_match_the_reference(tmp_path, extra):
 @pytest.mark.parametrize(
     "config",
     [
-        {"scheduler": "EASY RL"},
-        {"rl": {"checkpoint": "x"}},
-        {"scheduler": "EASY RL:dvfs", "grouped_tables": True},
-        {"scheduler": "FCFS RL:groups", "merge_bursts": True},
         {"workload": "profiles"},
     ],
 )
 def test_unported_configs_fail_loudly(tmp_path, config):
-    """RL labels and the ``rl`` block need a checkpointed network (ROADMAP
-    item 10); the ``profiles`` workload is not ported either."""
+    """The ``profiles`` workload is not ported (RL labels run since the RL
+    stack was ported: tests/test_torch_rl_checkpoint.py)."""
     cfg = {"workload": "preset:fig3_small", "out": str(tmp_path / "o"), **config}
     with pytest.raises(NotImplementedError):
         tsim.run(cfg, device="cpu")
