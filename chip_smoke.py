@@ -43,7 +43,9 @@ Phases (each prints a line; any failed check exits non-zero):
    ``allocation="partition"`` and ``merge_bursts`` under EASY PSUS and FCFS
    PSAS — each held against the port's sequential oracle (schedule exact,
    energy and the DVFS mode energy to rel 1e-5), the grouped runs with one
-   occupancy-kernel launch a batch;
+   occupancy-kernel launch a batch (the 16-node runs on ``LABEL_JOBS`` (50)
+   generated jobs, the grouped ones on the first ``GROUPED_JOBS`` (60)
+   replayed jobs);
 5. main path, dense: one simulation at CEA-Curie scale (11 200 nodes, the
    ``cea_curie`` workload, 1000 jobs, EASY PSUS, timeout 1800 s) — the
    ledger kernel must have launched once per event batch, and the schedule
@@ -79,9 +81,10 @@ Phases (each prints a line; any failed check exits non-zero):
    two 1024-token prompts go through ``prefill`` by the kernel route and
    by the plain route, whose last-position logits must agree;
 10. power rules at Curie scale, grouped: EASY PSUS+Forecast (horizon
-   1800 s) on the first 500 of phase 6's jobs (against phase 6's
-   configuration on them), and EASY PSUS+DVFS on the DVFS platform at
-   11 200 nodes with phase 5's workload (timeout 900 s, ``node_order=
+   1800 s) on the first ``FORECAST_JOBS`` (500) of phase 6's jobs (against
+   phase 6's configuration on them), and EASY PSUS+DVFS on the DVFS
+   platform at 11 200 nodes with phase 5's workload cut to ``DVFS_JOBS``
+   (250) jobs (timeout 900 s, ``node_order=
    "cheap"``, ``terminate_overrun``) — the occupancy kernel must have
    launched once a batch and the schedule must equal the same run's on the
    plain per-node route (energy and mode ledgers to rel 1e-5); the Forecast
@@ -90,7 +93,8 @@ Phases (each prints a line; any failed check exits non-zero):
    profiled (device ops a batch, device busy share);
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
-   x timeouts ``300 + 300 i``, on the first 500 jobs of phase 5's inputs
+   x timeouts ``300 + 300 i``, on the first ``SWEEP_JOBS`` (500) jobs of
+   phase 5's inputs
    at E = 1 (EASY PSUS 1800 alone), 8 and 64, and of phase 6's inputs,
    grouped, at E = 8 (timeouts 600-2400) — one event-kernel launch per loop
    iteration for the grid (``event_fuse_ledger``, dense; ``event_fuse_occ``,
@@ -122,7 +126,31 @@ Phases (each prints a line; any failed check exits non-zero):
    RL:groups) on phase 4's 280-node Curie inputs, equal to the plain
    per-node route bit for bit with one ``event_fuse_occ`` launch a batch;
    (e) a sweep of EASY DVFS, EASY PSUS+DVFS and EASY RL on phase 4's
-   280-node DVFS inputs, each row equal to its single run bit for bit.
+   280-node DVFS inputs, each row equal to its single run bit for bit;
+13. the experiment layer and the service (``repro_torch.experiments``,
+   ``repro_torch.launch.sim_serve``): (a) ``benchmarks/bench_energy.py``'s
+   Figs. 4/5 grid (the ``nasa_ipsc`` preset at 400 jobs on its 128 nodes,
+   the six timeout schedulers x 300/900/1800/3600 s, E = 24) through
+   ``experiments.run`` with ``out`` set — one ``event_fuse_ledger`` launch
+   an iteration and no other kernel, at most two host syncs an iteration, a
+   rerun streamed in two 12-scenario chunks with a valid ``metrics.json``
+   after each, writing the blocking run's ``metrics.json`` and ``rows.csv``
+   bytes, one row a scheduler equal to its single run bit for
+   bit and four to the oracle (schedule exact, energy rel 1e-5; the oracle
+   runs in the worker processes); (b) ``benchmarks/bench_forecast.py``'s
+   grid (EASY PSUS, EASY PSUS+Forecast, EASY RL:groups x timeout 1800 x
+   forecasts 0 and 1800 on ``curie_platform(280)``, the first 200 jobs of a
+   2000-line synthesized Curie SWF, ``node_order="cheap"``, a random-init
+   group policy saved by ``save_policy``) on grouped tables — one
+   ``event_fuse_occ`` launch an iteration, every row equal to its single
+   run (the RL rows with the same controller; a label without rule 10
+   reads no horizon, so its two rows share one single run), the horizon-0
+   identity; (c)
+   five requests to one ``SimService`` (chunks of 4): the reference smoke's
+   two same-shaped requests (the second all cache hits), a ``profiles``
+   request, ``bench_scale.py``'s Curie grid at phase 11's depth (E = 8, each
+   row equal to phase 11's dense E = 8 row bit for bit) and a request whose
+   workload does not exist (an error response while the others finish).
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -265,9 +293,15 @@ LABELS = [
     for psm in ("PSUS", "PSAS", "PSAS+IPM")
 ] + ["EASY AlwaysOn"]
 # depth cuts that keep the script inside its time: phase 10's Forecast run
-# and phase 11's grids replay the first 500 jobs, not 1000
+# and phase 11's grids replay the first 500 jobs, not 1000, and phase 10's
+# DVFS run takes phase 5's workload cut to 250 jobs
 FORECAST_JOBS = 500
 SWEEP_JOBS = 500
+DVFS_JOBS = 250
+# and phase 4's 16-node runs take 50 generated jobs, not 100, and its
+# grouped runs the first 60 replayed jobs, not 120
+LABEL_JOBS = 50
+GROUPED_JOBS = 60
 GROUPED_OPTIONS = [
     ({"node_order": "pack"}, label) for label in ("EASY PSUS", "FCFS PSAS")
 ] + [
@@ -751,7 +785,7 @@ def time_kernel(torch, name, fn, plain, args, bound, shape, floor_ms, fill):
 def phase10(torch, np, swf, g_state, g_cfg, dev="cuda", nodes=11200,
             max_jobs=1000):
     """Phase 10: the grouped Forecast (the trace's first ``FORECAST_JOBS``
-    jobs) and DVFS (``max_jobs``) runs at Curie scale on ``dev``, each
+    jobs) and DVFS (``DVFS_JOBS``) runs at Curie scale on ``dev``, each
     against its plain per-node route, the Forecast run at horizon 0 against
     phase 6's run (``g_state``, ``g_cfg``, ``max_jobs`` jobs), and the
     profiled windows. Returns the event kernels' launches of the Forecast
@@ -770,9 +804,9 @@ def phase10(torch, np, swf, g_state, g_cfg, dev="cuda", nodes=11200,
     fc_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp",
                             max_jobs=FORECAST_JOBS)
     dvfs_plat = dvfs_platform_example(nodes)
-    # phase 5's workload (the cea_curie preset cut to max_jobs jobs)
+    # phase 5's workload (the cea_curie preset cut to DVFS_JOBS jobs)
     dvfs_wl = generate_workload(dataclasses.replace(
-        PRESETS["cea_curie"], n_jobs=max_jobs, nb_res=nodes,
+        PRESETS["cea_curie"], n_jobs=DVFS_JOBS, nb_res=nodes,
         max_res=min(PRESETS["cea_curie"].max_res, nodes)))
     base, fc_pol = from_label("EASY PSUS+Forecast")
     fc_cfg = EngineConfig(base=base, policy=fc_pol, timeout=1800, forecast_horizon=1800,
@@ -841,8 +875,7 @@ def phase10(torch, np, swf, g_state, g_cfg, dev="cuda", nodes=11200,
           f"kWh ({bm.total_energy_j / 3.6e6:.1f}), mean wait {fm.mean_wait_s:.1f} s "
           f"({bm.mean_wait_s:.1f}), makespan {fm.makespan_s} s "
           f"({bm.makespan_s}); horizon 0 on phase 6's {len(g_wl)} jobs: schedule, "
-          "energy, batches and switch "
-          f"counts == phase 6's bit for bit", flush=True)
+          "energy, batches and switch counts == phase 6's bit for bit", flush=True)
     names = dvfs_plat.group_names()
     print(f"phase 10 dvfs: EASY PSUS+DVFS timeout 900 on dvfs_platform_example({nodes}), "
           f"cea_curie {len(dvfs_wl)} jobs: mode residency s (slow, base, turbo) "
@@ -907,7 +940,8 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS):
     both cut to their first ``max_jobs`` jobs, each row held bit for bit
     against a single run of its scenario on the same inputs or against the
     same scenario's row of another grid. Returns the event kernels'
-    launches of the timed dense grids (summed) and of the grouped grid."""
+    launches of the timed dense grids (summed) and of the grouped grid, and
+    the dense E = 8 grid's metrics rows by (scheduler, timeout)."""
     from repro_torch.core import engine, sweep
     from repro_torch.core.policy import from_label
     from repro_torch.core.types import EngineConfig
@@ -1029,7 +1063,9 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS):
                       if sc["scheduler"] == "EASY PSUS" and sc["timeout"] % 1800 == 0)
           + f"; phase wall {time.perf_counter() - t11:.1f} s", flush=True)
     dense = sum(runs[n]["launches"] for n in ("dense E=1", "dense E=8", "dense E=64"))
-    return dense, runs["grouped E=8"]["launches"]
+    e8_rows = {(sc["scheduler"], sc["timeout"]): mm.row()
+               for sc, mm in zip(runs["dense E=8"]["scen"], m["dense E=8"])}
+    return dense, runs["grouped E=8"]["launches"], e8_rows
 
 
 RL_ENVS = 16  # phase 12 (a)-(b): envs in the grouped Curie batch
@@ -1377,6 +1413,291 @@ def phase12(torch, np, swf, tmp, dev="cuda", nodes=11200):
     return by_part
 
 
+# phase 13 (a): benchmarks/bench_energy.py's defaults (the nasa_ipsc preset
+# cut to 400 jobs, its 128 nodes, the six timeout schedulers x timeouts of
+# 5, 15, 30 and 60 minutes)
+FIG45_SCHEDULERS = tuple(f"{b} {p}" for p in ("PSUS", "PSAS", "PSAS+IPM")
+                         for b in ("FCFS", "EASY"))
+FIG45_TIMEOUTS = (300, 900, 1800, 3600)
+# the (scheduler, timeout) rows phase 13 (a) holds against the oracle
+FIG45_ORACLE_ROWS = (("FCFS PSUS", 300), ("EASY PSAS", 900),
+                     ("FCFS PSAS+IPM", 1800), ("EASY PSAS+IPM", 3600))
+# phase 13 (b): benchmarks/bench_forecast.py's grid on grouped tables
+FORECAST_SCHEDULERS = ("EASY PSUS", "EASY PSUS+Forecast", "EASY RL:groups")
+
+
+def fig45_experiment(out=None):
+    """Phase 13 (a)'s spec: ``bench_energy.py``'s Figs. 4/5 grid."""
+    from repro_torch.experiments import Experiment
+
+    return Experiment(
+        name="fig45_nasa_ipsc", workload={"preset": "nasa_ipsc", "n_jobs": 400},
+        platform=128, schedulers=FIG45_SCHEDULERS, timeouts=FIG45_TIMEOUTS, out=out)
+
+
+def fig45_oracle_inputs():
+    """(platform, workload, config) of each of FIG45_ORACLE_ROWS, as the
+    runner runs them (the spec's engine config under the row's label)."""
+    from repro_torch.core.policy import from_label
+    from repro_torch.experiments import resolve_platform, resolve_workload
+
+    exp = fig45_experiment()
+    plat, wl = resolve_platform(exp.platform), resolve_workload(exp.workload)
+    out = []
+    for label, timeout in FIG45_ORACLE_ROWS:
+        base, pol = from_label(label)
+        out.append((plat, wl, dataclasses.replace(
+            exp.engine_config(), base=base, policy=pol, timeout=timeout)))
+    return out
+
+
+@contextlib.contextmanager
+def sweep_iterations():
+    """Record each ``sweep.run_sim`` call's loop iterations (its longest
+    row's ``n_batches``, read once after the loop) in the yielded list."""
+    from repro_torch.core import sweep
+
+    iters, real = [], sweep.run_sim
+
+    def counting(s, g, cfg, cap):
+        out = real(s, g, cfg, cap)
+        iters.append(int(out.n_batches.max()))
+        return out
+
+    sweep.run_sim = counting
+    try:
+        yield iters
+    finally:
+        sweep.run_sim = real
+
+
+def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
+    """Phase 13: the experiment layer and the service on ``dev``. (a) the
+    Figs. 4/5 grid through ``experiments.run`` (blocking, then a streamed
+    rerun), rows held against single runs and the oracle; (b)
+    ``bench_forecast.py``'s grid on grouped tables with a checkpointed
+    RL:groups controller, every row against its single run; (c) five
+    requests to one ``SimService``, the Curie grid's rows against phase 11's
+    dense E = 8 rows (``e8_rows``: (scheduler, timeout) -> metrics row).
+    Returns the event kernels' launches of each part, by kernel."""
+    from repro_torch import experiments
+    from repro_torch.core import engine, metrics, sweep
+    from repro_torch.core.policy import RLController, from_label
+    from repro_torch.core.rl.actions import action_space_size
+    from repro_torch.core.rl.features import feature_size
+    from repro_torch.core.rl.networks import policy_init
+    from repro_torch.experiments.runner import _engine_config_with_rl, _row
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import sim_serve
+    from repro_torch.training.checkpoint import save_policy
+    from repro_torch.workloads.platform import curie_platform
+    from repro_torch.workloads.traces import synthesize_curie_swf
+
+    t13 = time.perf_counter()
+    by_part = {}
+
+    def counted(part, fn, kname):
+        """``fn()`` with the launch and host-read counters reset and the
+        sweeps' iterations recorded: (its result, wall, iterations, host
+        reads); every iteration launched ``kname`` once and nothing else."""
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        engine.HOST_SYNCS = 0
+        with sweep_iterations() as iters:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = dict(event_fuse.LAUNCHES)
+        by_part[part] = got
+        n = sum(iters)
+        check(n > 0 and got[kname] == n
+              and all(v == 0 for k, v in got.items() if k != kname)
+              and fa.LAUNCHES["flash_attention"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0,
+              f"phase 13 {part}: launches {got}, {n} {kname} expected (one an iteration)")
+        check(engine.HOST_SYNCS <= 2 * n,
+              f"phase 13 {part}: {engine.HOST_SYNCS} host syncs for {n} iterations")
+        return out, wall, n, engine.HOST_SYNCS
+
+    def files(out):
+        return {n: open(os.path.join(out, n), "rb").read()
+                for n in ("metrics.json", "rows.csv")}
+
+    # ---- (a) the Figs. 4/5 grid ----
+    out_a = os.path.join(tmp, "fig45")
+    exp = fig45_experiment(out=out_a)
+    res, wall_a, iters_a, syncs_a = counted(
+        "a", lambda: experiments.run(exp, device=dev), "event_fuse_ledger")
+    golden = files(out_a)
+    check(len(res.rows) == 24 and res.n_compiles is None
+          and not any(r.get("truncated") for r in res.rows),
+          f"phase 13 (a): {len(res.rows)} rows")
+    # the rerun of the spec is streamed: its final files must be the
+    # blocking run's bytes
+    t0 = time.perf_counter()
+    sr = experiments.run(exp, stream=True, chunk_scenarios=12, device=dev)
+    seen, sizes = [], []
+    for rows in sr:
+        seen.extend(rows)
+        sizes.append(len(rows))
+        with open(os.path.join(out_a, "metrics.json")) as f:
+            check(json.load(f)["rows"] == seen,
+                  f"phase 13 (a): metrics.json after chunk {len(sizes)} != the rows so far")
+    wall_stream = time.perf_counter() - t0
+    check(sizes == [12, 12] and tuple(seen) == res.rows
+          and tuple(sr.result.rows) == res.rows and files(out_a) == golden,
+          f"phase 13 (a): the streamed rerun's chunks {sizes} or its final bytes differ")
+    plat_a = experiments.resolve_platform(exp.platform)
+    wl_a = experiments.resolve_workload(exp.workload)
+    by_row = {(r["scheduler"], r["timeout"]): r for r in res.rows}
+    singles, t0 = {}, time.perf_counter()
+    for label in FIG45_SCHEDULERS:
+        # the oracle rows, and the longest timeout (the fewest batches) for
+        # the two schedulers the oracle rows leave out
+        timeout = dict(FIG45_ORACLE_ROWS).get(label, FIG45_TIMEOUTS[-1])
+        base, pol = from_label(label)
+        cfg = dataclasses.replace(exp.engine_config(), base=base, policy=pol,
+                                  timeout=timeout)
+        s = engine.simulate(plat_a, wl_a, cfg, device=dev)
+        sc = {"scheduler": label, "timeout": timeout}
+        check(_row(sc, 0, metrics.metrics_from_state(s, plat_a)) == by_row[label, timeout],
+              f"phase 13 (a): row {sc} != its single run")
+        singles[label, timeout] = s, cfg
+    singles_wall = time.perf_counter() - t0
+    worst = 0.0
+    for (label, timeout), oracle in zip(FIG45_ORACLE_ROWS, fig45_oracles):
+        s, cfg = singles[label, timeout]
+        same, rel, _ = held_against_oracle(metrics, np, plat_a, wl_a, cfg, s,
+                                           oracle.get())
+        check(same and rel <= 1e-5,
+              f"phase 13 (a): row {label} {timeout} vs the oracle: schedule {same}, "
+              f"energy rel {rel}")
+        worst = max(worst, rel)
+    print(f"phase 13 (a) experiments.run: bench_energy.py's grid (nasa_ipsc, 400 jobs, "
+          f"128 nodes, 6 schedulers x timeouts {list(FIG45_TIMEOUTS)}, E = 24): wall "
+          f"{wall_a:.2f} s, {wall_a / 24:.3f} s a scenario; "
+          f"iterations {iters_a}, {1e6 * wall_a / iters_a:.1f} us an iteration; "
+          f"event_fuse_ledger launches {iters_a}, host syncs {syncs_a} "
+          f"({syncs_a / iters_a:.3f} an iteration); the streamed rerun (chunks "
+          f"{sizes}, {wall_stream:.2f} s, a valid metrics.json after each) wrote the "
+          f"same bytes; one row a scheduler == its single run ({singles_wall:.2f} s for "
+          f"6), four == the oracle's schedule (energy rel {worst:.2e})", flush=True)
+
+    # ---- (b) bench_forecast.py's grid, grouped ----
+    plat_b = curie_platform(280)
+    swf2k = synthesize_curie_swf(os.path.join(tmp, "curie2000.swf"), n_jobs=2000)
+    ckpt = os.path.join(tmp, "forecast_policy")
+    obs, n_act = feature_size("compact"), action_space_size(
+        "group_target_fraction", 9, plat_b.n_groups())
+    save_policy(ckpt, policy_init(torch.Generator(device=dev).manual_seed(0), obs, n_act),
+                obs_size=obs, n_actions=n_act, feature="compact",
+                action="group_target_fraction", n_levels=9, grouped=True,
+                n_groups=plat_b.n_groups())
+    exp_b = experiments.Experiment(
+        name="forecast_bench",
+        workload={"swf": swf2k, "nb_nodes": 280, "oversize": "clamp", "max_jobs": 200},
+        platform=280, schedulers=FORECAST_SCHEDULERS, timeouts=(1800,),
+        forecasts=(0, 1800), rl={"checkpoint": ckpt, "decision_interval": 1800},
+        node_order="cheap", grouped_tables=True)
+    res_b, wall_b, iters_b, syncs_b = counted(
+        "b", lambda: experiments.run(exp_b, platform=plat_b, device=dev), "event_fuse_occ")
+    check(len(res_b.rows) == 6, f"phase 13 (b): {len(res_b.rows)} rows")
+    wl_b = experiments.resolve_workload(exp_b.workload)
+    cfg_b = _engine_config_with_rl(exp_b, plat_b, dev)
+    t0 = time.perf_counter()
+    singles_b = {}
+    for sc, row in zip(exp_b.grid(), res_b.rows):
+        base, pol = from_label(sc["scheduler"])
+        # the horizon is read by rule 10 alone (the controller's "compact"
+        # features do not read it): the rows of a label without rule 10
+        # share one single run
+        horizon = sc["forecast"] if pol.flags()["forecast_enabled"] else 0
+        key = sc["scheduler"], horizon
+        if key not in singles_b:
+            if isinstance(pol, RLController):
+                pol = cfg_b.policy  # the same checkpointed controller
+            cfg = dataclasses.replace(cfg_b, base=base, policy=pol,
+                                      forecast_horizon=horizon, timeout=sc["timeout"])
+            singles_b[key] = metrics.metrics_from_state(
+                engine.simulate(plat_b, wl_b, cfg, device=dev), plat_b)
+        check(_row(sc, 0, singles_b[key]) == row,
+              f"phase 13 (b): row {sc} != its single run")
+    singles_b_wall = time.perf_counter() - t0
+    rb = {(r["scheduler"], r["forecast"]): r for r in res_b.rows}
+
+    def drop(r, *keys):
+        return {k: v for k, v in r.items() if k not in keys}
+
+    check(drop(rb["EASY PSUS", 0], "forecast") == drop(rb["EASY PSUS", 1800], "forecast")
+          and drop(rb["EASY PSUS+Forecast", 0], "scheduler")
+          == drop(rb["EASY PSUS", 0], "scheduler"),
+          "phase 13 (b): the horizon-0 identity")
+    print(f"phase 13 (b) forecast grid: bench_forecast.py's {list(FORECAST_SCHEDULERS)} "
+          f"x timeout 1800 x forecasts (0, 1800) on curie_platform(280), the first 200 "
+          f"jobs of a 2000-line synthesized Curie SWF, node_order cheap, grouped tables, "
+          f"a random-init RL:groups policy (decision interval 1800): wall {wall_b:.2f} s, "
+          f"{wall_b / 6:.3f} s a scenario; iterations {iters_b}, event_fuse_occ launches "
+          f"{iters_b}, host syncs {syncs_b} ({syncs_b / iters_b:.3f} an iteration); each "
+          f"row == its single run ({singles_b_wall:.2f} s for {len(singles_b)}); horizon 0 "
+          f"== the reactive "
+          f"base; total kWh "
+          + ", ".join(f"{s} h{f}: {r['total_energy_kwh']:.3f}" for (s, f), r in rb.items()),
+          flush=True)
+
+    # ---- (c) the service, in process ----
+    sweep.clear_cache()
+    service = sim_serve.SimService(os.path.join(tmp, "serve"), chunk_scenarios=4,
+                                   device=dev)
+    small = dict(workload={"preset": "fig3_small", "n_jobs": 30}, platform=16,
+                 schedulers=("EASY PSUS", "FCFS PSAS"))
+    curie = dict(workload={"preset": "cea_curie", "n_jobs": SWEEP_JOBS, "nb_res": 11200,
+                           "max_res": 8192},
+                 platform=11200, schedulers=SWEEP_SCHEDULERS, timeouts=(300, 600, 900, 1200))
+    requests = [
+        ("user-a", dict(name="user-a", timeouts=(60, 600), **small)),
+        ("user-b", dict(name="user-b", timeouts=(120, 1200), **small)),
+        ("profiles", dict(name="profiles", workload="profiles", platform=128,
+                          schedulers=("EASY PSUS", "EASY PSAS+IPM"), timeouts=(300, 1800))),
+        ("curie", dict(name="curie", **curie)),
+        ("bad", dict(name="bad", workload=os.path.join(tmp, "no-such-workload.json"),
+                     platform=16)),
+    ]
+    for name, spec in requests:
+        service.submit(name, spec)
+    responses, wall_c, iters_c, syncs_c = counted("c", service.drain, "event_fuse_ledger")
+    by = {r["request"]: r for r in responses}
+    check(sorted(by) == sorted(n for n, _ in requests), f"phase 13 (c): {sorted(by)}")
+    check(by["bad"]["status"] == "error"
+          and all(by[n]["status"] == "done" for n in by if n != "bad"),
+          f"phase 13 (c): statuses {[(n, r['status']) for n, r in by.items()]}")
+    a, b = by["user-a"], by["user-b"]
+    check(a["compile_cache"]["misses"] >= 1
+          and b["compile_cache"] == {"hits": b["chunks"], "misses": 0},
+          f"phase 13 (c): the second same-shaped request {b['compile_cache']}")
+    check((by["curie"]["rows"], by["curie"]["chunks"]) == (8, 2)
+          and by["profiles"]["rows"] == 4, "phase 13 (c): curie and profiles rows")
+    with open(os.path.join(by["curie"]["out"], "metrics.json")) as f:
+        curie_rows = json.load(f)["rows"]
+    for r in curie_rows:
+        want = e8_rows[r["scheduler"], r["timeout"]]
+        check({k: v for k, v in r.items() if k not in ("scheduler", "timeout",
+                                                        "replication")} == want,
+              f"phase 13 (c): curie row {r['scheduler']} {r['timeout']} != phase 11's")
+    print(f"phase 13 (c) service: 5 requests to one SimService (chunk_scenarios 4), "
+          f"drained in {wall_c:.2f} s: iterations {iters_c}, event_fuse_ledger launches "
+          f"{iters_c}, host syncs {syncs_c}; "
+          + "; ".join(f"{n} {r['status']} wall {r.get('wall_s')} s rows {r.get('rows')} "
+                      f"chunks {r.get('chunks')} cache {r.get('compile_cache')}"
+                      for n, r in by.items())
+          + f"; the Curie rows == phase 11's dense E = 8 rows bit for bit; bad: "
+          f"{by['bad'].get('error', '')[:80]}; phase wall {time.perf_counter() - t13:.1f} s",
+          flush=True)
+    return by_part
+
+
 def main() -> None:
     import torch
 
@@ -1420,6 +1741,9 @@ def main() -> None:
     oracle_pool = multiprocessing.get_context("spawn").Pool(2)
     atexit.register(oracle_pool.terminate)
     oracles = [oracle_pool.apply_async(oracle_of, args) for args in (dense_in, grouped_in)]
+    # phase 13 (a)'s four oracle rows, queued behind them
+    fig45_oracles = [oracle_pool.apply_async(oracle_of, args)
+                     for args in fig45_oracle_inputs()]
     oracle_pool.close()
 
     # ---- 1. device ----
@@ -1729,7 +2053,7 @@ def main() -> None:
     for plat, order in ((PlatformSpec(nb_nodes=16), "id"),
                         (mixed_platform_example(16), "cheap")):
         wl = generate_workload(
-            GeneratorConfig(n_jobs=100, nb_res=16, seed=0, overrun_prob=0.2)
+            GeneratorConfig(n_jobs=LABEL_JOBS, nb_res=16, seed=0, overrun_prob=0.2)
         )
         for label in LABELS:
             base, pol = from_label(label)
@@ -1746,7 +2070,7 @@ def main() -> None:
     t0 = time.perf_counter()
     plat = dvfs_platform_example(16)
     wl = generate_workload(
-        GeneratorConfig(n_jobs=100, nb_res=16, seed=0, overrun_prob=0.2)
+        GeneratorConfig(n_jobs=LABEL_JOBS, nb_res=16, seed=0, overrun_prob=0.2)
     )
     rule_labels = scheduler_labels(include_dvfs=True, include_forecast=True) + (
         "EASY DVFS+Forecast",)
@@ -1770,7 +2094,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     plat = curie_platform(280)
-    wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=120)
+    wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=GROUPED_JOBS)
     grouped_runs = [({"node_order": "cheap"}, label) for label in LABELS]
     worst = 0.0
     for opts, label in grouped_runs + GROUPED_OPTIONS:
@@ -2309,11 +2633,15 @@ def main() -> None:
 
     # ---- 11. the batched sweep at Curie scale ----
     torch.cuda.empty_cache()
-    sweep_dense, sweep_grouped = phase11(torch, np, swf)
+    sweep_dense, sweep_grouped, e8_rows = phase11(torch, np, swf)
 
     # ---- 12. the RL stack ----
     torch.cuda.empty_cache()
     rl_by_part = phase12(torch, np, swf, tmp)
+
+    # ---- 13. the experiment layer and the service ----
+    torch.cuda.empty_cache()
+    exp_by_part = phase13(torch, np, tmp, fig45_oracles, e8_rows)
 
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
@@ -2339,6 +2667,7 @@ def main() -> None:
             "sweep_dense": sweep_dense if kname == "event_fuse_ledger" else 0,
             "sweep_grouped": sweep_grouped if kname == "event_fuse_occ" else 0,
             **{f"phase 12 {part}": got[kname] for part, got in rl_by_part.items()},
+            **{f"phase 13 {part}": got[kname] for part, got in exp_by_part.items()},
         }
         if note:
             row["note"] = note

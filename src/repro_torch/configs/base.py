@@ -4,7 +4,7 @@ A copy of the reference's ``configs/base.py`` (the port imports nothing of
 ``repro``) with ``dtype`` returning a torch dtype. Only the architectures
 whose block types the port runs are registered; every other name the
 reference knows raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+ports it; :func:`arch_config` gives every architecture's numbers.
 """
 from __future__ import annotations
 
@@ -136,3 +136,14 @@ def get_arch(name: str, reduced: bool = False) -> ArchConfig:
 def list_archs():
     """The reference's architecture names, ported or not."""
     return sorted({**_ARCH_MODULES, **_NOT_PORTED})
+
+
+def arch_config(name: str) -> ArchConfig:
+    """The full configuration of any of the reference's architectures, as
+    numbers: ``get_arch(name)`` for the ported ones, the copied numbers of
+    ``configs/catalog.py`` for the rest (whose models do not run here)."""
+    if name in _NOT_PORTED:
+        from repro_torch.configs.catalog import CONFIG_ONLY
+
+        return CONFIG_ONLY[name]()
+    return get_arch(name)

@@ -18,7 +18,7 @@ is off is never called.
 
 The batched sweep (``core/sweep.py``) and the batched RL env carry the
 flags as ``[E]`` bool tensors (:meth:`PolicyParams.traced`,
-:func:`stack_params`) and run rules 6-9 over ``[E, N]`` and ``[E, J]``
+:func:`stack_params`) and run rules 6-10 over ``[E, N]`` and ``[E, J]``
 state through the ``*_rows`` functions below: each flag reaches them as a
 *row gate*, ``True`` (every row), ``False`` (no row) or an ``[E]`` bool
 tensor, and a row whose gate is off selects no node, so its fields and
@@ -171,7 +171,7 @@ def ipm_wake(s, const):
 
 # ---------------------------------------------------------------------------
 # rules 6-7 over a scenario axis: [E, N] and [E, J] state, [E] row gates
-# (rules 8-9 over rows follow rule 8 and rule 9 below)
+# (rules 8-10 over rows follow rules 8, 9 and 10 below)
 # ---------------------------------------------------------------------------
 
 def queued_demand_rows(s) -> torch.Tensor:
@@ -604,6 +604,63 @@ def apply_forecast(s, const, terminate_overrun: bool = False,
     )
     target = torch.maximum(s.dvfs_mode, fc_mode.to(I32))
     return apply_dvfs_modes(s, const, target, f_extra > 0, terminate_overrun)
+
+
+def apply_forecast_rows(s, const, enabled, dvfs_ramp, terminate_overrun=False):
+    """Rule 10 on each row whose ``enabled`` gate is on (not ``False``), over
+    ``[E, N]`` and ``[E, J]`` state: each row's EWMA predictor, its own
+    ``[E]`` horizon and review tick, the proactive wake and, on the rows of
+    the ``dvfs_ramp`` gate, the DVFS pre-ramp through
+    :func:`apply_dvfs_modes_rows`; each row as :func:`apply_forecast` runs
+    for one state, op for op. A row whose gate is off keeps its predictor,
+    nodes, counters and modes."""
+    t = s.t
+    newly = (s.job_exists & (s.job_subtime <= t[:, None])
+             & (s.job_subtime > s.fc_prev_t[:, None]))
+    n_new = newly.sum(dim=-1, dtype=I32)
+    denom = torch.clamp(n_new, min=1).to(F32)
+    gap_obs = (t - s.fc_last_arr).to(F32) / denom
+    res_obs = torch.where(newly, s.job_res, 0).sum(dim=-1, dtype=I32).to(F32) / denom
+    a = const.forecast_alpha
+    keep = 1.0 - a
+    upd = n_new > 0
+    if enabled is not True:
+        upd = upd & enabled
+    s = s._replace(
+        fc_gap=torch.where(upd, a * gap_obs + keep * s.fc_gap, s.fc_gap),
+        fc_res=torch.where(upd, a * res_obs + keep * s.fc_res, s.fc_res),
+        fc_last_arr=torch.where(upd, t, s.fc_last_arr),
+        fc_prev_t=t if enabled is True else torch.where(enabled, t, s.fc_prev_t),
+    )
+
+    # the pressure is elementwise: the [E] predictor fields and horizons
+    # give each row its own
+    f_extra = forecast_pressure(s, const)
+    deficit = queued_demand_rows(s) + f_extra - available_rows(s)
+    cand = (s.node_job < 0) & (s.node_state == SLEEP)
+    sel = _gated(
+        cand & (torch.cumsum(cand, dim=-1, dtype=I32) <= deficit[:, None])
+        & (f_extra > 0)[:, None],
+        enabled,
+    )
+    s = s._replace(
+        node_state=torch.where(sel, SWITCHING_ON, s.node_state),
+        node_until=torch.where(sel, t[:, None] + const.t_on, s.node_until),
+        n_switch_on=s.n_switch_on + sel.sum(dim=-1, dtype=I32),
+    )
+    if dvfs_ramp is False:
+        return s
+    N = s.node_state.shape[-1]
+    n_modes = const.dvfs_n_modes  # [E, G]
+    fc_mode = torch.minimum(
+        n_modes - 1, ((queued_demand_rows(s) + f_extra)[:, None] * n_modes) // N
+    )
+    target = torch.maximum(s.dvfs_mode, fc_mode.to(I32))
+    ramp = f_extra > 0
+    for gate in (enabled, dvfs_ramp):
+        if gate is not True:
+            ramp = ramp & gate
+    return apply_dvfs_modes_rows(s, const, target, ramp, terminate_overrun)
 
 
 # ---------------------------------------------------------------------------

@@ -11,16 +11,27 @@ host loop runs every row. The functions keep the reference's names; each
 is the batched spelling of the single run's function of the same name in
 ``core/engine.py``, which stays as it is.
 
-What a sweep runs: FCFS and EASY rows under rules 6-9 (PSUS, PSAS,
-PSAS+IPM, AlwaysOn; RL power commands without a controller, as the RL env
-sets them; DVFS, the ladder or agent mode commands, and every ``+DVFS``
-composition) in one grid, a timeout per row (``None`` = never), a platform
-per row (same node, group and DVFS-mode counts), dense and grouped tables,
-``node_order`` "id", "cheap" and "idle-watts", ``allocation="any"`` and the
-batch cap, with truncation per row. A grid where a row sets the rule 10
-flag, an in-graph controller, ``node_order="pack"``,
-``allocation="partition"``, ``merge_bursts`` or more than one device raises
-``NotImplementedError`` naming ROADMAP item 8b (:func:`check_supported`).
+What a sweep runs: FCFS and EASY rows under rules 6-10 (PSUS, PSAS,
+PSAS+IPM, AlwaysOn; RL power commands, pending as the RL env sets them or
+from the config's in-graph controller; DVFS, the ladder or agent mode
+commands; Forecast, with a horizon per row; every ``+DVFS`` and
+``+Forecast`` composition) in one grid, a timeout per row (``None`` =
+never), a platform per row (same node, group and DVFS-mode counts), dense
+and grouped tables, ``node_order`` "id", "cheap" and "idle-watts",
+``allocation="any"`` and the batch cap, with truncation per row. A grid
+with ``node_order="pack"``, ``allocation="partition"``, ``merge_bursts`` or
+more than one device raises ``NotImplementedError`` naming ROADMAP item 8b
+(:func:`check_supported`).
+
+The in-graph controller (``RLController.controller``) runs once per full
+batch for every row, before rule 8, as ``engine._power_step`` runs it for
+one state; its commands are written on the RL rows only, so every other row
+keeps its state as its own single run (without a controller) does. A
+controller with a ``rows`` attribute (``launch/sim``'s checkpointed policy:
+features over ``[E]`` rows, logits, a per-row argmax, the translator over
+rows) is called once on the ``[E]`` state and the sweep's tables; any
+other ``f(s, const)`` is called on each row's views (E calls a batch) and
+its commands stacked, which is exact.
 The RL env (``core/rl/env.py``) steps its ``[B]`` rows on this module's
 :class:`Grid` and batch functions, one full batch a step.
 
@@ -94,6 +105,7 @@ from repro_torch.core.policy import (
     PowerPolicy,
     alloc_min_speed_rows,
     apply_dvfs_rows,
+    apply_forecast_rows,
     apply_rl_commands_rows,
     effective_node_speed_rows,
     from_label,
@@ -101,6 +113,7 @@ from repro_torch.core.policy import (
     stack_params,
     timeout_switch_off_rows,
 )
+from repro_torch.core.rl.actions import full_commands
 from repro_torch.core.tables import GroupTables
 from repro_torch.core.types import (
     ACTIVE,
@@ -125,10 +138,6 @@ from repro_torch.workloads.workload import Workload
 I32 = torch.int32
 F32 = torch.float32
 INF = int(INF_TIME)
-
-# rule 8-10 flags a sweep row may not set yet (rule 10)
-_LATER_FLAGS = ("forecast_enabled",)
-
 
 # ---------------------------------------------------------------------------
 # what a sweep runs
@@ -163,8 +172,6 @@ def check_supported(config: EngineConfig, devices: Optional[int] = None) -> None
     later = []
     if devices is not None and devices > 1:
         later.append(f"devices={devices} (sharded sweeps)")
-    if getattr(config.policy, "controller", None) is not None:
-        later.append("an in-graph controller")
     if config.node_order == "pack":
         later.append('node_order="pack"')
     if config.allocation == "partition":
@@ -174,13 +181,6 @@ def check_supported(config: EngineConfig, devices: Optional[int] = None) -> None
     if later:
         raise _later(f"sweep({config.label()!r}): {', '.join(later)}")
     engine.check_supported(dataclasses.replace(config, devices=None))
-
-
-def _check_rows(consts: Sequence[EngineConst]) -> None:
-    for i, c in enumerate(consts):
-        on = [k for k in _LATER_FLAGS if bool(getattr(c.policy, k))]
-        if on:
-            raise _later(f"sweep scenario {i}: rule 8-10 flags {on}")
 
 
 # ---------------------------------------------------------------------------
@@ -740,22 +740,74 @@ def _start_jobs(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
     )
 
 
+def _row_view(s: SimState, g: Grid, e: int) -> Tuple[SimState, EngineConst]:
+    """Row ``e`` as a single run sees it: its state and tables as views,
+    its flags as the single run's Python bools."""
+    c = g.const
+    return SimState(*[x[e] for x in s]), c._replace(
+        policy=type(c.policy)(*[bool(g.flags[k][e]) for k in c.policy._fields]),
+        tables=None if c.tables is None else GroupTables(*[x[e] for x in c.tables]),
+        **{k: getattr(c, k)[e] for k in EngineConst._fields
+           if k not in ("policy", "tables")},
+    )
+
+
+def _controller_commands(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
+    """The config's in-graph controller for every row (module docstring):
+    its ``(on, off[, mode])`` commands written on the RL rows."""
+    controller = cfg.policy.controller
+    rows = getattr(controller, "rows", None)
+    if rows is not None:
+        out = rows(s, g.const)
+    else:
+        G = s.rl_on_cmd.shape[-1]
+        dev = s.t.device
+        outs = [controller(*_row_view(s, g, e)) for e in range(s.t.shape[0])]
+        out = tuple(
+            torch.stack([torch.broadcast_to(torch.as_tensor(o[i], device=dev), (G,))
+                         for o in outs])
+            for i in range(min(len(o) for o in outs))
+        )
+    if getattr(cfg.policy, "dvfs", False) and len(out) < 3:
+        raise ValueError(
+            "RLController(dvfs=True) needs a controller returning "
+            "(on, off, mode) — this one returns only (on, off), so no "
+            "mode command would ever be issued"
+        )
+    cmds = full_commands(s, out)
+    rl = g.gate("rl_enabled")
+    new = {}
+    for name, x in zip(("rl_on_cmd", "rl_off_cmd", "rl_mode_cmd"), cmds):
+        old = getattr(s, name)
+        x = torch.broadcast_to(torch.as_tensor(x, device=old.device), old.shape).to(I32)
+        new[name] = x if rl is True else torch.where(rl[:, None], x, old)
+    return s._replace(**new)
+
+
 def _power_step(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
-    """Rules 6-9 on the rows whose flags ask for them, in the single run's
-    order: rule 6, rule 7, rule 8 (pending RL commands, which the RL env
-    sets), rule 9 (the ladder, or agent mode commands on ``dvfs_rl`` rows)."""
+    """Rules 6-10 on the rows whose flags ask for them, in the single run's
+    order: rule 6, rule 7, the in-graph controller, rule 8 (the controller's
+    commands, or pending ones, which the RL env sets), rule 9 (the ladder, or
+    agent mode commands on ``dvfs_rl`` rows), rule 10 (each row's forecast,
+    the pre-ramp on ``forecast_dvfs`` rows)."""
     sleep, ipm = g.gate("sleep_enabled"), g.gate("ipm_enabled")
     if sleep is not False:
         s = timeout_switch_off_rows(s, g.const, sleep, ipm)
     if ipm is not False:
         s = ipm_wake_rows(s, g.const, ipm)
     rl = g.gate("rl_enabled")
+    if getattr(cfg.policy, "controller", None) is not None and rl is not False:
+        s = _controller_commands(s, g, cfg)
     if rl is not False:
         s = apply_rl_commands_rows(s, g.const, g.gate("rl_grouped"), rl)
     dvfs = g.gate("dvfs_enabled")
     if dvfs is not False:
         s = apply_dvfs_rows(s, g.const, dvfs, g.gate("dvfs_rl"),
                             cfg.terminate_overrun)
+    fc = g.gate("forecast_enabled")
+    if fc is not False:
+        s = apply_forecast_rows(s, g.const, fc, g.gate("forecast_dvfs"),
+                                cfg.terminate_overrun)
     return s
 
 
@@ -868,7 +920,8 @@ def event_horizon(
     path, ``event_fuse_ledger`` on the dense path of a single-group platform
     when no row runs DVFS (the kernel knows only the base watts: the single
     run's gate), else the per-node route. The RL rows add their decision
-    tick; a row under rule 8 or 9 is never quiet."""
+    tick, the Forecast rows their review tick; a row under rule 8, 9 or 10
+    is never quiet."""
     G = s.energy.shape[1]
     aux_occ = aux_power = aux_draw = None
     t = s.t
@@ -911,14 +964,20 @@ def event_horizon(
         if rl is not True:
             c = torch.where(rl, c, INF)
         nt = torch.minimum(nt, torch.where(c > t, c, INF))
+    fc = g.gate("forecast_enabled")
+    if fc is not False:  # each row's review tick, t + its own horizon
+        c = t + g.const.forecast_horizon
+        if fc is not True:
+            c = torch.where(fc, c, INF)
+        nt = torch.minimum(nt, torch.where(c > t, c, INF))
     busy = (
         ((s.job_status == WAITING) & (s.job_subtime <= t2))
         | (s.job_status == ALLOCATED)
     ).any(dim=-1)
     quiet = (arr > nt) & (fin > nt) & ~busy
-    if rl is not False or g.gate("dvfs_enabled") is not False:
+    if rl is not False or fc is not False or g.gate("dvfs_enabled") is not False:
         pp = g.const.policy
-        quiet = quiet & ~(pp.rl_enabled | pp.dvfs_enabled)
+        quiet = quiet & ~(pp.rl_enabled | pp.dvfs_enabled | pp.forecast_enabled)
     return nt, EventAux(node_power=aux_power, draw=aux_draw, occ=aux_occ, quiet=quiet)
 
 
@@ -1053,6 +1112,12 @@ def cache_stats() -> dict:
     return dict(_CACHE_STATS)
 
 
+def clear_cache() -> None:
+    """Empty the LRU of grid keys (the reference's ``_SWEEP_FNS.clear()``);
+    the counters keep counting."""
+    _SWEEP_KEYS.clear()
+
+
 def _static_trace_key(platform, config, J, cap, device):
     """The reference's static trace key (``engine._static_trace_key``): every
     input that is structure rather than a per-row value."""
@@ -1149,7 +1214,6 @@ def sweep_async(
         c, p = _scenario_const(sc, base_const, platform, cfg, dev)
         consts.append(c)
         plats.append(p)
-    _check_rows(consts)
     grid = make_grid(consts, dev)
     s0 = init_state(platform, workload, cfg, device=dev, job_capacity=job_capacity)
     cap = config.max_batches or default_batch_cap(len(workload))

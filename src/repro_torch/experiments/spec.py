@@ -1,14 +1,19 @@
-"""Single-run workload/platform resolvers — the part of the reference's
-``experiments/spec.py`` that ``launch/sim.py`` needs.
+"""The frozen :class:`Experiment` spec, its JSON round-trip and the
+workload/platform resolvers — the counterpart of the reference's
+``experiments/spec.py``.
 
-The declarative ``Experiment`` grid spec rides on the batched sweep, which a
-later slice of the port brings (ROADMAP Queue 1 items 8-9). The
-model-training ``profiles`` workload is not ported yet and raises.
+The spec is declarative: every field is a JSON value (or a tuple of them),
+so ``to_json``/``from_json`` round-trip losslessly and a spec file fully
+reproduces a study (seeded generators, pinned grids). It has no device
+field: a spec's JSON is the reference's for the same study, and where it
+runs is the runner's argument. The resolvers are the single spelling shared
+by the experiment runner and ``launch/sim.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+import json
+from typing import Mapping, Optional, Tuple, Union
 
 from repro_torch.workloads.generator import PRESETS, GeneratorConfig, generate_workload
 from repro_torch.workloads.platform import PlatformSpec, load_platform
@@ -70,6 +75,8 @@ def resolve_workload(spec, replication: int = 0) -> Workload:
     * ``{"swf": <path>, ...replay_workload kwargs}`` — replay with
       explicit ``nb_nodes``/``procs_per_node``/``oversize``/``max_jobs``/
       ``rebase``,
+    * ``"profiles"`` — the model-training job-profile workload
+      (``configs/job_profiles.py``),
     * a path to a workload JSON file, or an in-memory :class:`Workload`.
 
     ``replication`` offsets the generator seed (replication r uses
@@ -84,11 +91,6 @@ def resolve_workload(spec, replication: int = 0) -> Workload:
         check_unknown_keys(spec, _KNOWN_SWF_KEYS, "swf workload spec")
         kw = dict(spec)
         return replay_workload(kw.pop("swf"), **kw)
-    if spec == "profiles":
-        raise NotImplementedError(
-            "the 'profiles' workload is not ported yet (ROADMAP Queue 1 "
-            "item 12)"
-        )
     gcfg = None
     if isinstance(spec, str) and spec.startswith("preset:"):
         gcfg = PRESETS[spec.split(":", 1)[1]]
@@ -108,6 +110,10 @@ def resolve_workload(spec, replication: int = 0) -> Workload:
         )
     if isinstance(spec, Workload):
         return spec
+    if spec == "profiles":
+        from repro_torch.configs.job_profiles import profile_workload
+
+        return profile_workload()
     return load_workload(spec)
 
 
@@ -120,3 +126,174 @@ def resolve_platform(spec) -> PlatformSpec:
     if isinstance(spec, int):
         return PlatformSpec(nb_nodes=spec)
     return load_platform(spec)
+
+
+_KNOWN_RL_KEYS = {"checkpoint", "decision_interval"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """A declarative, reproducible grid study (JSON-round-trippable).
+
+    The grid is the cross product ``schedulers x timeouts [x forecasts]
+    [x platforms]``, run as one batched sweep per replication
+    (``core/sweep.py``: the policy flags, timeouts, forecast horizons and
+    platform tables are per-row values of one ``[E]`` grid). Scheduler
+    labels come from ``policy.from_label``; a timeout of ``None`` means
+    "never switch off".
+
+    ``platforms`` is an optional *named* platform axis: a mapping
+    ``{name: resolve_platform spec}`` (or a sequence of ``(name, spec)``
+    pairs). When set, every grid point additionally carries a platform name
+    and the base ``platform`` field is only the sweep's shape anchor —
+    every axis entry must share its node/group counts and DVFS mode-table
+    width. Rows gain a ``platform`` column.
+
+    ``rl`` attaches a checkpointed controller to RL scheduler labels:
+    ``{"checkpoint": <dir saved by training.checkpoint.save_policy>,
+    "decision_interval": <s>}`` — the same block ``launch/sim.py`` takes.
+    The controller is the sweep config's, shared by the whole grid, so all
+    RL labels in one experiment must name the same policy stack; non-RL
+    rows run with rule 8 gated off, unaffected.
+    """
+
+    name: str
+    workload: Union[str, dict]  # resolve_workload spec
+    platform: Union[str, int, dict]  # resolve_platform spec
+    schedulers: Tuple[str, ...] = ("EASY PSUS",)
+    timeouts: Tuple[Optional[int], ...] = (None,)
+    # optional forecast-horizon axis (rule 10): seconds of look-ahead for the
+    # EWMA predictor, a per-row value of the sweep. (None,) keeps the grid
+    # forecast-free; entries only bite on ``+Forecast`` labels — on any
+    # other stack the rule is gated off regardless of horizon.
+    forecasts: Tuple[Optional[int], ...] = (None,)
+    forecast_alpha: float = 0.25  # shared EWMA smoothing weight in [0, 1]
+    platforms: Tuple = ()  # optional named platform axis ((name, spec), ...)
+    rl: Optional[dict] = None  # {"checkpoint": dir, "decision_interval": s}
+    node_order: str = "id"  # "id" | "cheap" | "idle-watts" | "pack"
+    # "any" | "partition": "partition" forbids cross-group allocations — a
+    # job takes the earliest-completing single group that fits it, or fails
+    # to start
+    allocation: str = "any"
+    terminate_overrun: bool = False
+    window: int = 32  # scheduler scan window
+    # engine-structure knobs shared by the whole grid like node_order/window
+    grouped_tables: bool = False
+    merge_bursts: bool = False
+    replications: int = 1  # generator-seed replicates (seed, seed+1, ...)
+    out: Optional[str] = None  # output dir for metrics.json / rows.csv
+
+    def __post_init__(self):
+        # normalize JSON lists to tuples so specs hash and compare stably
+        object.__setattr__(self, "schedulers", tuple(self.schedulers))
+        object.__setattr__(self, "timeouts", tuple(self.timeouts))
+        object.__setattr__(self, "forecasts", tuple(self.forecasts))
+        object.__setattr__(self, "platforms", self._norm_platforms())
+        if not self.schedulers or not self.timeouts:
+            raise ValueError("experiment grid needs >= 1 scheduler and timeout")
+        if not self.forecasts:
+            raise ValueError(
+                "forecasts axis cannot be empty; use (None,) for no axis"
+            )
+        for fh in self.forecasts:
+            if fh is not None and (not isinstance(fh, int) or fh < 0):
+                raise ValueError(
+                    f"forecast horizon entries must be None or ints >= 0, "
+                    f"got {fh!r}"
+                )
+        if self.replications < 1:
+            raise ValueError("replications must be >= 1")
+        from repro_torch.core.policy import from_label
+
+        for label in self.schedulers:
+            from_label(label)  # fail fast on unknown labels
+        if isinstance(self.workload, Mapping):
+            # fail fast on typo'd keys (swf replay specs have their own set)
+            if "swf" in self.workload:
+                check_unknown_keys(
+                    self.workload, _KNOWN_SWF_KEYS, "swf workload spec"
+                )
+            else:
+                check_workload_keys(self.workload)
+        if self.rl is not None:
+            check_unknown_keys(self.rl, _KNOWN_RL_KEYS, "experiment rl")
+
+    def _norm_platforms(self) -> Tuple:
+        """Normalize the platform axis to ((name, json-able spec), ...)."""
+        entries = self.platforms
+        if isinstance(entries, Mapping):
+            entries = tuple(entries.items())
+        out = []
+        for e in entries:
+            if isinstance(e, str) or not hasattr(e, "__len__") or len(e) != 2:
+                raise ValueError(
+                    f"platform-axis entry {e!r} is not a (name, spec) pair "
+                    "(pass a mapping {name: spec} or a pair sequence)"
+                )
+            name, spec = e
+            if isinstance(spec, PlatformSpec):
+                spec = spec.to_json()  # keep the spec JSON-round-trippable
+            out.append((str(name), spec))
+        names = [n for n, _ in out]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate platform-axis names: {names}")
+        return tuple(out)
+
+    # ---- grid ----
+    def grid(self):
+        """The declarative grid points, in row order (scheduler-major, then
+        timeout, then forecast horizon, then platform-axis entry). The
+        runner swaps each point's platform *name* for the resolved
+        :class:`PlatformSpec` (and the ``forecast`` key for the row's
+        ``forecast_horizon`` value) before handing the scenarios to the
+        sweep. A trivial ``(None,)`` forecasts axis adds no ``forecast``
+        key, so forecast-free grids keep their row shape."""
+        plats = [name for name, _ in self.platforms] or [None]
+        return [
+            {"scheduler": s, "timeout": t, **(
+                {"forecast": fh} if fh is not None else {}
+            ), **(
+                {"platform": p} if p is not None else {}
+            )}
+            for s in self.schedulers
+            for t in self.timeouts
+            for fh in self.forecasts
+            for p in plats
+        ]
+
+    def engine_config(self):
+        """The shared EngineConfig (every grid point is a row over it)."""
+        from repro_torch.core.types import EngineConfig
+
+        return EngineConfig(
+            node_order=self.node_order,
+            allocation=self.allocation,
+            terminate_overrun=self.terminate_overrun,
+            window=self.window,
+            grouped_tables=self.grouped_tables,
+            merge_bursts=self.merge_bursts,
+            forecast_alpha=self.forecast_alpha,
+        )
+
+    # ---- JSON round-trip ----
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Experiment":
+        obj = json.loads(text)
+        if not isinstance(obj, Mapping):
+            raise ValueError("experiment JSON must be an object")
+        check_unknown_keys(
+            obj, {f.name for f in dataclasses.fields(cls)}, "experiment"
+        )
+        return cls(**obj)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
+
+    @classmethod
+    def load(cls, path: str) -> "Experiment":
+        with open(path) as f:
+            return cls.from_json(f.read())

@@ -30,9 +30,10 @@ them. RL labels (``"EASY RL"``, ``"EASY RL:groups"``, ``"EASY RL:dvfs"``)
 need an ``rl: {checkpoint: <dir>, decision_interval: s}`` block: the policy
 saved by ``training.checkpoint.save_policy`` (of either package) drives the
 run greedily through the engine's in-graph controller hook, features ->
-logits -> argmax -> action translator, all on the device. Configurations
-the port does not run yet — ``--experiment`` grids, the ``profiles``
-workload — raise ``NotImplementedError``.
+logits -> argmax -> action translator, all on the device.
+``--experiment spec.json`` runs a declarative grid spec through
+``repro_torch.experiments.run_file`` (the batched sweep), with the
+reference's clash check against the single-run flags.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ from repro_torch.experiments import (
     resolve_platform,
     resolve_workload,
 )
+from repro_torch.experiments.spec import _KNOWN_RL_KEYS
 from repro_torch.training.checkpoint import load_policy
 
 # single-run config keys (the reference's set)
@@ -71,7 +73,6 @@ _KNOWN_KEYS = {
     "node_order", "allocation", "rl", "gantt", "out", "grouped_tables",
     "merge_bursts", "forecast_horizon", "forecast_alpha",
 }
-_KNOWN_RL_KEYS = {"checkpoint", "decision_interval"}
 
 
 def _validate_keys(config: Dict[str, Any]) -> None:
@@ -114,15 +115,19 @@ def _load_mini_yaml(path: str) -> Dict[str, Any]:
 
 def _checkpoint_controller(params, meta):
     """Greedy in-graph controller: features -> argmax logits -> commands,
-    on the state's device (no host read)."""
+    on the state's device (no host read). The same closure steps a single
+    state or a sweep's ``[E]`` rows (features of every row, one batched
+    forward, an argmax per row, the translator over rows), as the batched
+    RL env does; its ``rows`` attribute marks it for the sweep."""
     translate = ACTION_TRANSLATORS[meta["action"]]
     window = meta.get("feature_window", 8)
 
     def controller(s, const):
         with torch.no_grad():
             logits, _ = params(extract(meta["feature"], s, const, window))
-        return translate(s, const, torch.argmax(logits), meta["n_levels"])
+        return translate(s, const, torch.argmax(logits, dim=-1), meta["n_levels"])
 
+    controller.rows = controller
     return controller
 
 
@@ -285,7 +290,8 @@ def main(argv=None):
     ap.add_argument("--config", default=None)
     ap.add_argument(
         "--experiment", default=None, metavar="SPEC.json",
-        help="experiment grids are not ported yet (raises)",
+        help="run a declarative repro_torch.experiments grid spec "
+             "(the scheduler x timeout grid as one batched sweep)",
     )
     ap.add_argument("--workload", default=None)
     ap.add_argument("--platform", default=None)
@@ -312,11 +318,33 @@ def main(argv=None):
     except KeyError as e:
         ap.error(str(e.args[0]) if e.args else str(e))
     if args.experiment:
-        raise NotImplementedError(
-            "--experiment grids run through the experiment runner, which is "
-            "not ported to the PyTorch engine yet (ROADMAP Queue 1 items 8-9; "
-            "the batched sweep itself is repro_torch.core.sweep)"
+        # the spec is the whole study: reject single-run flags rather than
+        # silently ignoring them (--device says where it runs, not what)
+        clashing = [
+            f"--{name.replace('_', '-')}"
+            for name in (
+                "config", "workload", "platform", "scheduler", "timeout",
+                "terminate_overrun", "out",
+            )
+            if getattr(args, name) != ap.get_default(name)
+        ]
+        if clashing:
+            ap.error(
+                f"--experiment runs a self-contained spec; {', '.join(clashing)} "
+                "would be ignored — set the equivalent field in the spec file"
+            )
+        from repro_torch.experiments import run_file
+
+        result = run_file(args.experiment, device=args.device)
+        print(result.table())
+        print(
+            f"# grid: {len(result.rows)} rows, "
+            f"{result.n_compiles if result.n_compiles is not None else '?'} "
+            f"compiled program(s), {result.wall_s:.2f}s "
+            f"({result.jobs_per_s:.0f} simulated jobs/s)"
         )
+        return result
+
     if args.config:
         config = _load_mini_yaml(args.config)
     else:

@@ -2,8 +2,9 @@
 heterogeneous config of ``tests/test_sim_driver.py`` gives the same
 ``metrics.json`` keys and values and the same ``jobs.csv``; a rerun is
 byte-identical; the gantt path writes the same ``gantt.csv``; a grouped
-Curie-class SWF replay writes a byte-identical ``metrics.json``; and the
-configurations the port does not run yet fail loudly.
+Curie-class SWF replay writes a byte-identical ``metrics.json``; and an
+unknown config key, or a single-run flag beside ``--experiment``, fails
+loudly.
 """
 import json
 import os
@@ -174,22 +175,11 @@ def test_dvfs_and_forecast_labels_match_the_reference(tmp_path, extra):
         assert _read(tmp_path / "port" / name) == _read(tmp_path / "ref" / name), name
 
 
-@pytest.mark.parametrize(
-    "config",
-    [
-        {"workload": "profiles"},
-    ],
-)
-def test_unported_configs_fail_loudly(tmp_path, config):
-    """The ``profiles`` workload is not ported (RL labels run since the RL
-    stack was ported: tests/test_torch_rl_checkpoint.py)."""
-    cfg = {"workload": "preset:fig3_small", "out": str(tmp_path / "o"), **config}
-    with pytest.raises(NotImplementedError):
-        tsim.run(cfg, device="cpu")
-
-
-def test_unknown_keys_and_experiments_are_refused(tmp_path):
+def test_unknown_keys_and_experiments_are_refused(tmp_path, capsys):
     with pytest.raises(ValueError, match="did you mean 'timeout'"):
         tsim.run({"workload": "preset:fig3_small", "timout": 3}, device="cpu")
-    with pytest.raises(NotImplementedError, match="sweep"):
-        tsim.main(["--experiment", str(tmp_path / "exp.json")])
+    # --experiment runs a self-contained spec: a single-run flag beside it
+    # is refused, as the reference refuses it
+    with pytest.raises(SystemExit):
+        tsim.main(["--experiment", str(tmp_path / "exp.json"), "--timeout", "5"])
+    assert "--timeout would be ignored" in capsys.readouterr().err

@@ -13,7 +13,8 @@ controller, the DVFS ladder, RL:dvfs, composed with rules 6-7): every row
 equals the port's single run of its scenario bit for bit, and the JAX
 reference's ``engine.sweep`` row (schedule exact; energy to rel 1e-5 and
 the mode ledgers to rel 1e-4 on the dense DVFS route, ROADMAP Queue 3 item
-4). Rule 10 rows still raise, naming ROADMAP item 8b.
+4). Rule 10 rows and the in-graph controller over rows are
+``tests/test_torch_sweep_forecast.py``'s.
 """
 import dataclasses
 
@@ -211,19 +212,6 @@ def test_rule89_rows_turn_quiet_batching_off_per_row():
         assert metrics.np_state(b.state_at(i))["n_batches"] == int(s.n_batches)
         np.testing.assert_array_equal(metrics.schedule_table(b.state_at(i)),
                                       metrics.schedule_table(s))
-
-
-@pytest.mark.parametrize("scenarios", [
-    ["EASY PSUS+Forecast"],
-    ["EASY RL", {"scheduler": "EASY PSUS+Forecast", "timeout": 60}],
-    ["EASY DVFS+Forecast"],
-])
-def test_forecast_rows_still_name_item_8b(scenarios):
-    plat = tplat.dvfs_platform_example(16)
-    wl = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=10, nb_res=16, seed=0))
-    with pytest.raises(NotImplementedError,
-                       match="rule 8-10 flags.*forecast_enabled.*ROADMAP Queue 1 item 8b"):
-        sweep.sweep(plat, wl, scenarios, EngineConfig(timeout=300), device=CPU)
 
 
 # --------------------------------------------------------------------------

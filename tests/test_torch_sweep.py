@@ -458,8 +458,6 @@ def test_dvfs_mode_width_must_match():
 
 
 @pytest.mark.parametrize("scenarios,kw,what", [
-    ([{"scheduler": "EASY PSUS+Forecast", "timeout": 60}], {}, "rule 8-10 flags"),
-    ([60], {"policy": tpol.RLController(controller=_controller)}, "in-graph controller"),
     ([60], {"node_order": "pack"}, 'node_order="pack"'),
     ([60], {"allocation": "partition"}, 'allocation="partition"'),
     ([60], {"merge_bursts": True}, "merge_bursts"),
