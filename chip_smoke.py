@@ -93,20 +93,26 @@ Phases (each prints a line; any failed check exits non-zero):
    profiled (device ops a batch, device busy share);
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
-   x timeouts ``300 + 300 i``, on the first ``SWEEP_JOBS`` (500) jobs of
-   phase 5's inputs
-   at E = 1 (EASY PSUS 1800 alone), 8 and 64, and of phase 6's inputs,
-   grouped, at E = 8 (timeouts 600-2400) — one event-kernel launch per loop
-   iteration for the grid (``event_fuse_ledger``, dense; ``event_fuse_occ``,
-   grouped), at most two host syncs an iteration; the E = 1 sweep and the
-   E = 64 row EASY PSUS 1800 equal phase 5's configuration run alone on the
-   same jobs bit for bit, each E = 8 row its E = 64 row, the row FCFS
-   PSAS+IPM 600 a single run of it, and the grouped row EASY PSUS 1800
-   phase 6's configuration run alone; per grid the wall and the wall a scenario,
-   iterations, µs and host syncs an iteration, the first 100 iterations
-   profiled (device ops an iteration, busy share) and peak device memory.
-   No sweep row runs the oracle on the card: the CPU tests hold rows
-   against it and against the JAX sweep;
+   x timeouts ``300 + 300 i``, on phase 5's inputs at E = 1 (EASY PSUS 1800
+   alone) and 8 on their first ``SWEEP_JOBS`` (500) jobs and at E = 64 on
+   ``SWEEP_CUT_JOBS`` (250) — one ``event_fuse_ledger`` launch per loop
+   iteration for the grid, at most two host syncs an iteration; (e) the
+   grouped E = 8 grid (timeouts 600-2400) on the first 500 of phase 6's
+   jobs with ``OPTIONS`` (``node_order="pack"``, ``allocation=
+   "partition"``, ``merge_bursts``) — one ``event_fuse_occ`` launch an
+   iteration; (f) a dense E = 4 grid (the two schedulers x 600 and 1800 s)
+   with ``OPTIONS`` on phase 4's 280-node Curie inputs. Held bit for bit
+   against single runs of their scenarios on the same jobs (state, schedule
+   table, every ``SimMetrics`` field), run in a worker process beside the
+   grids: the E = 1 sweep and the E = 64 row EASY PSUS 1800 (phase 5's
+   configuration), the E = 8 row FCFS PSAS+IPM 600, (e)'s rows EASY PSUS
+   1800 and FCFS PSAS+IPM 600 and every row of (f). Per grid the wall and
+   the wall a scenario, iterations, µs and host syncs an iteration (the
+   loop's, the passes' windows, the partition head outcomes and the merge
+   repeat conditions counted apart), the first 100 iterations of the dense
+   grids profiled (device ops an iteration, busy share) and peak device
+   memory. No sweep row runs the oracle on the card: the CPU tests hold
+   rows against it and against the JAX sweep;
 12. the RL stack (``repro_torch.core.rl``): (a) 16 envs of the grouped
    Curie platform (11 200 nodes), each on one of 16 consecutive 500-job
    windows of phase 6's trace, EASY RL:groups at a 600 s decision interval,
@@ -298,6 +304,11 @@ LABELS = [
 FORECAST_JOBS = 500
 SWEEP_JOBS = 500
 DVFS_JOBS = 250
+# phase 11's dense E = 64 grid replays the first 250 jobs, not 500, and its
+# plain grouped E = 8 grid is dropped, so that (e) and (f) fit
+SWEEP_CUT_JOBS = 250
+# phase 11 (e) and (f): the engine options a grid runs with
+OPTIONS = dict(node_order="pack", allocation="partition", merge_bursts=True)
 # and phase 4's 16-node runs take 50 generated jobs, not 100, and its
 # grouped runs the first 60 replayed jobs, not 120
 LABEL_JOBS = 50
@@ -934,15 +945,77 @@ def sweep_sync_check(torch, dev="cuda"):
     return engine.HOST_SYNCS, reported, int(s.n_batches.max())
 
 
-def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS):
-    """Phase 11: the batched sweep at Curie scale. Dense grids at E = 1, 8
-    and 64 on phase 5's inputs and a grouped grid at E = 8 on phase 6's,
-    both cut to their first ``max_jobs`` jobs, each row held bit for bit
-    against a single run of its scenario on the same inputs or against the
-    same scenario's row of another grid. Returns the event kernels'
-    launches of the timed dense grids (summed) and of the grouped grid, and
-    the dense E = 8 grid's metrics rows by (scheduler, timeout)."""
+def pass_counters(sweep):
+    """Count what a sweep's scheduler passes read while the context is open:
+    ``windows`` (one read a pass), ``partition`` (the head-outcome reads,
+    one a step with a partition head attempt), ``passes`` (each pass and
+    each burst-merge repeat) and ``merge`` (the repeat-condition reads, one
+    after each pass that attempted under ``merge_bursts``)."""
+    counts = dict(windows=0, partition=0, passes=0, merge=0)
+    real_pass, real_run, real_fail = sweep._scheduler_pass, sweep._run_pass, sweep._PassPlan.fail
+
+    def scheduler_pass(s, g, cfg, *a):
+        counts["windows"] += 1
+        return real_pass(s, g, cfg, *a)
+
+    def run_pass(s, g, cfg, *a):
+        counts["passes"] += 1
+        out = real_run(s, g, cfg, *a)
+        counts["merge"] += bool(cfg.merge_bursts and out[1])
+        return out
+
+    def fail(plan, a, ok):
+        counts["partition"] += 1
+        return real_fail(plan, a, ok)
+
+    @contextlib.contextmanager
+    def opened():
+        sweep._scheduler_pass, sweep._run_pass, sweep._PassPlan.fail = (
+            scheduler_pass, run_pass, fail)
+        try:
+            yield counts
+        finally:
+            sweep._scheduler_pass, sweep._run_pass, sweep._PassPlan.fail = (
+                real_pass, real_run, real_fail)
+
+    return opened()
+
+
+def single_runs(runs, dev="cuda"):
+    """Each ``(platform, workload, config)`` of ``runs`` simulated alone on
+    ``dev``: (numpy state, schedule table, metrics row, wall seconds) each.
+    Module-level, so that a worker process can run it: phase 11's single
+    runs go on in a worker beside its grids (the card is idle most of a
+    host-bound loop)."""
+    import torch
+
+    from repro_torch.core import engine, metrics
+    out = []
+    for plat, wl, cfg in runs:
+        t0 = time.perf_counter()
+        s = engine.simulate(plat, wl, cfg, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.append((metrics.np_state(s), metrics.schedule_table(s),
+                    metrics.metrics_from_state(s, plat).row(), wall))
+    return out
+
+
+def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
+            cut_jobs=SWEEP_CUT_JOBS):
+    """Phase 11: the batched sweep at Curie scale. Dense grids at E = 1 and 8
+    on phase 5's inputs cut to their first ``max_jobs`` jobs and at E = 64
+    on ``cut_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
+    ``max_jobs`` with ``OPTIONS`` (pack, partition, burst merging); (f) a
+    dense E = 4 grid with ``OPTIONS`` on phase 4's 280-node Curie inputs.
+    Each checked row is held bit for bit against a single run of its
+    scenario on the same inputs; the single runs go on in a worker process
+    while the grids run. Returns the event kernels' launches of the timed
+    dense grids (summed), of (e) and of (f) by kernel, and the dense E = 8
+    grid's metrics rows by (scheduler, timeout)."""
     from repro_torch.core import engine, sweep
+    from repro_torch.core.metrics import metrics_from_state, np_state, schedule_table
     from repro_torch.core.policy import from_label
     from repro_torch.core.types import EngineConfig
     from repro_torch.kernels import event_fuse
@@ -953,119 +1026,163 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS):
     from repro_torch.workloads.traces import replay_workload
     t11 = time.perf_counter()
     dense_plat = PlatformSpec(nb_nodes=nodes)
-    # phase 5's workload (the cea_curie preset cut to max_jobs jobs)
-    dense_wl = generate_workload(dataclasses.replace(
-        PRESETS["cea_curie"], n_jobs=max_jobs, nb_res=nodes,
-        max_res=min(PRESETS["cea_curie"].max_res, nodes)))
+
+    def dense_jobs(n):  # phase 5's workload (the cea_curie preset cut to n jobs)
+        return generate_workload(dataclasses.replace(
+            PRESETS["cea_curie"], n_jobs=n, nb_res=nodes,
+            max_res=min(PRESETS["cea_curie"].max_res, nodes)))
+
+    dense_wl, dense_cut = dense_jobs(max_jobs), dense_jobs(cut_jobs)
     base, pol = from_label("EASY PSUS")
     dense_cfg = EngineConfig(base=base, policy=pol, timeout=1800)
     g_plat = curie_platform(nodes)
     g_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
-    g_cfg = dataclasses.replace(dense_cfg, grouped_tables=True)
-    grids = [
+    e_cfg = EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True,
+                         **OPTIONS)
+    # (f): phase 4's grouped inputs, on the dense route
+    f_plat = curie_platform(280)
+    f_wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=GROUPED_JOBS)
+    f_cfg = dataclasses.replace(dense_cfg, **OPTIONS)
+    grids = [  # name, platform, jobs, config, scenarios, kernel, profiled
         ("dense E=1", dense_plat, dense_wl, dense_cfg,
-         [{"scheduler": "EASY PSUS", "timeout": 1800}], "event_fuse_ledger"),
-        ("dense E=8", dense_plat, dense_wl, dense_cfg, sweep_grid(8), "event_fuse_ledger"),
-        ("dense E=64", dense_plat, dense_wl, dense_cfg, sweep_grid(64), "event_fuse_ledger"),
-        ("grouped E=8", g_plat, g_wl, g_cfg, sweep_grid(8, [600, 1200, 1800, 2400]),
-         "event_fuse_occ"),
+         [{"scheduler": "EASY PSUS", "timeout": 1800}], "event_fuse_ledger", True),
+        ("dense E=8", dense_plat, dense_wl, dense_cfg, sweep_grid(8), "event_fuse_ledger",
+         True),
+        ("dense E=64", dense_plat, dense_cut, dense_cfg, sweep_grid(64),
+         "event_fuse_ledger", True),
+        ("(e) options E=8", g_plat, g_wl, e_cfg, sweep_grid(8, [600, 1200, 1800, 2400]),
+         "event_fuse_occ", False),
+        ("(f) options dense E=4", f_plat, f_wl, f_cfg, sweep_grid(4, [600, 1800]), None,
+         False),
     ]
+
+    def scenario_cfg(cfg, scheduler, timeout):
+        base, pol = from_label(scheduler)
+        return dataclasses.replace(cfg, base=base, policy=pol, timeout=timeout)
+
+    # (grid, scenario, platform, jobs, config) of every checked row
+    checks = [
+        ("dense E=1", ("EASY PSUS", 1800), dense_plat, dense_wl, dense_cfg),
+        ("dense E=64", ("EASY PSUS", 1800), dense_plat, dense_cut, dense_cfg),
+        ("dense E=8", ("FCFS PSAS+IPM", 600), dense_plat, dense_wl, dense_cfg),
+        ("(e) options E=8", ("EASY PSUS", 1800), g_plat, g_wl, e_cfg),
+        ("(e) options E=8", ("FCFS PSAS+IPM", 600), g_plat, g_wl, e_cfg),
+    ] + [("(f) options dense E=4", (sc["scheduler"], sc["timeout"]), f_plat, f_wl, f_cfg)
+         for sc in grids[-1][4]]
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    pending = pool.apply_async(single_runs, (
+        [(plat, wl, scenario_cfg(cfg, *sc)) for _, sc, plat, wl, cfg in checks], dev))
+    pool.close()
     runs = {}
-    for name, plat, wl, cfg, scen, kname in grids:
+    for name, plat, wl, cfg, scen, kname, profiled in grids:
         def run(c, plat=plat, wl=wl, scen=scen):
             return int(sweep.sweep(plat, wl, scen, c, device=dev).states.n_batches.max())
 
         # the first call: the profiled window's warm-up, then its window
-        prof = profile_window(torch, run, cfg)
+        prof = profile_window(torch, run, cfg) if profiled else None
         event_fuse.reset_launches()
         fa.reset_launches()
         ssd.reset_launches()
         engine.HOST_SYNCS = 0
         live_mib = torch.cuda.memory_allocated() / 2**20  # earlier phases' tensors
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        b = sweep.sweep(plat, wl, scen, cfg, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with pass_counters(sweep) as reads:
+            t0 = time.perf_counter()
+            b = sweep.sweep(plat, wl, scen, cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = dict(event_fuse.LAUNCHES)
         syncs = engine.HOST_SYNCS
         nb = b.states.n_batches.cpu().numpy()
         iters = int(nb.max())
         peak_mib = torch.cuda.max_memory_allocated() / 2**20 - live_mib
-        check(not b.states.truncated.any() and bool(sweep.all_done(b.states).all()),
-              f"phase 11 {name}: a row truncated or left jobs")
-        check(launches[kname] == iters,
+        check(not b.states.truncated.any(), f"phase 11 {name}: a row truncated")
+        # under partition a job wider than every group never starts
+        runnable = cfg.allocation != "partition" or (
+            max(j.res for j in wl.jobs) <= max(grp.count for grp in plat.node_groups))
+        check(not runnable or bool(sweep.all_done(b.states).all()),
+              f"phase 11 {name}: a row left jobs")
+        check(kname is None or launches[kname] == iters,
               f"phase 11 {name}: {kname} launches {launches} != iterations {iters}")
         check(all(v == 0 for k, v in launches.items() if k != kname)
               and fa.LAUNCHES["flash_attention"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0,
               f"phase 11 {name}: other kernels launched: {launches}")
-        check(syncs <= 2 * iters, f"phase 11 {name}: {syncs} host syncs for {iters} iterations")
-        runs[name] = dict(batch=b, scen=scen, wall=wall, iters=iters, nb=nb, syncs=syncs,
-                          launches=launches[kname], prof=prof, peak=peak_mib)
-        print(f"phase 11 {name}: {len(scen)} scenarios on {plat.nb_nodes} nodes, "
-              f"{len(wl)} jobs: wall {wall:.2f} s (a call after the profiled window "
-              f"and its warm-up), {wall / len(scen):.3f} s a scenario; iterations "
-              f"{iters} (rows' n_batches {int(nb.min())}..{iters}), "
-              f"{1e6 * wall / iters:.1f} us an iteration; {kname} launches "
-              f"{launches[kname]}; host syncs {syncs} ({syncs / iters:.3f} an "
-              f"iteration); first 100 iterations profiled: {prof[0]:.1f} device ops "
-              f"an iteration, device {1e3 * prof[1]:.1f} us an iteration, wall "
-              f"{1e3 * prof[2]:.1f} us (profiled), busy {100 * prof[3]:.1f} %; peak "
-              f"device memory {peak_mib:.1f} MiB above the {live_mib:.1f} MiB live "
-              "before it", flush=True)
+        # every read is the loop's (one an iteration), a pass's window, a
+        # partition head step's outcomes or a merge repeat's condition
+        check(syncs == iters + reads["windows"] + reads["partition"] + reads["merge"],
+              f"phase 11 {name}: {syncs} host syncs for {iters} iterations, {reads}")
+        check(cfg.allocation == "partition" or reads["partition"] == 0,
+              f"phase 11 {name}: partition reads without partition")
+        runs[name] = dict(batch=b, scen=scen, wall=wall, iters=iters,
+                          launches={k: launches[k] for k in ("event_fuse_ledger",
+                                                             "event_fuse_occ")})
+        line = (f"phase 11 {name}: {len(scen)} scenarios on {plat.nb_nodes} nodes, "
+                f"{len(wl)} jobs: wall {wall:.2f} s, {wall / len(scen):.3f} s a scenario; "
+                f"iterations {iters} (rows' n_batches {int(nb.min())}..{iters}), "
+                f"{1e6 * wall / iters:.1f} us an iteration; "
+                f"{kname or 'no kernel'} launches "
+                f"{launches[kname] if kname else sum(launches.values())}; host syncs "
+                f"{syncs} ({syncs / iters:.3f} an iteration: {iters} loop, "
+                f"{reads['windows']} window, {reads['partition']} partition head-outcome "
+                f"and {reads['merge']} merge-condition reads; {reads['passes']} passes, "
+                f"{reads['passes'] - reads['windows']} of them burst-merge repeats); ")
+        if prof:
+            line += (f"(a call after the profiled window and its warm-up) first 100 "
+                     f"iterations profiled: {prof[0]:.1f} device ops an iteration, "
+                     f"device {1e3 * prof[1]:.1f} us an iteration, wall "
+                     f"{1e3 * prof[2]:.1f} us (profiled), busy {100 * prof[3]:.1f} %; ")
+        print(line + f"peak device memory {peak_mib:.1f} MiB above the {live_mib:.1f} "
+              "MiB live before it", flush=True)
 
-    def row(name, scheduler, timeout):
-        r = runs[name]
-        i = r["scen"].index({"scheduler": scheduler, "timeout": timeout})
-        return r["batch"].state_at(i)
-
-    def same_bits(a, b, what):
-        da, db = metrics_np(a), metrics_np(b)
-        bad = [k for k in da if not (da[k].dtype == db[k].dtype
-                                     and np.array_equal(da[k], db[k]))]
-        check(not bad, f"phase 11: {what}: fields {bad} differ")
-
-    from repro_torch.core.metrics import np_state as metrics_np
     syncs, reported, small_iters = sweep_sync_check(torch, dev)
     check(reported == syncs, f"phase 11: PyTorch reports {reported} synchronizing calls "
           f"in a small grid's loop, the sweep counts {syncs} host reads")
-    # phase 5's and phase 6's configurations, single runs on these inputs
-    d_state = engine.simulate(dense_plat, dense_wl, dense_cfg, device=dev)
-    g_state = engine.simulate(g_plat, g_wl, g_cfg, device=dev)
-    same_bits(row("dense E=1", "EASY PSUS", 1800), d_state,
-              "E=1 sweep == its single run")
-    same_bits(row("dense E=64", "EASY PSUS", 1800), d_state,
-              "E=64 row EASY PSUS 1800 == its single run")
-    for sc in runs["dense E=8"]["scen"]:
-        same_bits(row("dense E=8", **sc), row("dense E=64", **sc),
-                  f"E=8 row {sc} == its E=64 row")
-    base, pol = from_label("FCFS PSAS+IPM")
     t0 = time.perf_counter()
-    single = engine.simulate(dense_plat, dense_wl,
-                             dataclasses.replace(dense_cfg, base=base, policy=pol,
-                                                 timeout=600), device=dev)
-    single_wall = time.perf_counter() - t0
-    same_bits(row("dense E=8", "FCFS PSAS+IPM", 600), single,
-              "E=8 row FCFS PSAS+IPM 600 == its single run")
-    same_bits(row("grouped E=8", "EASY PSUS", 1800), g_state,
-              "grouped E=8 row EASY PSUS 1800 == its single run")
-    m = {name: r["batch"].metrics for name, r in runs.items()}
-    print(f"phase 11 rows ({max_jobs} jobs): E=1 and the E=64 row EASY PSUS 1800 == "
-          "phase 5's configuration run alone on these jobs, bit for bit; each E=8 row "
-          "== its E=64 row; the E=8 row FCFS PSAS+IPM 600 == its single run on the card "
-          f"({single_wall:.2f} s); the grouped row EASY PSUS 1800 == phase 6's "
-          f"configuration run alone; a 16-node grid of 8 rows under "
-          f"torch.cuda.set_sync_debug_mode: {reported} synchronizing calls reported "
-          f"== the sweep's {syncs} host reads in {small_iters} iterations; "
-          "dense E=64 total energy kWh by timeout, EASY PSUS "
+    singles = pending.get()
+    wait_s = time.perf_counter() - t0
+    pool.join()
+    walls = {}
+    for (name, (scheduler, timeout), plat, _, _), (state, table, mrow, wall) in zip(
+            checks, singles):
+        r = runs[name]
+        i = r["scen"].index({"scheduler": scheduler, "timeout": timeout})
+        got = r["batch"].state_at(i)
+        mine = np_state(got)
+        bad = [k for k in state if not (mine[k].dtype == state[k].dtype
+                                        and np.array_equal(mine[k], state[k]))]
+        what = f"phase 11: {name} row {scheduler} {timeout} == its single run"
+        check(not bad, f"{what}: fields {bad} differ")
+        check(np.array_equal(schedule_table(got), table)
+              and r["batch"].metrics[i].row() == mrow == metrics_from_state(got, plat).row(),
+              f"{what}: schedule table or metrics differ")
+        walls[name, scheduler] = wall
+    e, m8 = runs["(e) options E=8"], runs["dense E=8"]
+    print(f"phase 11 rows: the E=1 sweep == phase 5's configuration run alone on its "
+          f"first {max_jobs} jobs, the E=64 row EASY PSUS 1800 == it on {cut_jobs} jobs, "
+          "the E=8 row FCFS PSAS+IPM 600 == its single run, bit for bit; (e) "
+          f"{OPTIONS}: rows EASY PSUS 1800 and FCFS PSAS+IPM 600 == their single runs "
+          "(every state field, the schedule table, every SimMetrics field); (f) every "
+          f"row == its single run on curie_platform(280), {len(f_wl)} jobs, dense. The "
+          f"{len(checks)} single runs ran in a worker process beside the grids (waited "
+          f"{wait_s:.2f} s for them): dense EASY PSUS 1800 "
+          f"{walls['dense E=1', 'EASY PSUS']:.2f} s, FCFS PSAS+IPM 600 "
+          f"{walls['dense E=8', 'FCFS PSAS+IPM']:.2f} s; (e)'s EASY PSUS 1800 "
+          f"{walls['(e) options E=8', 'EASY PSUS']:.2f} s and FCFS PSAS+IPM 600 "
+          f"{walls['(e) options E=8', 'FCFS PSAS+IPM']:.2f} s against (e)'s "
+          f"{e['wall'] / len(e['scen']):.2f} s a scenario; a 16-node grid of 8 rows "
+          f"under torch.cuda.set_sync_debug_mode: {reported} synchronizing calls "
+          f"reported == the sweep's {syncs} host reads in {small_iters} iterations; "
+          "dense E=8 total energy kWh by timeout, EASY PSUS "
           + ", ".join(f"{sc['timeout']}: {mm.total_energy_j / 3.6e6:.1f}"
-                      for sc, mm in zip(runs["dense E=64"]["scen"], m["dense E=64"])
-                      if sc["scheduler"] == "EASY PSUS" and sc["timeout"] % 1800 == 0)
+                      for sc, mm in zip(m8["scen"], m8["batch"].metrics)
+                      if sc["scheduler"] == "EASY PSUS")
           + f"; phase wall {time.perf_counter() - t11:.1f} s", flush=True)
-    dense = sum(runs[n]["launches"] for n in ("dense E=1", "dense E=8", "dense E=64"))
+    dense = sum(runs[n]["launches"]["event_fuse_ledger"]
+                for n in ("dense E=1", "dense E=8", "dense E=64"))
     e8_rows = {(sc["scheduler"], sc["timeout"]): mm.row()
-               for sc, mm in zip(runs["dense E=8"]["scen"], m["dense E=8"])}
-    return dense, runs["grouped E=8"]["launches"], e8_rows
+               for sc, mm in zip(m8["scen"], m8["batch"].metrics)}
+    return dense, e["launches"], runs["(f) options dense E=4"]["launches"], e8_rows
 
 
 RL_ENVS = 16  # phase 12 (a)-(b): envs in the grouped Curie batch
@@ -2633,7 +2750,7 @@ def main() -> None:
 
     # ---- 11. the batched sweep at Curie scale ----
     torch.cuda.empty_cache()
-    sweep_dense, sweep_grouped, e8_rows = phase11(torch, np, swf)
+    sweep_dense, sweep_e, sweep_f, e8_rows = phase11(torch, np, swf)
 
     # ---- 12. the RL stack ----
     torch.cuda.empty_cache()
@@ -2665,7 +2782,8 @@ def main() -> None:
             "phase 10 forecast": fc_by_kernel[kname],
             "phase 10 dvfs": dv_by_kernel[kname],
             "sweep_dense": sweep_dense if kname == "event_fuse_ledger" else 0,
-            "sweep_grouped": sweep_grouped if kname == "event_fuse_occ" else 0,
+            "phase 11 (e) options grouped": sweep_e.get(kname, 0),
+            "phase 11 (f) options dense": sweep_f.get(kname, 0),
             **{f"phase 12 {part}": got[kname] for part, got in rl_by_part.items()},
             **{f"phase 13 {part}": got[kname] for part, got in exp_by_part.items()},
         }

@@ -258,6 +258,23 @@ def pack_key(s, const) -> torch.Tensor:
     return counts[gid].to(torch.float32) + band
 
 
+def pack_key_rows(s, const) -> torch.Tensor:
+    """f32[E, N]: :func:`pack_key` of each row, by the row's own group ids
+    (``const.group_id`` ``[E, N]``, a stride-0 view when the rows share a
+    platform). The counts are an int32 scatter-add along the node axis,
+    exact in any order, so each row equals :func:`pack_key` of that row bit
+    for bit."""
+    E, G = s.energy.shape[:2]
+    N = s.node_state.shape[1]
+    gid = const.group_id.long()
+    idle_unres = (s.node_job < 0) & (s.node_state == IDLE)
+    counts = torch.zeros((E, G), dtype=I32, device=gid.device).scatter_add_(
+        1, gid, idle_unres.to(I32)
+    )
+    band = torch.where(idle_unres, 0.0, float(N + 1))
+    return counts.gather(1, gid).to(torch.float32) + band
+
+
 def _select_longest_idle(cand, idle_since, k):
     """Boolean mask of the ``k`` longest-idle candidates (ties by node id).
 

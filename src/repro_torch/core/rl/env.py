@@ -8,8 +8,12 @@ batch of environments; here the batch is written out, as in the sweep:
 the sweep's :class:`~repro_torch.core.sweep.Grid` (``core/sweep.py``), one
 shared const laid out once as stride-0 tables (:func:`make_env_grid`), so
 row ``b`` of a batched step equals the single step of that environment bit
-for bit. The agent acts at every simulation event, plus the periodic
-decision tick of ``rl_decision_interval``.
+for bit, under every engine option the single env runs (``node_order=
+"pack"``, ``allocation="partition"`` and ``merge_bursts`` included). A
+config the sweep refuses (more than one device) raises at
+:func:`batched_reset`, naming its ROADMAP item, instead of running. The
+agent acts at every simulation event, plus the periodic decision tick of
+``rl_decision_interval``.
 
 A step applies the agent's commands (rule 8, and rule 9's mode commands
 under ``RLController(dvfs=True)``), runs the fused event pass, accrues
@@ -17,11 +21,15 @@ energy up to the next event and runs ONE full event batch there (never the
 quiet body). A row that cannot advance runs the batch at its own time. A
 row that is done is frozen: every field keeps its value
 (``sweep.freeze``), its reward is 0 and its step count stays. A batched
-step reads the device once (the scheduler pass's window, counted in
-``engine.HOST_SYNCS``; a partition head attempt or a burst-merge repeat of
-the single run adds its own), and launches one event kernel for the batch
-on a CUDA device: ``event_fuse_occ`` under grouped tables,
-``event_fuse_ledger`` on a dense single-group platform without DVFS.
+step reads the device once (the scheduler pass's windows, counted in
+``engine.HOST_SYNCS``), plus, under ``allocation="partition"``, one read
+of the ``[B]`` head outcomes after each step of the pass at which some row
+attempts a head, and under ``merge_bursts`` one read a repeat (the repeat
+condition with the next windows): each read batched over the rows, at
+most as many in a pass as the row that reads most would make alone. It
+launches one event kernel for the batch on a CUDA device:
+``event_fuse_occ`` under grouped tables, ``event_fuse_ledger`` on a dense
+single-group platform without DVFS.
 
 :class:`HPCGymEnv` is a host wrapper with the classic ``reset()`` /
 ``step(action)`` protocol for one environment.
@@ -186,7 +194,11 @@ def stack_sims(sims) -> SimState:
 
 
 def batched_reset(cfg: EnvConfig, grid: sweep.Grid, sims0: SimState):
-    """:func:`env_reset` of every row of ``sims0`` (``[B]`` state)."""
+    """:func:`env_reset` of every row of ``sims0`` (``[B]`` state). A config
+    the sweep does not run raises here (``sweep.check_supported``), once a
+    rollout, not in the step loop."""
+    sweep.check_supported(cfg.engine, sweep._resolve_devices(
+        None, cfg.engine, grid.const.power.device))
     B = sims0.t.shape[0]
     sim = sweep.process_batch(sims0, grid, cfg.engine, [True] * B, None)
     state = EnvState(sim=sim, steps=torch.zeros_like(sim.n_batches),

@@ -17,10 +17,11 @@ from the config's in-graph controller; DVFS, the ladder or agent mode
 commands; Forecast, with a horizon per row; every ``+DVFS`` and
 ``+Forecast`` composition) in one grid, a timeout per row (``None`` =
 never), a platform per row (same node, group and DVFS-mode counts), dense
-and grouped tables, ``node_order`` "id", "cheap" and "idle-watts",
-``allocation="any"`` and the batch cap, with truncation per row. A grid
-with ``node_order="pack"``, ``allocation="partition"``, ``merge_bursts`` or
-more than one device raises ``NotImplementedError`` naming ROADMAP item 8b
+and grouped tables, every ``node_order`` ("id", "cheap", "idle-watts" and
+the per-pass "pack" key), ``allocation`` "any" and "partition",
+``merge_bursts`` and the batch cap, with truncation per row. A grid over
+more than one device raises ``NotImplementedError`` naming ROADMAP item
+8b, and the legacy loop (``fused_events=False``) naming item 3
 (:func:`check_supported`).
 
 The in-graph controller (``RLController.controller``) runs once per full
@@ -51,7 +52,9 @@ per *iteration*, whatever E is. Each iteration of :func:`run_sim` makes
   most W batched attempts for the whole grid, as many as the row that
   attempts most. The per-row masks of who attempts what are built on the
   device from the same values the host read, so no host-to-device copy is
-  made per attempt;
+  made per attempt. Under ``allocation="partition"`` a pass adds one read
+  of the ``[E]`` outcomes after each step with a head attempt, and under
+  ``merge_bursts`` one read a repeat, each for every row at once;
 * one event-kernel launch for the whole grid (:func:`event_horizon`:
   ``event_fuse_occ`` on ``[E, N]`` on the grouped path, ``event_fuse_ledger``
   on the dense single-group path when no row runs DVFS, each on a CUDA
@@ -110,6 +113,7 @@ from repro_torch.core.policy import (
     effective_node_speed_rows,
     from_label,
     ipm_wake_rows,
+    pack_key_rows,
     stack_params,
     timeout_switch_off_rows,
 )
@@ -167,19 +171,11 @@ def _resolve_devices(devices, config: EngineConfig, dev: torch.device) -> Option
 
 def check_supported(config: EngineConfig, devices: Optional[int] = None) -> None:
     """Raise NotImplementedError for a grid structure the sweep does not run
-    yet, naming ROADMAP item 8b (``devices`` is the resolved count); the
-    single run's refusals (the legacy loop) apply too."""
-    later = []
+    yet: more than one device, naming ROADMAP item 8b (``devices`` is the
+    resolved count); the single run's refusals (the legacy loop, item 3)
+    apply too."""
     if devices is not None and devices > 1:
-        later.append(f"devices={devices} (sharded sweeps)")
-    if config.node_order == "pack":
-        later.append('node_order="pack"')
-    if config.allocation == "partition":
-        later.append('allocation="partition"')
-    if config.merge_bursts:
-        later.append("merge_bursts")
-    if later:
-        raise _later(f"sweep({config.label()!r}): {', '.join(later)}")
+        raise _later(f"sweep({config.label()!r}): devices={devices} (sharded sweeps)")
     engine.check_supported(dataclasses.replace(config, devices=None))
 
 
@@ -467,28 +463,46 @@ def _queue_window(s: SimState, W: int) -> torch.Tensor:
     return window[:, :W]
 
 
-def _window_values(s: SimState, W: int):
-    window = _queue_window(s, W)
+def _window_values(s: SimState, g: Grid, cfg: EngineConfig):
+    """The device values a pass reads: each row's window, the node counts
+    its jobs ask for, its unreserved count and, under
+    ``allocation="partition"``, the unreserved count of its largest group
+    (``[E]``). A pass only reserves nodes, so that count bounds what one
+    group can give for the whole pass: a job asking for more cannot be
+    allocated, and the pass does not attempt it."""
+    window = _queue_window(s, cfg.window)
     res = s.job_res.gather(1, _clamp_job(window))
-    return window, res, (s.node_job < 0).sum(dim=-1, dtype=I32)
+    free = s.node_job < 0
+    values = (window, res, free.sum(dim=-1, dtype=I32))
+    if cfg.allocation != "partition":
+        return values
+    E, G = s.energy.shape[:2]
+    per_group = torch.zeros((E, G), dtype=I32, device=free.device).scatter_add_(
+        1, g.const.group_id.long(), free.to(I32)
+    )
+    return values + (per_group.amax(dim=-1),)
 
 
 def _pass_inputs(s: SimState, g: Grid, cfg: EngineConfig) -> PassInputs:
-    """The single run's hoisted pass inputs, per row: on the grouped path
-    ``tables.perm``, re-sorted by ready time on the rows that are not
-    eager."""
+    """The single run's hoisted pass inputs (``engine._pass_inputs``), per
+    row: under ``node_order="pack"`` the pass's pack key ``[E, N]``
+    (:func:`~repro_torch.core.policy.pack_key_rows`); on the grouped path the
+    allocation order, ``tables.perm`` or each row's stable order of its pack
+    key, re-sorted by ready time on the rows that are not eager."""
+    okey = pack_key_rows(s, g.const) if cfg.node_order == "pack" else None
     if not cfg.grouped_tables:
-        return PassInputs(_ready_times(s, g), None, None)
+        return PassInputs(_ready_times(s, g), None, okey)
+    base = g.perm if okey is None else torch.argsort(okey, dim=-1, stable=True)
     eager = g.gate("eager_ready")
     if eager is True:
-        return PassInputs(None, g.perm, None)
+        return PassInputs(None, base, okey)
     ready = _ready_times(s, g)
-    order = g.perm.gather(
-        1, torch.argsort(ready.gather(1, g.perm), dim=-1, stable=True)
+    order = base.gather(
+        1, torch.argsort(ready.gather(1, base), dim=-1, stable=True)
     )
     if eager is not False:
-        order = torch.where(eager[:, None], g.perm, order)
-    return PassInputs(ready, order, None)
+        order = torch.where(eager[:, None], base, order)
+    return PassInputs(ready, order, okey)
 
 
 class _Step(NamedTuple):
@@ -503,6 +517,33 @@ class _Step(NamedTuple):
     backfill: Optional[torch.Tensor]  # bool[E] under the EASY test (None: no row)
 
 
+def _partition_pick(es, gid, res_j, n_groups: int):
+    """``engine._partition_pick`` of each row (``allocation="partition"``):
+    ``es`` and ``gid`` are ``[E, N]`` eligibility and group ids in each
+    row's allocation order, ``res_j`` ``[E]``. Returns the in-order
+    selection ``[E, N]`` and the any-group-fits predicate ``[E]``.
+
+    A group's running count of eligible nodes reaches ``res_j`` at position
+    p, the number of positions where it is below ``res_j`` (N when the
+    group has fewer). The winner is the group of least p, the first on a
+    tie (only groups that cannot fit tie, at N), and the selection its
+    eligible nodes up to p: the single run's nodes, with fewer ops. The
+    running counts are an ``[E, G, N]`` int32 tensor (and bool masks of
+    that shape): about 1 MiB at E = 8 on the 3-group 11 200-node Curie
+    split, 8.2 MiB at E = 64."""
+    N = es.shape[1]
+    groups = torch.arange(n_groups, dtype=gid.dtype, device=gid.device)
+    onehot = (gid[:, None, :] == groups[:, None]) & es[:, None, :]
+    below = torch.cumsum(onehot, dim=2, dtype=I32) < res_j[:, None, None]
+    first, best = below.sum(dim=2, dtype=I32).min(dim=1)
+    feasible = first < N
+    # a request of no node selects none, as in the single run
+    last = torch.where(feasible & (res_j > 0), first, -1)
+    pos = torch.arange(N, dtype=I32, device=es.device)
+    sel = es & (gid == best[:, None]) & (pos <= last[:, None])
+    return sel, feasible
+
+
 def _try_allocate(s, g: Grid, cfg, step: _Step, inputs: PassInputs, wake_until,
                   shadow=None, extra=None):
     """One batched attempt: row e tries to allocate job ``step.j[e]`` when
@@ -510,14 +551,22 @@ def _try_allocate(s, g: Grid, cfg, step: _Step, inputs: PassInputs, wake_until,
     ``step.backfill[e]``. ``wake_until`` is ``t + t_on`` [E, N], the same
     for every attempt of a pass. Returns (ok [E], state); a row that does
     not attempt, or fails, keeps its state bit for bit. The node choice is
-    the single run's, row by row (``engine._try_allocate``)."""
+    the single run's, row by row (``engine._try_allocate``): the pack key
+    as the dense path's secondary key under ``node_order="pack"``, one
+    group's nodes under ``allocation="partition"``."""
     eligible = s.node_job < 0
     j, jc, res_j = step.j, step.jc, step.res
     E, N = eligible.shape
+    partition = cfg.allocation == "partition"
     if inputs.order is not None:
         order = inputs.order
         es = eligible.gather(1, order)
-        sel_sorted = es & (torch.cumsum(es, dim=-1, dtype=I32) <= res_j[:, None])
+        if partition:
+            sel_sorted, fits = _partition_pick(
+                es, g.const.group_id.gather(1, order), res_j, s.energy.shape[1]
+            )
+        else:
+            sel_sorted = es & (torch.cumsum(es, dim=-1, dtype=I32) <= res_j[:, None])
         if inputs.ready is None:  # every row eager: chosen nodes are ready now
             ready_max = s.t
         else:
@@ -527,24 +576,32 @@ def _try_allocate(s, g: Grid, cfg, step: _Step, inputs: PassInputs, wake_until,
     else:
         key = torch.where(eligible, inputs.ready, INF)
         if cfg.node_order != "id":
+            k2 = g.const.order_key if inputs.okey is None else inputs.okey
             perm1 = torch.argsort(
-                torch.where(eligible, g.const.order_key, float("inf")),
-                dim=-1, stable=True,
+                torch.where(eligible, k2, float("inf")), dim=-1, stable=True,
             )
             order = perm1.gather(
                 1, torch.argsort(key.gather(1, perm1), dim=-1, stable=True)
             )
         else:
             order = torch.argsort(key, dim=-1, stable=True)
-        sel_sorted = torch.arange(N, device=key.device, dtype=I32) < res_j[:, None]
+        if partition:
+            sel_sorted, fits = _partition_pick(
+                eligible.gather(1, order), g.const.group_id.gather(1, order),
+                res_j, s.energy.shape[1],
+            )
+        else:
+            sel_sorted = torch.arange(N, device=key.device, dtype=I32) < res_j[:, None]
         ready_max = torch.where(sel_sorted, key.gather(1, order), -1).amax(dim=-1)
-    ok = (eligible.sum(dim=-1, dtype=I32) >= res_j) & step.attempt
+    if not partition:
+        fits = eligible.sum(dim=-1, dtype=I32) >= res_j
+    ok = fits & step.attempt
     if step.backfill is not None:
         pred_completion = ready_max + step.reqtime
         ok = ok & (~step.backfill | (pred_completion <= shadow) | (res_j <= extra))
     # order is a permutation of each row: the scatter writes every node once
-    chosen = torch.empty_like(eligible).scatter_(1, order, sel_sorted)
-    chosen = chosen & eligible & ok[:, None]
+    # sel_sorted holds eligible nodes only wherever ok holds
+    chosen = torch.empty_like(eligible).scatter_(1, order, sel_sorted) & ok[:, None]
     wake = chosen & (s.node_state == SLEEP)
     okc = ok[:, None]
     new = s._replace(
@@ -585,45 +642,206 @@ def _shadow(s: SimState, head: torch.Tensor, ready: torch.Tensor):
     return S, X
 
 
-class _PassPlan(NamedTuple):
-    """The host's reading of one pass, in *steps*: step a is every row's
-    a-th attempt (its heads first, then its backfills, each in window
-    order). ``steps`` is the most attempts any row makes; a row's shadow is
-    computed at the step of its first backfill (its head count)."""
+class _PassPlan:
+    """The host's reading of one pass: ``engine._run_pass`` for each live
+    row, in *steps*, step a being every row's a-th attempt. A row attempts
+    its heads (window positions 0, 1, ... at steps 0, 1, ...) up to ``hb``,
+    the position where its head phase stops (its first blocked head, or the
+    end of its window); ``failed`` says whether that head was attempted (a
+    partition head that found no group); then, on an EASY row that blocked,
+    its ``n_bf`` backfill candidates in window order, its shadow computed at
+    the step of the first (``hb + failed``).
 
-    steps: int
-    backfill_steps: set  # steps at which some row backfills
-    shadow_steps: set  # steps at which some row needs its shadow
+    Under ``allocation="any"`` a head that fits the unreserved count is
+    allocated, so the first read decides every row. Under ``"partition"``
+    a job that asks for more than the row's largest group has unreserved
+    (``cap``) is known to fail and is not attempted; below that the counts
+    only bound the heads: ``hb`` starts at that bound, and each step with a
+    head attempt (:meth:`reads_at`) is followed by one read of the ``[E]``
+    outcomes, whose failures :meth:`fail` applies."""
+
+    def __init__(self, host: List[int], E: int, W: int, live, backfill,
+                 partition: bool = False):
+        self.W = W
+        self.rows = [e for e in range(E) if live[e]]
+        self.win = [host[e * W:(e + 1) * W] for e in range(E)]
+        self.res = [host[(E + e) * W:(E + e + 1) * W] for e in range(E)]
+        self.free = [host[2 * E * W + e] for e in range(E)]
+        # the largest group's unreserved count, under partition
+        self.cap = host[2 * E * W + E:2 * E * W + 2 * E] if partition else None
+        self.backfill = backfill
+        self.hb, self.failed, self.n_bf = [0] * E, [False] * E, [0] * E
+        for e in self.rows:
+            win, res, free, k = self.win[e], self.res[e], self.free[e], 0
+            while k < W and win[k] >= 0 and res[k] <= free and self._may_fit(e, res[k]):
+                free -= res[k]
+                k += 1
+            self.hb[e] = k
+            self.n_bf[e] = self._backfills(e)
+
+    def _may_fit(self, e: int, r: int) -> bool:
+        return self.cap is None or r <= self.cap[e]
+
+    def _backfills(self, e: int) -> int:
+        """Backfill attempts of row e behind its blocked head (FCFS stops at
+        it); a later job asking for more nodes than its heads left, or than
+        its largest group has, cannot be feasible and is not attempted."""
+        hb, win, res = self.hb[e], self.win[e], self.res[e]
+        if hb >= self.W or win[hb] < 0 or not self.backfill[e]:
+            return 0
+        free = self.free[e] - sum(res[:hb])
+        return sum(1 for k in range(hb + 1, self.W)
+                   if win[k] >= 0 and res[k] <= free and self._may_fit(e, res[k]))
+
+    def _first_bf(self, e: int) -> int:
+        return self.hb[e] + self.failed[e]
+
+    @property
+    def steps(self) -> int:
+        """The most attempts any row makes, as far as the reads so far tell."""
+        return max((self._first_bf(e) + self.n_bf[e] for e in self.rows), default=0)
+
+    @property
+    def backfill_steps(self) -> set:
+        """Steps at which some row backfills."""
+        return {a for e in self.rows
+                for a in range(self._first_bf(e), self._first_bf(e) + self.n_bf[e])}
+
+    def backfills_at(self, a: int) -> bool:
+        return any(self._first_bf(e) <= a < self._first_bf(e) + self.n_bf[e]
+                   for e in self.rows)
+
+    def shadow_at(self, a: int) -> bool:
+        return any(self.n_bf[e] and self._first_bf(e) == a for e in self.rows)
+
+    def reads_at(self, a: int) -> bool:
+        """Whether step a has a partition head attempt, whose outcome the
+        host reads."""
+        return self.cap is not None and any(a < self.hb[e] for e in self.rows)
+
+    def fail(self, a: int, ok: List[int]) -> bool:
+        """Apply step a's read outcomes: a row whose head at position a
+        found no group blocks there. Returns whether any row did."""
+        moved = False
+        for e in self.rows:
+            if a < self.hb[e] and not ok[e]:
+                self.hb[e], self.failed[e] = a, True
+                self.n_bf[e] = self._backfills(e)
+                moved = True
+        return moved
 
 
-def _plan_pass(host: List[int], E: int, W: int, live, backfill) -> _PassPlan:
+def _plan_pass(host: List[int], E: int, W: int, live, backfill,
+               partition: bool = False) -> _PassPlan:
     """The single run's host decisions (``engine._run_pass``) for each live
     row of the read ``host``: [E * W] windows, [E * W] node counts, [E]
-    unreserved counts."""
-    steps, backfill_steps, shadow_steps = 0, set(), set()
-    for e in range(E):
-        if not live[e]:
-            continue
-        win = host[e * W:(e + 1) * W]
-        res = host[(E + e) * W:(E + e + 1) * W]
-        free = host[2 * E * W + e]
-        heads, blocked = 0, None
-        for k, (j, r) in enumerate(zip(win, res)):
-            if j < 0:
-                break
-            if r > free:
-                blocked = k
-                break
-            heads += 1
-            free -= r
-        n_bf = 0
-        if blocked is not None and backfill[e]:  # FCFS stops at its blocked head
-            n_bf = sum(1 for k in range(blocked + 1, W) if win[k] >= 0 and res[k] <= free)
-        if n_bf:
-            backfill_steps.update(range(heads, heads + n_bf))
-            shadow_steps.add(heads)
-        steps = max(steps, heads + n_bf)
-    return _PassPlan(steps, backfill_steps, shadow_steps)
+    unreserved counts and, under partition, [E] largest-group unreserved
+    counts (:func:`_window_values`)."""
+    return _PassPlan(host, E, W, live, backfill, partition)
+
+
+class _Schedule(NamedTuple):
+    """Every row's attempts of a pass on the device, its attempted window
+    positions moved to the front in window order (column a is step a)."""
+
+    jobs: torch.Tensor  # i32[E, W]
+    jc: torch.Tensor  # i64[E, W]
+    res: torch.Tensor  # i32[E, W]
+    att: torch.Tensor  # bool[E, W]
+    bf: Optional[torch.Tensor]  # bool[E, W] backfill attempts (None: no row)
+    req: Optional[torch.Tensor]  # i32[E, W] their walltimes
+    need_shadow: Optional[torch.Tensor]  # bool[E]
+    head_job: Optional[torch.Tensor]  # i32[E] the blocked head
+
+
+def _schedule(s: SimState, g: Grid, values, hb, failed, live_d,
+              with_bf: bool) -> _Schedule:
+    """The device spelling of :class:`_PassPlan`, from the same ``values``
+    the host read: heads at the positions before ``hb``, the failed head at
+    ``hb`` on the ``failed`` rows, and on the EASY rows that block, the later
+    jobs that fit what the heads left (and, under partition, the largest
+    group). ``live_d`` leaves frozen rows out."""
+    window, res, n_free = values[:3]
+    W = window.shape[1]
+    valid = window >= 0
+    pos = torch.arange(W, dtype=I32, device=window.device)
+    head = valid & (pos < hb[:, None])
+    att = head | (failed[:, None] & (pos == hb[:, None]))
+    if live_d is not None:
+        att = att & live_d[:, None]
+    bf = need_shadow = head_job = None
+    if with_bf:
+        free_b = n_free - torch.where(head, res, 0).sum(dim=-1, dtype=I32)
+        blocked = hb < valid.sum(dim=-1, dtype=I32)
+        bf = (valid & (pos > hb[:, None]) & (res <= free_b[:, None])
+              & blocked[:, None])
+        if len(values) > 3:
+            bf = bf & (res <= values[3][:, None])
+        gate = g.gate("backfill")
+        if gate is not True:
+            bf = bf & gate[:, None]
+        if live_d is not None:
+            bf = bf & live_d[:, None]
+        need_shadow = bf.any(dim=-1)
+        head_job = window.gather(1, torch.clamp(hb, max=W - 1).long()[:, None])[:, 0]
+        att = att | bf
+    # each row's attempted positions first, in window order
+    order = torch.argsort((~att).to(I32), dim=-1, stable=True)
+    jobs = window.gather(1, order)
+    jc = _clamp_job(jobs)
+    req = None
+    if bf is not None:
+        bf, req = bf.gather(1, order), s.job_reqtime.gather(1, jc)
+    return _Schedule(jobs, jc, res.gather(1, order), att.gather(1, order), bf, req,
+                     need_shadow, head_job)
+
+
+def _run_pass(s: SimState, g: Grid, cfg: EngineConfig, values, host: List[int],
+              live, live_d) -> Tuple[SimState, bool]:
+    """One pass of every live row over the windows ``values`` read into
+    ``host``. Returns (state, whether any row attempted)."""
+    W = cfg.window
+    E = s.t.shape[0]
+    partition = cfg.allocation == "partition"
+    plan = _plan_pass(host, E, W, live, g.flags["backfill"], partition)
+    if not plan.steps:
+        return s, False
+    window, res, n_free = values[:3]
+    valid = window >= 0
+    csum = torch.cumsum(torch.where(valid, res, 0), dim=-1, dtype=I32)
+    heads = valid & (csum <= n_free[:, None])
+    if partition:  # up to the first job no group can hold either
+        heads = torch.cumprod((heads & (res <= values[3][:, None])).to(I32), dim=-1)
+    hb = heads.sum(dim=-1, dtype=I32)
+    failed = torch.zeros_like(hb, dtype=torch.bool)
+    sched = _schedule(s, g, values, hb, failed, live_d, bool(plan.backfill_steps))
+    inputs = _pass_inputs(s, g, cfg)
+    wake_until = s.t[:, None] + g.const.t_on
+    shadow = extra = None
+    a = 0
+    while a < plan.steps:
+        if plan.shadow_at(a):
+            ready = inputs.ready if inputs.ready is not None else _ready_times(s, g)
+            S, X = _shadow(s, sched.head_job, ready)
+            rows = sched.need_shadow & (hb + failed.to(I32) == a)
+            shadow = S if shadow is None else torch.where(rows, S, shadow)
+            extra = X if extra is None else torch.where(rows, X, extra)
+        bf_a = sched.bf[:, a] if plan.backfills_at(a) else None
+        step = _Step(sched.jobs[:, a], sched.jc[:, a:a + 1], sched.res[:, a],
+                     None if bf_a is None else sched.req[:, a], sched.att[:, a], bf_a)
+        ok, s = _try_allocate(s, g, cfg, step, inputs, wake_until, shadow, extra)
+        if bf_a is not None:
+            # backfill consumed part of the extra pool
+            extra = torch.where(ok & bf_a, extra - step.res, extra)
+        if plan.reads_at(a) and plan.fail(a, engine._read(ok)):
+            # the rows whose head found no group block at it
+            fail = step.attempt & (hb > a) & ~ok
+            hb = torch.where(fail, a, hb)
+            failed = failed | fail
+            sched = _schedule(s, g, values, hb, failed, live_d,
+                              bool(plan.backfill_steps))
+        a += 1
+    return s, True
 
 
 def _scheduler_pass(s: SimState, g: Grid, cfg: EngineConfig, live, live_d) -> SimState:
@@ -631,73 +849,54 @@ def _scheduler_pass(s: SimState, g: Grid, cfg: EngineConfig, live, live_d) -> Si
     EASY rows backfill behind it (by the ``[E]`` ``backfill`` flag).
 
     One host read fetches every row's window, the node counts its jobs ask
-    for and its unreserved count (:func:`_plan_pass` reads them as the
+    for and its unreserved count (:class:`_PassPlan` reads them as the
     single run does one row). The device builds the same decisions as
-    ``[E, W]`` masks from the same device values: a row's heads are the
-    window prefix whose running sum of node counts fits its unreserved
-    nodes, it blocks at the first job past that prefix, and its backfill
-    candidates are the later jobs that fit what the heads left. A stable
-    sort moves each row's attempted positions to the front, in window
-    order, and step a runs every row's a-th attempt as one batched attempt:
-    at most W steps for the grid, the most any one row attempts. A row's
-    shadow is computed at the step of its first backfill, from its state
-    after its heads, gated to the rows whose first backfill is there.
-    ``live`` (host) and ``live_d`` (its ``[E]`` tensor, None when every row
-    is live) leave frozen rows out.
+    ``[E, W]`` masks from the same device values (:func:`_schedule`): a
+    row's heads are the window prefix whose running sum of node counts fits
+    its unreserved nodes, it blocks at the first job past that prefix, and
+    its backfill candidates are the later jobs that fit what the heads
+    left. A stable sort moves each row's attempted positions to the front,
+    in window order, and step a runs every row's a-th attempt as one
+    batched attempt: at most W steps for the grid, the most any one row
+    attempts. A row's shadow is computed at the step of its first backfill,
+    from its state after its heads, gated to the rows whose first backfill
+    is there. ``live`` (host) and ``live_d`` (its ``[E]`` tensor, None when
+    every row is live) leave frozen rows out.
+
+    Under ``allocation="partition"`` a job asking for more nodes than the
+    row's largest group has unreserved is known to fail and is not
+    attempted. A head below that can still find no group, so the host reads
+    the ``[E]`` outcomes after each step with a head attempt (one read for
+    every row, never one a row) and a row whose head failed blocks there,
+    its backfills from the next step on: at most 1 + (steps with a
+    partition head attempt) reads a pass, no more than the row that reads
+    most makes in its single run.
+
+    Burst merging (``cfg.merge_bursts``): a row repeats its pass at the same
+    timestamp while the pass allocated and arrived jobs are still WAITING.
+    The ``[E]`` repeat condition is read together with the next windows,
+    one read a repeat, and the rows that do not repeat are left out of the
+    repeated pass by the frozen rows' gate, so they keep their state bit
+    for bit.
     """
-    W = cfg.window
     E = s.t.shape[0]
-    window, res, n_free = _window_values(s, W)
-    host = engine._read(window, res, n_free)
-    plan = _plan_pass(host, E, W, live, g.flags["backfill"])
-    if not plan.steps:
-        return s
-    valid = window >= 0
-    csum = torch.cumsum(torch.where(valid, res, 0), dim=-1, dtype=I32)
-    att = valid & (csum <= n_free[:, None])  # the heads
-    if live_d is not None:
-        att = att & live_d[:, None]
-    bf = None
-    if plan.backfill_steps:
-        n_head = att.sum(dim=-1, dtype=I32)
-        free_b = n_free - torch.where(att, res, 0).sum(dim=-1, dtype=I32)
-        pos = torch.arange(W, dtype=I32, device=window.device)
-        blocked = n_head < valid.sum(dim=-1, dtype=I32)
-        bf = (valid & (pos > n_head[:, None]) & (res <= free_b[:, None])
-              & blocked[:, None])
-        gate = g.gate("backfill")
-        if gate is not True:
-            bf = bf & gate[:, None]
+    values = _window_values(s, g, cfg)
+    host = engine._read(*values)
+    while True:
+        before = s.n_allocs
+        s, attempted = _run_pass(s, g, cfg, values, host, live, live_d)
+        if not (cfg.merge_bursts and attempted):
+            return s
+        arrived = (s.job_status == WAITING) & (s.job_subtime <= s.t[:, None])
+        more = (s.n_allocs > before) & arrived.any(dim=-1)
         if live_d is not None:
-            bf = bf & live_d[:, None]
-        need_shadow = bf.any(dim=-1)
-        head_job = window.gather(1, torch.clamp(n_head, max=W - 1).long()[:, None])[:, 0]
-        att = att | bf
-    # each row's attempted positions first, in window order
-    order = torch.argsort((~att).to(I32), dim=-1, stable=True)
-    jobs, att, res = window.gather(1, order), att.gather(1, order), res.gather(1, order)
-    jc = _clamp_job(jobs)
-    req = None
-    if bf is not None:
-        bf, req = bf.gather(1, order), s.job_reqtime.gather(1, jc)
-    inputs = _pass_inputs(s, g, cfg)
-    wake_until = s.t[:, None] + g.const.t_on
-    shadow = extra = None
-    for a in range(plan.steps):
-        if a in plan.shadow_steps:
-            ready = inputs.ready if inputs.ready is not None else _ready_times(s, g)
-            S, X = _shadow(s, head_job, ready)
-            rows = need_shadow & (n_head == a)
-            shadow = S if shadow is None else torch.where(rows, S, shadow)
-            extra = X if extra is None else torch.where(rows, X, extra)
-        bf_a = bf[:, a] if a in plan.backfill_steps else None
-        step = _Step(jobs[:, a], jc[:, a:a + 1], res[:, a],
-                     None if bf_a is None else req[:, a], att[:, a], bf_a)
-        ok, s = _try_allocate(s, g, cfg, step, inputs, wake_until, shadow, extra)
-        if bf_a is not None:
-            # backfill consumed part of the extra pool
-            extra = torch.where(ok & bf_a, extra - step.res, extra)
-    return s
+            more = more & live_d
+        values = _window_values(s, g, cfg)
+        got = engine._read(more, *values)
+        live, host = [bool(m) for m in got[:E]], got[E:]
+        if not any(live):
+            return s
+        live_d = None if all(live) else more
 
 
 def _start_jobs(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
@@ -812,7 +1011,10 @@ def _power_step(s: SimState, g: Grid, cfg: EngineConfig) -> SimState:
 
 
 def process_batch(s: SimState, g: Grid, cfg: EngineConfig, live, live_d) -> SimState:
-    """One atomic event batch at each row's ``t`` (rules 1-9)."""
+    """One atomic event batch at each row's ``t`` (rules 1-10), the
+    scheduler pass under the config's node order, allocation and burst
+    merging (:func:`_scheduler_pass`). The sweep's loop and the batched RL
+    env call it; ``live``/``live_d`` leave frozen rows out of the pass."""
     s = _complete_jobs(s)
     s = _complete_transitions(s, g)
     s = _scheduler_pass(s, g, cfg, live, live_d)
@@ -1238,8 +1440,8 @@ def sweep(
     the caller passes ``"cpu"``; raises when CUDA is asked for and absent).
 
     A scenario is a point on the per-row axes of :class:`EngineConst`,
-    sharing only ``config``'s structure (window, node_order,
-    terminate_overrun, grouped_tables, fused_kernel):
+    sharing only ``config``'s structure (window, node_order, allocation,
+    merge_bursts, terminate_overrun, grouped_tables, fused_kernel):
 
     * an int (timeout override; ``None`` = never),
     * a scheduler label string (``"FCFS PSAS+IPM"``), replacing base *and*
@@ -1252,8 +1454,10 @@ def sweep(
       :class:`EngineConst` field overrides,
     * or a prebuilt :class:`EngineConst`.
 
-    Each row equals the port's single run (``engine.simulate``) of its
-    scenario (module docstring); per-scenario :class:`SimMetrics` come back
+    ``config``'s ``node_order``, ``allocation`` and ``merge_bursts`` hold
+    for every row. Each row equals the port's single run
+    (``engine.simulate``) of its scenario (module docstring); per-scenario
+    :class:`SimMetrics` come back
     in a :class:`SimBatch`. ``devices``: None, 1 or ``"all"`` on one card;
     more raises naming ROADMAP item 8b.
     """

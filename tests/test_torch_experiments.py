@@ -162,20 +162,6 @@ def test_run_rejections_are_the_reference_messages(case, tmp_path):
     assert port == _message(lambda: fn(jexp, jexp.run, tmp_path))
 
 
-@pytest.mark.parametrize("kw,what", [
-    ({"node_order": "pack"}, 'node_order="pack"'),
-    ({"allocation": "partition"}, 'allocation="partition"'),
-    ({"merge_bursts": True}, "merge_bursts"),
-])
-def test_what_a_grid_does_not_run_names_item_8b_and_one_point_runs(kw, what):
-    exp = _small(texp, schedulers=("EASY PSUS", "FCFS PSAS"), timeouts=(300,), **kw)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP Queue 1 item 8b"):
-        texp.run(exp, device=CPU)
-    one = dataclasses.replace(exp, schedulers=("EASY PSUS",))
-    row, = texp.run(one, device=CPU).rows
-    assert row["n_jobs"] == 10 and not row.get("truncated")
-
-
 def test_devices_beyond_one_name_item_8b():
     with pytest.raises(NotImplementedError, match="devices=2 .*item 8b"):
         texp.run(_small(texp), devices=2, device=CPU)

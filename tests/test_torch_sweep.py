@@ -458,9 +458,6 @@ def test_dvfs_mode_width_must_match():
 
 
 @pytest.mark.parametrize("scenarios,kw,what", [
-    ([60], {"node_order": "pack"}, 'node_order="pack"'),
-    ([60], {"allocation": "partition"}, 'allocation="partition"'),
-    ([60], {"merge_bursts": True}, "merge_bursts"),
     ([60], {"devices": 2}, "devices=2"),
 ])
 def test_what_the_sweep_does_not_run_names_item_8b(scenarios, kw, what):
