@@ -32,7 +32,11 @@ Phases (each prints a line; any failed check exits non-zero):
    attention at the prefill shape in bf16, in turns in one call, the SIMT
    kernel, the wgmma kernel, the wgmma kernel and the SIMT kernel on the
    same inputs, then the plain version and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; flash attention held and timed the
+   same way (the variant the table names, the plain version, SDPA, the
+   bound and the host time) at phase 14's prefill shapes (``FLASH_NEW``:
+   glm4-9b's GQA 16:1 and qwen3-14b's 5:1 in bf16, head dim 80 in bf16 and
+   f32);
 4. labels: the paper's seven schedulers on a 16-node homogeneous and a
    16-node mixed platform on the card, and every DVFS and Forecast label
    (``scheduler_labels(include_dvfs=True, include_forecast=True)`` and
@@ -73,18 +77,19 @@ Phases (each prints a line; any failed check exits non-zero):
    go through ``prefill`` by the kernel route and by the plain route, whose
    last-position logits must agree;
 9. xLSTM serve: the same loop and flags serve the full-width xlstm-350m in
-   bf16 — ``ssd_scan`` must have been called twice per ``xlstm_pair`` per
-   request (384, each call three launches) and no other kernel; one
+   bf16 at ``XPAIRS`` (6) of its 12 pairs — ``ssd_scan`` must have been
+   called twice per ``xlstm_pair`` per request (192, each call three
+   launches) and no other kernel; one
    ``xlstm_pair`` block at S 1024
    is timed, its mLSTM and its sLSTM are profiled, and so is one decode
-   step; then, in f32,
+   step; then, in f32 at the same 6 pairs,
    two 1024-token prompts go through ``prefill`` by the kernel route and
    by the plain route, whose last-position logits must agree;
 10. power rules at Curie scale, grouped: EASY PSUS+Forecast (horizon
    1800 s) on the first ``FORECAST_JOBS`` (500) of phase 6's jobs (against
    phase 6's configuration on them), and EASY PSUS+DVFS on the DVFS
    platform at 11 200 nodes with phase 5's workload cut to ``DVFS_JOBS``
-   (250) jobs (timeout 900 s, ``node_order=
+   (125) jobs (timeout 900 s, ``node_order=
    "cheap"``, ``terminate_overrun``) — the occupancy kernel must have
    launched once a batch and the schedule must equal the same run's on the
    plain per-node route (energy and mode ledgers to rel 1e-5); the Forecast
@@ -156,15 +161,35 @@ Phases (each prints a line; any failed check exits non-zero):
    two same-shaped requests (the second all cache hits), a ``profiles``
    request, ``bench_scale.py``'s Curie grid at phase 11's depth (E = 8, each
    row equal to phase 11's dense E = 8 row bit for bit) and a request whose
-   workload does not exist (an error response while the others finish).
+   workload does not exist (an error response while the others finish);
+14. dense and hybrid archs: ``repro_torch.launch.serve --per-slot-positions``
+   serves glm4-9b, stablelm-3b, qwen3-14b and zamba2-2.7b at full width and
+   depth in bf16 (random weights from seed 0; 8 requests of 1024 tokens, 4
+   slots, 32 new tokens, cache 1280), one model at a time — each must
+   launch flash attention once per attention layer per request, all on the
+   variant ``ARCHS14`` names (320 wgmma, 256 SIMT, 320 wgmma, 72 SIMT: 9
+   shared-attention applications), zamba2 ``ssd_scan`` once per Mamba-2
+   layer per request (432), the dense archs none, no event kernel; the
+   refilled requests 4 and 7 are held against their own single-sequence
+   decode within ``REFILL_TOL``; tokens/s, TTFT, prefill and decode ms, the
+   weights' GB and peak memory are printed, and one decode step of the 4
+   slots (and zamba2's prefill) profiled; then, in f32 at full width and
+   cut depth (2 layers, or one super-block of 6 Mamba-2 layers and the
+   shared block), two 1024-token prompts go through ``prefill`` by the
+   kernel route and by the plain route (``attn_impl="naive"``,
+   ``gla_impl="plain"``): last-position logits within ``LOGITS_REL_TOL``,
+   the same greedy tokens.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
-dtypes and in f32, at a ragged S, from a non-zero state and at the
+dtypes and in f32, at zamba2's Mamba-2 shape (``SSD_MAMBA``: H 80, dk = dv
+= 64, q a stride-0 view of C over the heads) in the same dtypes and in
+f32, at a ragged S, from a non-zero state and at the
 reference's kernel-test shapes (f32: 1e-4 of max |y|; bf16 y: one bf16 ulp
 of the element plus 1e-5 of max |y|), checks that a second run is bit for
 bit the first and that the built library's launch plan is
-``ssd_scan.launch_plan``'s, and times its three passes.
+``ssd_scan.launch_plan``'s, and times its three passes at the two xLSTM
+shapes and the Mamba-2 one.
 
 Then it prints the kernels' JSON line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. It imports
@@ -203,8 +228,17 @@ TENSOR_BF16_FLOPS_PER_S = 989e12
 ARCH = "internlm2-1.8b"
 # (B, Sq, Sk, H, KH, hd, causal): the serve path's prefill shape first
 FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
+# phase 14's prefill shapes: glm4-9b's GQA 16:1 and qwen3-14b's 5:1 (wgmma
+# in bf16), and head dim 80 (stablelm-3b, and zamba2-2.7b's shared
+# attention; the SIMT kernel)
+FLASH_NEW = {
+    "glm4-9b": (1, 1024, 1024, 32, 2, 128, True),
+    "qwen3-14b": (1, 1024, 1024, 40, 8, 128, True),
+    "hd 80": (1, 1024, 1024, 32, 32, 80, True),
+}
 FLASH_SHAPES = [
     FLASH_MAIN,
+    *FLASH_NEW.values(),
     (1, 256, 256, 8, 1, 128, True),    # MQA
     (1, 384, 256, 2, 2, 128, True),    # Sq > Sk
     (1, 128, 320, 4, 2, 64, True),     # KV tail not a tile multiple
@@ -219,6 +253,22 @@ SERVE_ARGS = ["--arch", ARCH, "--requests", "16", "--slots", "4",
               "--device", "cuda", "--per-slot-positions"]
 XARCH = "xlstm-350m"
 XSERVE_ARGS = ["--arch", XARCH] + SERVE_ARGS[2:]
+# phase 9 serves and checks the xLSTM at full width and 6 of its 12 pairs
+XPAIRS = 6
+# phase 14: the dense and hybrid archs at full width and depth, 8 requests
+# of 1024 tokens on 4 slots (requests 4-7 each refill a freed slot); per
+# arch the flash launches of the serve and their variant, its ssd_scan
+# calls, and the depth of its f32 kernel-route check (2 layers, or one
+# super-block of 6 Mamba-2 layers and the shared block)
+ARCHS14 = {
+    "glm4-9b": (320, "wgmma", 0, 2),
+    "stablelm-3b": (256, "simt", 0, 2),
+    "qwen3-14b": (320, "wgmma", 0, 2),
+    "zamba2-2.7b": (72, "simt", 432, 6),
+}
+SERVE14_ARGS = ["--requests", "8", "--slots", "4", "--prompt-len", "1024", "--max-new", "32",
+                "--cache-len", "1280", "--per-slot-positions"]
+REFILLED14 = (4, 7)
 # requests the serve loop prefills into a freed slot: the first and the last
 # refill of phase 8's 16 requests on 4 slots
 REFILLED = (4, 15)
@@ -232,10 +282,14 @@ REFILL_TOL = 2.0 ** -4
 # values and the normaliser's dv 1)
 SSD_MAIN = (1, 1024, 4, 512, 512, 128)
 SSD_NORM = (1, 1024, 4, 512, 1, 128)
+# zamba2-2.7b's Mamba-2 scan at prefill: q is C, one group broadcast over
+# the 80 heads as a stride-0 view (mamba_ssd_inputs)
+SSD_MAMBA = (1, 1024, 80, 64, 64, 128)
 # (label, shape, dtypes of q, k, v, non-zero h0): the serve shapes in the
 # mLSTM's dtypes (q bf16, k f32, v bf16) and in f32, a ragged S, a
-# continued prefill, and the reference's kernel-test shapes (SSD_CASES of
-# tests/test_kernels.py) in f32 and bf16
+# continued prefill, the Mamba-2 scan (the same dtypes) and the
+# reference's kernel-test shapes (SSD_CASES of tests/test_kernels.py) in
+# f32 and bf16
 _MIXED, _F32, _BF16 = ("bfloat16", "float32", "bfloat16"), ("float32",) * 3, ("bfloat16",) * 3
 SSD_CHECKS = [
     ("serve values", SSD_MAIN, _MIXED, False),
@@ -246,6 +300,8 @@ SSD_CHECKS = [
     ("ragged S 1000 normaliser", (1, 1000, 4, 512, 1, 128), _MIXED, False),
     ("non-zero h0", SSD_MAIN, _MIXED, True),
     ("non-zero h0 f32", (2, 256, 2, 64, 64, 64), _F32, True),
+    ("mamba2 stride-0 q", SSD_MAMBA, _MIXED, False),
+    ("mamba2 stride-0 q f32", SSD_MAMBA, _F32, False),
 ] + [
     (f"SSD_CASES {dn}", shape, dts, False)
     for shape in ((1, 128, 1, 32, 32, 32), (2, 256, 2, 64, 64, 64),
@@ -300,10 +356,10 @@ LABELS = [
 ] + ["EASY AlwaysOn"]
 # depth cuts that keep the script inside its time: phase 10's Forecast run
 # and phase 11's grids replay the first 500 jobs, not 1000, and phase 10's
-# DVFS run takes phase 5's workload cut to 250 jobs
+# DVFS run takes phase 5's workload cut to 125 jobs
 FORECAST_JOBS = 500
 SWEEP_JOBS = 500
-DVFS_JOBS = 250
+DVFS_JOBS = 125
 # phase 11's dense E = 64 grid replays the first 250 jobs, not 500, and its
 # plain grouped E = 8 grid is dropped, so that (e) and (f) fit
 SWEEP_CUT_JOBS = 250
@@ -518,13 +574,15 @@ def flash_bound(b, sq, sk, h, kh, hd, causal, itemsize):
     )
 
 
-def ssd_bound(b, s, h, dk, dv, chunk, itemsizes, h0):
+def ssd_bound(b, s, h, dk, dv, chunk, itemsizes, h0, q_heads=None):
     """(ms, "bytes" or "operations") for one GLA scan: q, k, v, g (and h0)
     read once, y and h_final written once, against the f32 products the
     recurrence needs in its chunk form — per chunk of L steps the causal
     L(L+1)/2 scores (dk each) and their products with v (dv each), and
     q . h_in and the state update (dk dv each per step), 2 flops a
-    multiply-add — at the f32 peak (the kernel computes in f32)."""
+    multiply-add — at the f32 peak (the kernel computes in f32). A q of
+    ``q_heads`` heads broadcast over the H (Mamba-2's C: 1) is read as
+    those."""
     flops = 0
     for t0 in range(0, s, chunk):
         n = min(chunk, s - t0)
@@ -532,7 +590,8 @@ def ssd_bound(b, s, h, dk, dv, chunk, itemsizes, h0):
         flops += 2 * (pairs * dk + pairs * dv + 2 * n * dk * dv)
     flops *= b * h
     iq, ik, iv = itemsizes
-    bytes_moved = (b * s * h * (dk * (iq + ik) + dv * iv + 4 + dv * iv)
+    qh = h if q_heads is None else q_heads
+    bytes_moved = (b * s * (qh * dk * iq + h * (dk * ik + dv * iv + 4 + dv * iv))
                    + 4 * b * h * dk * dv * (2 if h0 else 1))
     by_bytes = bytes_moved / HBM_BYTES_PER_S
     by_ops = flops / F32_FLOPS_PER_S
@@ -561,17 +620,64 @@ def ssd_inputs(torch, np, shape, dtypes, h0=False, seed=0):
             None if st is None else dev(st, "float32")]
 
 
+def mamba_ssd_inputs(torch, np, shape, dtypes, h0=False, seed=0):
+    """q, k, v, g, h0 (or None) on the card, as Mamba-2 makes them: q = C
+    ``[B, S, dk]`` broadcast over the H heads (a stride-0 view), k = B dt
+    with B ``[B, S, dk]`` shared by the heads and dt = softplus of a
+    pre-activation near -4 (about the init's 1e-3..1e-1), v standard
+    normal, g = -dt A with A = linspace(1, 16) over the heads (the init's
+    ``A_log``), a non-zero h0 standard normal."""
+    b, s, h, dk, dv, _ = shape
+    rng = np.random.default_rng(seed + s + 7 * dk + 31 * dv + 101 * h)
+    c = rng.normal(size=(b, s, dk))
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)) - 4))
+    k = rng.normal(size=(b, s, 1, dk)) * dt[..., None]
+    v = rng.normal(size=(b, s, h, dv))
+    g = -dt * np.linspace(1.0, 16.0, h)
+    st = rng.normal(size=(b, h, dk, dv)) if h0 else None
+
+    def dev(x, dname):
+        return torch.from_numpy(x.astype(np.float32)).to("cuda", getattr(torch, dname))
+
+    q = dev(c, dtypes[0])[:, :, None, :].expand(b, s, h, dk)
+    return [q, dev(k, dtypes[1]), dev(v, dtypes[2]), dev(g, "float32"),
+            None if st is None else dev(st, "float32")]
+
+
+def refill_gaps(torch, model, prompts, tokens, rids, cache_len, dev="cuda"):
+    """(each token's gap below its own decode's greedy maximum over the
+    largest |logit|, the count of tokens that are that maximum) of the
+    requests ``rids``' served ``tokens``: each request's prompt (``prompts``,
+    numpy) prefilled alone and decoded teacher-forced with the served
+    tokens, so one token within tolerance does not derail the rest."""
+    gaps, exact = [], 0
+    with torch.inference_mode():
+        for rid in rids:
+            served = tokens[rid]
+            prompt = torch.from_numpy(prompts[rid][None]).to(dev)
+            logits, one = model.prefill(prompt, cache_len=cache_len)
+            for i, tok in enumerate(served):
+                ref = logits[0, -1].float()
+                gaps.append(float(ref.max() - ref[tok]) / float(ref.abs().max()))
+                exact += int(ref.argmax()) == tok
+                if i + 1 < len(served):
+                    logits, one = model.decode_step(
+                        torch.tensor([[tok]], device=dev), one, prompt.shape[1] + i)
+    return gaps, exact
+
+
 def kernel_kind(name: str) -> str:
-    """ssd, matmul or other, for a device kernel's name."""
+    """ssd, flash, matmul or other, for a device kernel's name."""
     if kernel_base(name).startswith("ssd_scan"):
         return "ssd"
-    return "matmul" if kernel_class(name) == "matmul" else "other"
+    return kernel_class(name)
 
 
 def profile_split(torch, fn, calls):
     """Profile ``calls`` calls of ``fn`` (after one warm-up): ({kind: device
-    ms per call}, top-level host ops per call, device ops per call, share
-    of the device records seen). As in :func:`device_ms`, each op name is
+    ms per call}, top-level host ops per call, device ops per call, ssd_scan
+    launches per call, share of the device records seen, wall ms per call
+    with the profiler on). As in :func:`device_ms`, each op name is
     timed by its mean recorded duration times its launches per call (its
     recorded count over ``calls``, rounded), because the profiler may lose
     records of a long capture; the share seen must be at least a half."""
@@ -579,9 +685,11 @@ def profile_split(torch, fn, calls):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -591,11 +699,12 @@ def profile_split(torch, fn, calls):
     n_ops = sum(per_call.values())
     seen = sum(len(v) for v in by_name.values()) / (n_ops * calls)
     check(seen >= 0.5, f"the profiler recorded {seen:.2f} of the device operations")
-    by_kind = {"ssd": 0.0, "matmul": 0.0, "other": 0.0}
+    by_kind = {"ssd": 0.0, "flash": 0.0, "matmul": 0.0, "other": 0.0}
     for k, v in by_name.items():
         by_kind[kernel_kind(k)] += statistics.fmean(v) * per_call[k]
     ssd_per_call = sum(n for k, n in per_call.items() if kernel_kind(k) == "ssd")
-    return by_kind, top_level_ops(torch, prof) / calls, n_ops, ssd_per_call, seen
+    return (by_kind, top_level_ops(torch, prof) / calls, n_ops, ssd_per_call, seen,
+            1e3 * wall / calls)
 
 
 def flash_inputs(torch, np, shape, dtype, seed=0):
@@ -1815,6 +1924,142 @@ def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
     return by_part
 
 
+def phase14(torch, np, dev="cuda"):
+    """Phase 14: each of ``ARCHS14`` served at full width and depth in bf16
+    with random weights from seed 0 (``SERVE14_ARGS``) on ``dev``, its
+    kernel launches counted, its refilled requests held against their own
+    decode, then its f32 kernel route against the plain route at full width
+    and cut depth. Returns {arch: the serve's launches by counter}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    t14 = time.perf_counter()
+    n_req, max_new, prompt_len, cache_len = 8, 32, 1024, 1280
+    launches = {}
+    for arch, (n_flash, route, n_ssd, depth) in ARCHS14.items():
+        t_arch = time.perf_counter()
+        cfg = get_arch(arch)
+        check(fa.variant(cfg.dtype, cfg.hd) == route,
+              f"{arch}: flash_attention.variant names {fa.variant(cfg.dtype, cfg.hd)}, "
+              f"not {route}")
+        stats = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        result = serve.main(["--arch", arch] + SERVE14_ARGS + ["--device", dev], stats=stats)
+        got = dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"])
+        events = dict(event_fuse.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches[arch] = got
+        check(got["flash_attention"] == got[f"flash_attention_{route}"] == n_flash
+              and got["ssd_scan"] == n_ssd,
+              f"{arch} serve: launches {got}, expected {n_flash} flash on {route} and "
+              f"{n_ssd} ssd_scan")
+        check(not any(events.values()), f"{arch} serve launched {events}")
+        check((result["requests"], result["decode_steps"], result["total_tokens"])
+              == (n_req, 2 * (max_new - 1), n_req * max_new), f"{arch} serve counts {result}")
+        toks = [t for ts in stats["tokens"].values() for t in ts]
+        check(len(toks) == n_req * max_new and all(0 <= t < cfg.padded_vocab for t in toks),
+              f"{arch} serve tokens")
+        pre_ms = [1e3 * x for x in stats["prefill_s"]]
+        dec_ms = [1e3 * x for x in stats["decode_s"]]
+
+        # the refilled requests against their own prefill + decode, on
+        # serve's weights and prompts
+        model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+        weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        prompt_rng = np.random.default_rng(0)
+        queue = [prompt_rng.integers(0, cfg.vocab_size, size=prompt_len)
+                 for _ in range(n_req)]
+        gaps, exact = refill_gaps(torch, model, queue, stats["tokens"], REFILLED14, cache_len,
+                                  dev)
+        check(max(gaps) <= REFILL_TOL,
+              f"{arch} serve: a refilled request's token is {max(gaps):.4g} of the largest "
+              f"|logit| below its own decode's maximum (tolerance {REFILL_TOL})")
+        # one decode step of the 4 slots at [4] positions, as serve runs it,
+        # profiled, and for the hybrid one prefill (1 x 1024 tokens) too (a
+        # profile costs seconds of host time: the dense prefills are
+        # internlm2's, profiled in phase 8, at other widths)
+        prompt = torch.from_numpy(queue[0][None]).to(dev)
+        cache4 = model.init_cache(4, cache_len)
+        tok4 = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+        pos4 = torch.full((4,), 1100, dtype=torch.int64, device=dev)
+        parts = {"decode step": lambda: model.decode_step(tok4, cache4, pos4)}
+        if n_ssd:
+            parts["prefill"] = lambda: model.prefill(prompt, cache_len=cache_len)
+        with torch.inference_mode():
+            prof = {part: profile_split(torch, fn, calls=1) for part, fn in parts.items()}
+        del model, cache4
+        torch.cuda.empty_cache()
+
+        # the kernel route against the plain route, full width, cut depth, f32
+        cut = cfg.replace(dtype_name="float32", n_layers=depth)
+        n_attn = cut.block_program()[0][1]  # one attention a layer or a super-block
+        n_mamba = n_attn * cut.mamba_per_super if n_ssd else 0
+        model = build_model(cut, dev).init(torch.Generator(device=dev).manual_seed(0))
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, prompt_len))).to(dev)
+        with torch.inference_mode():
+            fa.reset_launches()
+            ssd.reset_launches()
+            model.attn_impl, model.gla_impl = "auto", "auto"
+            logits_k = model.prefill(prompts)[0][:, -1]
+            torch.cuda.synchronize()
+            k_got = dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"])
+            check(k_got["flash_attention"] == k_got["flash_attention_simt"] == n_attn
+                  and k_got["ssd_scan"] == n_mamba,
+                  f"{arch} f32 prefill: launches {k_got}, expected {n_attn} SIMT flash and "
+                  f"{n_mamba} ssd_scan")
+            model.attn_impl, model.gla_impl = "naive", "plain"
+            logits_p = model.prefill(prompts)[0][:, -1]
+            check(dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"]) == k_got,
+                  f"{arch}: the plain route launched a kernel")
+        scale = float(logits_p.abs().max())
+        diff = float((logits_k - logits_p).abs().max())
+        tok_k, tok_p = logits_k.argmax(-1).tolist(), logits_p.argmax(-1).tolist()
+        top2 = logits_p.topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        del model, logits_k, logits_p
+        torch.cuda.empty_cache()
+        check(diff <= LOGITS_REL_TOL * max(scale, 1.0),
+              f"{arch} f32 logits: kernel route vs plain route max abs diff {diff} > "
+              f"{LOGITS_REL_TOL} x {scale}")
+        check(tok_k == tok_p, f"{arch} f32 greedy tokens: kernel {tok_k} vs plain {tok_p}")
+        print(f"phase 14 serve: {arch} full width bf16 on cuda ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, H {cfg.n_heads}, KH {cfg.n_kv_heads}, hd {cfg.hd}; "
+              f"{weights_gb:.2f} GB of weights), 8 requests x 1024 tokens, 4 slots, 32 new "
+              f"tokens, cache 1280, per-slot positions: {result}; flash_attention launches "
+              f"{got['flash_attention']} all {route}, ssd_scan calls {got['ssd_scan']}, no "
+              f"event kernel; prefill first {pre_ms[0]:.2f} ms, median of the rest "
+              f"{statistics.median(pre_ms[1:]):.2f} ms per request; decode median "
+              f"{statistics.median(dec_ms):.3f} ms, mean {statistics.fmean(dec_ms):.3f} ms "
+              f"per step ({len(dec_ms)} steps); peak device memory {peak_gib:.2f} GiB; "
+              f"refilled requests {REFILLED14} against their own decode: {exact} of "
+              f"{len(gaps)} tokens the greedy maximum, largest gap {max(gaps):.4g} "
+              f"(tolerance {REFILL_TOL}); f32 at {depth} layers, 2 x 1024-token prompts, "
+              f"kernel route ({n_attn} SIMT flash, {n_mamba} ssd_scan) vs plain route: "
+              f"last-position logits max abs diff {diff:.3g} (largest |logit| {scale:.3g}, "
+              f"tolerance {LOGITS_REL_TOL} of it), greedy tokens {tok_k} == {tok_p} (top-2 "
+              f"margin {margin:.3g}); arch wall {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+        for part, (by_kind, ops, n_dev, _, seen, wall) in prof.items():
+            dev_ms = sum(by_kind.values())
+            print(f"phase 14 serve: {arch} one bf16 {part} profiled: wall {wall:.2f} ms, "
+                  f"{ops:.0f} top-level host ops, {n_dev} device ops, device {dev_ms:.3f} ms "
+                  f"(busy {100 * dev_ms / wall:.1f} %): "
+                  + ", ".join(f"{k} {ms:.3f} ms" for k, ms in by_kind.items())
+                  + f" (records seen {seen:.3f})", flush=True)
+    print(f"phase 14 dense and hybrid archs: wall {time.perf_counter() - t14:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2081,10 +2326,38 @@ def main() -> None:
           f"({b_by}); profiler records seen: kernel {k_seen:.3f}, plain {p_seen:.3f}, "
           f"sdpa {l_seen:.3f}", flush=True)
 
+    # the new serve paths' prefill shapes: the variant the table names, the
+    # plain version and scaled_dot_product_attention, in bf16, and at hd 80
+    # in f32 as well
+    flash_new = {}
+    for label, shape in FLASH_NEW.items():
+        for dname in ("bfloat16", "float32") if shape[5] == 80 else ("bfloat16",):
+            args = flash_inputs(torch, np, shape, getattr(torch, dname))
+            route = fa.variant(args[0].dtype, shape[5])
+            kname = ("flash_attention_wgmma_kernel" if route == "wgmma"
+                     else "flash_attention_kernel")
+            k_ms, k_seen = one_kernel(flash_kernel, args, kname)
+            p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=20)
+            l_ms, l_ops, _, l_seen = device_ms(torch, sdpa, args, calls=100)
+            k_host = host_ms(torch, flash_kernel, args)
+            b_ms, b_by = flash_bound(*shape, itemsize=args[0].element_size())
+            flash_new[f"{label} {dname}"] = {
+                "shape": list(shape[:6]), "variant": route, "ms": k_ms, "plain_ms": p_ms,
+                "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "host_ms": k_host}
+            print(f"phase 3 kernels: flash_attention {label} {dname} (B, Sq, Sk, H, KH, hd) "
+                  f"{shape[:6]} causal: device time {route} kernel {1e3 * k_ms:.3f} us, plain "
+                  f"{1e3 * p_ms:.3f} us ({p_ops} device ops), scaled_dot_product_attention "
+                  f"{1e3 * l_ms:.3f} us ({l_ops} device ops; kernel / SDPA "
+                  f"{k_ms / l_ms:.2f}); bound {1e3 * b_ms:.3f} us ({b_by}), kernel at "
+                  f"{b_ms / k_ms:.3f} of it; wrapper host time {1e3 * k_host:.2f} us per "
+                  f"call; profiler records seen: kernel {k_seen:.3f}, plain {p_seen:.3f}, "
+                  f"sdpa {l_seen:.3f}", flush=True)
+
     # ssd_scan: tolerance, not bits (f32 sums in another order)
     ssd_err, ssd_cases = 0.0, []
     for label, shape, dts, with_h0 in SSD_CHECKS:
-        q, k, v, g, h0 = ssd_inputs(torch, np, shape, dts, with_h0)
+        make = mamba_ssd_inputs if shape == SSD_MAMBA else ssd_inputs
+        q, k, v, g, h0 = make(torch, np, shape, dts, with_h0)
         chunk = shape[-1]
         before = ssd.LAUNCHES["ssd_scan"]
         y, h_t = ssd.ssd_scan(q, k, v, g, h0, chunk)
@@ -2131,8 +2404,9 @@ def main() -> None:
         return ssd.ssd_scan_plain(q, k, v, g, h0, SSD_MAIN[-1])
 
     ssd_time = {}
-    for shape in (SSD_MAIN, SSD_NORM):
-        args = ssd_inputs(torch, np, shape, _MIXED)
+    for shape in (SSD_MAIN, SSD_NORM, SSD_MAMBA):
+        mamba = shape == SSD_MAMBA
+        args = (mamba_ssd_inputs if mamba else ssd_inputs)(torch, np, shape, _MIXED)
         b, _, h, dk, dv, _ = shape
         args[4] = torch.zeros((b, h, dk, dv), device="cuda")  # the prefill's zero state
         k_ms, k_ops, k_names, k_seen = device_ms(torch, ssd_kernel, args, calls=50)
@@ -2142,9 +2416,11 @@ def main() -> None:
               f"expected): {list(k_names)}")
         p_ms, p_ops, _, p_seen = device_ms(torch, ssd_plain, args, calls=10)
         k_host = host_ms(torch, ssd_kernel, args)
-        b_ms, b_by = ssd_bound(*shape, itemsizes=(2, 4, 2), h0=True)
+        b_ms, b_by = ssd_bound(*shape, itemsizes=(2, 4, 2), h0=True,
+                               q_heads=1 if mamba else None)
         ssd_time[dv] = (k_ms, p_ms, b_ms, b_by, k_host)
-        print(f"phase 3 kernels: ssd_scan (B, S, H, dk, dv, chunk) {shape} q bf16, k "
+        print(f"phase 3 kernels: ssd_scan (B, S, H, dk, dv, chunk) {shape} q bf16"
+              f"{' (Mamba-2: C over the heads, stride 0)' if mamba else ''}, k "
               f"f32, v bf16, zero h0: device time kernels {1e3 * k_ms:.3f} us ("
               + ", ".join(f"{kernel_base(x)} {1e3 * t:.3f}" for x, t in k_names.items())
               + f"), plain {1e3 * p_ms:.3f} us ({p_ops} device ops; kernels / plain "
@@ -2457,27 +2733,9 @@ def main() -> None:
     prompt_rng = np.random.default_rng(0)
     queue = [prompt_rng.integers(0, lm.vocab_size, size=1024) for _ in range(n_req)]
 
-    def refill_gaps(tokens):
-        """(each token's gap below its own decode's greedy maximum over the
-        largest |logit|, the count of tokens that are that maximum) of the
-        refilled requests' ``tokens``."""
-        gaps, exact = [], 0
-        with torch.inference_mode():
-            for rid in REFILLED:
-                served = tokens[rid]
-                logits, one = model.prefill(torch.from_numpy(queue[rid][None]).cuda(),
-                                            cache_len=1280)
-                for i, tok in enumerate(served):
-                    ref = logits[0, -1].float()
-                    gaps.append(float(ref.max() - ref[tok]) / float(ref.abs().max()))
-                    exact += int(ref.argmax()) == tok
-                    if i + 1 < len(served):
-                        logits, one = model.decode_step(
-                            torch.tensor([[tok]], device="cuda"), one, 1024 + i)
-        return gaps, exact
-
-    sound, sound_exact = refill_gaps(stats["tokens"])
-    fault, fault_exact = refill_gaps(shared_stats["tokens"])
+    sound, sound_exact = refill_gaps(torch, model, queue, stats["tokens"], REFILLED, 1280)
+    fault, fault_exact = refill_gaps(torch, model, queue, shared_stats["tokens"], REFILLED,
+                                     1280)
     print(f"phase 8 serve: refilled requests {REFILLED} against their own "
           f"single-sequence prefill + decode, teacher-forced, gaps below the "
           f"greedy maximum over the largest |logit|: per-slot positions "
@@ -2606,14 +2864,15 @@ def main() -> None:
     # ---- 9. xLSTM serve on the card ----
     t9 = time.perf_counter()
     xl = get_arch(XARCH)
-    n_pairs = xl.block_program()[0][1]  # one stage of xlstm_pair blocks
+    xl_cut = xl.replace(n_layers=2 * XPAIRS)  # the serve's and the f32 check's depth
+    n_pairs = xl_cut.block_program()[0][1]  # one stage of xlstm_pair blocks
     stats = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     event_fuse.reset_launches()
     fa.reset_launches()
     ssd.reset_launches()
-    xresult = serve.main(XSERVE_ARGS, stats=stats)
+    xresult = serve.main(XSERVE_ARGS, stats=stats, config=xl_cut)
     ssd_launches = ssd.LAUNCHES["ssd_scan"]
     others = dict(event_fuse.LAUNCHES, flash_attention=fa.LAUNCHES["flash_attention"])
     x_peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2628,7 +2887,8 @@ def main() -> None:
           "xlstm serve tokens")
     x_pre = [1e3 * x for x in stats["prefill_s"]]
     x_dec = [1e3 * x for x in stats["decode_s"]]
-    print(f"phase 9 serve: {XARCH} full width bf16 on cuda, 16 requests x 1024 "
+    print(f"phase 9 serve: {XARCH} full width bf16 on cuda at {n_pairs} of its "
+          f"{xl.n_layers // 2} pairs, 16 requests x 1024 "
           f"tokens, 4 slots, 32 new tokens: {xresult}; ssd_scan calls "
           f"{ssd_launches} (= 16 x {n_pairs} pairs x 2, {ssd.KERNELS_PER_CALL} launches "
           f"each), no other kernel; prefill "
@@ -2707,7 +2967,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the kernel route against the plain route, full width, f32
-    model = build_model(xl.replace(dtype_name="float32"), "cuda").init(
+    model = build_model(xl_cut.replace(dtype_name="float32"), "cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
         0, xl.vocab_size, (2, 1024))).cuda()
@@ -2738,8 +2998,8 @@ def main() -> None:
               f"f32 xlstm greedy token {i}: kernel {xtok_k[i]} vs plain {xtok_p[i]}")
     del model
     torch.cuda.empty_cache()
-    print(f"phase 9 serve: f32 full width, 2 x 1024-token prompts, prefill by the "
-          f"kernel route ({2 * n_pairs} launches) vs the plain route: last-position "
+    print(f"phase 9 serve: f32 full width at {n_pairs} pairs, 2 x 1024-token prompts, "
+          f"prefill by the kernel route ({2 * n_pairs} launches) vs the plain route: last-position "
           f"logits max abs diff {x_diff:.3g} (largest |logit| {x_scale:.3g}, "
           f"tolerance {LOGITS_REL_TOL} of it); greedy first tokens kernel {xtok_k}, "
           f"plain {xtok_p}; phase wall {time.perf_counter() - t9:.1f} s", flush=True)
@@ -2759,6 +3019,10 @@ def main() -> None:
     # ---- 13. the experiment layer and the service ----
     torch.cuda.empty_cache()
     exp_by_part = phase13(torch, np, tmp, fig45_oracles, e8_rows)
+
+    # ---- 14. the dense and hybrid archs ----
+    torch.cuda.empty_cache()
+    lm_by_arch = phase14(torch, np)
 
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
@@ -2809,10 +3073,16 @@ def main() -> None:
             "bound_by": flash_time["bfloat16"][4],
             "library_ms": flash_time["bfloat16"][2],
             "simt_ms": flash_time["bfloat16"][5], "ms_f32": flash_time["float32"][0],
+            "by_shape": flash_new,
+            "launches_by_path": {
+                f"phase 8 {ARCH}": flash_launches,
+                **{f"phase 14 {a}": got["flash_attention"] for a, got in lm_by_arch.items()},
+            },
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "
                     "launch), simt_ms the SIMT kernel on the same inputs, ms_f32 the "
-                    "SIMT kernel in f32; library: "
+                    "SIMT kernel in f32; by_shape: phase 14's prefill shapes on the "
+                    "variant the table names; library: "
                     "scaled_dot_product_attention(is_causal, enable_gqa)",
         },
         {
@@ -2825,10 +3095,19 @@ def main() -> None:
             "library_ms": None,
             "ms_dv1": ssd_time[1][0], "plain_ms_dv1": ssd_time[1][1],
             "bound_ms_dv1": ssd_time[1][2], "bound_by_dv1": ssd_time[1][3],
+            "ms_mamba2": ssd_time[64][0], "plain_ms_mamba2": ssd_time[64][1],
+            "bound_ms_mamba2": ssd_time[64][2], "bound_by_mamba2": ssd_time[64][3],
+            "host_ms_mamba2": ssd_time[64][4],
+            "launches_by_path": {
+                f"phase 9 {XARCH} at {XPAIRS} pairs": ssd_launches,
+                **{f"phase 14 {a}": got["ssd_scan"] for a, got in lm_by_arch.items()},
+            },
             "note": "timed at the xLSTM serve prefill shape (B 1, S 1024, H 4, dk "
                     "512, chunk 128; q bf16, k f32, v bf16, zero h0) at dv 512 "
                     "(ms, plain_ms, bound_ms) and at the normaliser's dv 1 (*_dv1); "
-                    "half the main path's calls are each; launches counts wrapper "
+                    "half the main path's calls are each; *_mamba2 at zamba2-2.7b's "
+                    "Mamba-2 prefill (B 1, S 1024, H 80, dk = dv = 64, q a stride-0 "
+                    "view of C over the heads); launches counts wrapper "
                     "calls, each three kernel launches (chunk, state and output "
                     "passes), and ms their sum; no PyTorch call computes a GLA scan",
         },

@@ -100,16 +100,17 @@ ARCH_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 REDUCED_REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 _ARCH_MODULES = {
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 # the reference's other architectures, with the ROADMAP item that ports them
 _NOT_PORTED = {
     name: "ROADMAP Queue 1 item 12c (the rest of the LM scaffold)"
-    for name in (
-        "zamba2-2.7b", "glm4-9b", "qwen3-14b", "stablelm-3b",
-        "qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny",
-    )
+    for name in ("qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny")
 }
 
 

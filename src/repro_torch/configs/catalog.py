@@ -13,70 +13,6 @@ from typing import Callable, Dict
 from repro_torch.configs.base import ArchConfig
 
 
-def _zamba2_2p7b() -> ArchConfig:
-    return ArchConfig(
-        name="zamba2-2.7b",
-        family="hybrid",
-        n_layers=54,
-        d_model=2560,
-        n_heads=32,
-        n_kv_heads=32,
-        d_ff=10240,
-        vocab_size=32000,
-        ssm_state=64,
-        ssm_head_dim=64,
-        ssm_expand=2,
-        mamba_per_super=6,
-        sub_quadratic=True,
-        source="[arXiv:2411.15242; hf]",
-    )
-
-
-def _glm4_9b() -> ArchConfig:
-    return ArchConfig(
-        name="glm4-9b",
-        family="dense",
-        n_layers=40,
-        d_model=4096,
-        n_heads=32,
-        n_kv_heads=2,
-        d_ff=13696,
-        vocab_size=151552,
-        source="[hf:THUDM/glm-4-9b; hf]",
-    )
-
-
-def _qwen3_14b() -> ArchConfig:
-    return ArchConfig(
-        name="qwen3-14b",
-        family="dense",
-        n_layers=40,
-        d_model=5120,
-        n_heads=40,
-        n_kv_heads=8,
-        d_ff=17408,
-        vocab_size=151936,
-        head_dim=128,
-        qk_norm=True,
-        rope_theta=1_000_000.0,
-        source="[hf:Qwen/Qwen3-8B; hf]",
-    )
-
-
-def _stablelm_3b() -> ArchConfig:
-    return ArchConfig(
-        name="stablelm-3b",
-        family="dense",
-        n_layers=32,
-        d_model=2560,
-        n_heads=32,
-        n_kv_heads=32,
-        d_ff=6912,
-        vocab_size=50304,
-        source="[hf:stabilityai/stablelm-2-1_6b; unverified]",
-    )
-
-
 def _qwen2_moe_a2p7b() -> ArchConfig:
     return ArchConfig(
         name="qwen2-moe-a2.7b",
@@ -151,10 +87,6 @@ def _whisper_tiny() -> ArchConfig:
 
 
 CONFIG_ONLY: Dict[str, Callable[[], ArchConfig]] = {
-    "zamba2-2.7b": _zamba2_2p7b,
-    "glm4-9b": _glm4_9b,
-    "qwen3-14b": _qwen3_14b,
-    "stablelm-3b": _stablelm_3b,
     "qwen2-moe-a2.7b": _qwen2_moe_a2p7b,
     "grok-1-314b": _grok1_314b,
     "internvl2-26b": _internvl2_26b,

@@ -5,6 +5,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --reduced --device cpu --prompt-len 16 --per-slot-positions
+
+``--arch`` takes every architecture the port runs: the dense
+``internlm2-1.8b``, ``glm4-9b``, ``stablelm-3b`` and ``qwen3-14b``, the
+hybrid ``zamba2-2.7b`` and ``xlstm-350m``.
 
 The counterpart of the reference's ``launch/serve.py``, with the same flags
 (plus ``--device``: cuda unless ``cpu`` is asked for), the same loop and the
@@ -29,11 +35,13 @@ cache by the start-up check, so each slot ends with its request; an idle
 slot's position is held at the cache's last entry. The tokens are then each
 request's own greedy prefill + decode. The flag is off by default, so the
 loop stays the reference's unless asked. The xLSTM has no positions: the
-flag does not change its tokens.
+flag does not change its tokens. zamba2's Mamba-2 layers have none either,
+but its shared attention does.
 
 Two differences, both deliberate. The slot's cache insert writes **every
 layer** of every field of the stacked cache (the ``[L, B, S, KH, hd]`` keys
-and values, or the xLSTM's recurrent states); the reference writes only
+and values, zamba2's Mamba-2 states and shared-attention keys and values,
+or the xLSTM's recurrent states); the reference writes only
 layer 0 (its insert updates index ``slot`` of axis 1 with ``s[0]``, which is
 layer 0's slice of each field; see ROADMAP Queue 3), so its later layers
 keep zeros or the slot's previous request. And the cache is preallocated
@@ -53,7 +61,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.transformer import Cache
@@ -66,13 +74,16 @@ def insert_cache(big: Cache, small: Cache, slot: int) -> None:
         dst[:, slot].copy_(src[:, 0])
 
 
-def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+def main(argv=None, stats: Optional[Dict[str, Any]] = None,
+         config: Optional[ArchConfig] = None) -> Dict[str, Any]:
     """Serve ``--requests`` random prompts; print and return the result.
 
     If ``stats`` is a dict, it also receives ``tokens`` (request id -> its
     generated tokens), ``prefill_s`` (host seconds of each request's prefill
     up to its first token on the host) and ``decode_s`` (host seconds of each
-    decode step up to its tokens on the host).
+    decode step up to its tokens on the host). ``config`` serves that
+    configuration in place of the one ``--arch`` and ``--reduced`` name (a
+    caller's cut of the depth, say).
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
@@ -91,7 +102,7 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_arch(args.arch, reduced=args.reduced)
+    cfg = config or get_arch(args.arch, reduced=args.reduced)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = build_model(cfg, dev).init(gen)
     rng = np.random.default_rng(args.seed)

@@ -3,8 +3,14 @@
 The reference keeps parameters as a pytree of arrays: ``embed`` ``[Vp, D]``,
 ``final_norm`` ``[D]``, ``lm_head`` ``[D, Vp]`` and ``stages[0]``, the
 stage's per-layer parameters stacked on a leading axis; matrices are
-``[in, out]``. A ``dense`` stage holds ``ln1``, ``attn.{wq,wk,wv,wo}``,
-``ln2`` and ``mlp.{w_gate,w_up,w_down}``; an ``xlstm_pair`` stage holds
+``[in, out]``. A ``dense`` stage holds ``ln1``, ``attn.{wq,wk,wv,wo}``
+(and ``attn.{q_norm,k_norm}`` under qk-norm), ``ln2`` and
+``mlp.{w_gate,w_up,w_down}``; a ``zamba_super`` stage holds
+``mamba.{ln, mixer.{z_proj, x_proj, bc_proj, dt_proj, conv_w_x, conv_b_x,
+conv_w_bc, conv_b_bc, A_log, D, dt_bias, norm_g, out_proj}}`` stacked
+``[n_super, mamba_per_super, ...]``, and the tree's ``shared_attn`` holds
+the one shared attention block's ``ln1``, ``attn``, ``ln2`` and ``mlp``
+(unstacked); an ``xlstm_pair`` stage holds
 ``mlstm.{ln, mixer.{up_proj, wq, wk, wv, w_if, b_if, norm_g, down_proj}}``
 and ``slstm.{ln, mixer.{w_in, r, b, norm_g, out_proj}}``. Here that tree
 comes as nested dicts and tuples of numpy arrays (or anything
@@ -23,7 +29,11 @@ from repro_torch.device import DeviceLike
 from repro_torch.models.transformer import Transformer, build_model
 
 _ATTN = ("wq", "wk", "wv", "wo")
+_QK_NORM = ("q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
+_MAMBA_LINEAR = ("z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj")
+_MAMBA_ARRAY = ("conv_w_x", "conv_b_x", "conv_w_bc", "conv_b_bc", "A_log", "D", "dt_bias",
+                "norm_g")
 _MLSTM_LINEAR = ("up_proj", "wq", "wk", "wv", "w_if", "down_proj")
 _MLSTM_VECTOR = ("b_if", "norm_g")
 _SLSTM_LINEAR = ("w_in", "out_proj")
@@ -36,15 +46,46 @@ def _tensor(a) -> torch.Tensor:
 
 def _load_dense(blocks, stage) -> None:
     ln1, ln2 = _tensor(stage["ln1"]), _tensor(stage["ln2"])
-    attn = {n: _tensor(stage["attn"][n]) for n in _ATTN}
+    attn = {n: _tensor(a) for n, a in stage["attn"].items()}
     mlp = {n: _tensor(stage["mlp"][n]) for n in _MLP}
     for i, block in enumerate(blocks):
         block.ln1.copy_(ln1[i])
         block.ln2.copy_(ln2[i])
         for n in _ATTN:
             getattr(block.attn, n).weight.copy_(attn[n][i].t())
+        if block.attn.q_norm is not None:
+            for n in _QK_NORM:
+                getattr(block.attn, n).copy_(attn[n][i])
         for n in _MLP:
             getattr(block.mlp, n).weight.copy_(mlp[n][i].t())
+
+
+def _one_layer_stack(tree):
+    """One block's parameter tree with a layer axis of 1 in front of every
+    array, as a stage stacks them."""
+    if isinstance(tree, dict):
+        return {k: _one_layer_stack(v) for k, v in tree.items()}
+    return np.asarray(tree)[None]
+
+
+def _load_zamba(blocks, stage) -> None:
+    mamba = stage["mamba"]
+    ln = _tensor(mamba["ln"])
+    lin = {n: _tensor(mamba["mixer"][n]) for n in _MAMBA_LINEAR}
+    arr = {n: _tensor(mamba["mixer"][n]) for n in _MAMBA_ARRAY}
+    per_super = len(blocks[0].mamba)
+    if ln.shape[1] != per_super:
+        raise ValueError(
+            f"stages[0] holds {ln.shape[1]} Mamba-2 layers a super-block, the config "
+            f"{per_super}"
+        )
+    for i, block in enumerate(blocks):
+        for m, layer in enumerate(block.mamba):
+            layer.ln.copy_(ln[i, m])
+            for n in _MAMBA_LINEAR:
+                getattr(layer.mixer, n).weight.copy_(lin[n][i, m].t())
+            for n in _MAMBA_ARRAY:
+                getattr(layer.mixer, n).copy_(arr[n][i, m])
 
 
 def _load_xlstm(blocks, stage) -> None:
@@ -67,13 +108,15 @@ def _load_xlstm(blocks, stage) -> None:
             getattr(block.slstm, n).copy_(sarr[n][i])
 
 
-_LOADERS = {"dense": (_load_dense, ("ln1",)), "xlstm_pair": (_load_xlstm, ("mlstm", "ln"))}
+_LOADERS = {"dense": (_load_dense, ("ln1",)), "zamba_super": (_load_zamba, ("mamba", "ln")),
+            "xlstm_pair": (_load_xlstm, ("mlstm", "ln"))}
 
 
 def params_from_arrays(cfg: ArchConfig, tree: Dict[str, Any], device: DeviceLike = None,
                        attn_impl: str = "auto", gla_impl: str = "auto") -> Transformer:
     """A :class:`Transformer` on ``device`` holding the reference's
-    parameters ``tree``: the stacked layer axis is sliced into the blocks,
+    parameters ``tree``: the stacked layer axis is sliced into the blocks
+    (a stage whose count differs from the config's raises ``ValueError``),
     and matrices are transposed into ``nn.Linear`` weights."""
     model = build_model(cfg, device, attn_impl, gla_impl)
     stage = tree["stages"][0]
@@ -91,4 +134,6 @@ def params_from_arrays(cfg: ArchConfig, tree: Dict[str, Any], device: DeviceLike
         model.final_norm.copy_(_tensor(tree["final_norm"]))
         model.lm_head.weight.copy_(_tensor(tree["lm_head"]).t())
         load(model.blocks, stage)
+        if model.shared_attn is not None:
+            _load_dense([model.shared_attn], _one_layer_stack(tree["shared_attn"]))
     return model

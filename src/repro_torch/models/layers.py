@@ -1,10 +1,14 @@
-"""Core layers of the dense LM: init helpers, RMS norm, RoPE, GQA attention
-with a KV cache, and the SwiGLU MLP.
+"""Core layers of the attention blocks: init helpers, RMS norm, RoPE, GQA
+attention (with the optional per-head qk-norm) and a KV cache, and the
+SwiGLU MLP. They make the ``dense`` block (``internlm2-1.8b``, ``glm4-9b``,
+``stablelm-3b``, ``qwen3-14b``) and the shared attention block of
+``zamba_super`` (``zamba2-2.7b``).
 
 The dense subset of the reference's ``models/layers.py``, with its cast
 order kept exactly: ``rms_norm`` normalises in f32, casts to the input dtype,
-then multiplies by the gain; RoPE runs in f32 and casts back; logits are
-computed in the input dtype, cast to f32 and scaled; masked logits are -1e30.
+then multiplies by the gain (the qk-norm of q and k per head included); RoPE
+runs in f32 and casts back; logits are computed in the input dtype, cast to
+f32 and scaled; masked logits are -1e30.
 
 Attention routes (``attn_impl``, the reference's values):
 
@@ -166,35 +170,49 @@ def _attend(q, k, v, causal: bool, q_offset, impl: str) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """GQA self-attention with RoPE and a KV cache (the reference's
-    ``qk_norm`` variant belongs to archs not ported yet).
+    """GQA self-attention with RoPE and a KV cache; with ``qk_norm``, q and
+    k are RMS-normalised per head (gains ``q_norm``/``k_norm`` ``[hd]``,
+    epsilon ``eps``) before RoPE, as the reference's ``qk_norm`` does
+    (``qwen3-14b``).
 
     ``wq``/``wk``/``wv``/``wo`` are ``nn.Linear``s, so their weights are the
     reference's ``[in, out]`` matrices transposed.
     """
 
-    def __init__(self, d_model, n_heads, n_kv_heads, head_dim, dtype, *, theta: float):
+    def __init__(self, d_model, n_heads, n_kv_heads, head_dim, dtype, *, theta: float,
+                 qk_norm: bool = False, eps: float = 1e-5):
         super().__init__()
         self.n_heads, self.n_kv_heads, self.head_dim = n_heads, n_kv_heads, head_dim
-        self.theta = theta
+        self.theta, self.eps = theta, eps
         self.wq = nn.Linear(d_model, n_heads * head_dim, bias=False, dtype=dtype)
         self.wk = nn.Linear(d_model, n_kv_heads * head_dim, bias=False, dtype=dtype)
         self.wv = nn.Linear(d_model, n_kv_heads * head_dim, bias=False, dtype=dtype)
         self.wo = nn.Linear(n_heads * head_dim, d_model, bias=False, dtype=dtype)
+        self.q_norm = self.k_norm = None
+        if qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(head_dim, dtype=dtype))
+            self.k_norm = nn.Parameter(torch.ones(head_dim, dtype=dtype))
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
-        """The reference's ``attn_init``: scaled normal projections."""
+        """The reference's ``attn_init``: scaled normal projections, qk-norm
+        gains at 1."""
         for lin in (self.wq, self.wk, self.wv, self.wo):
             w = dense_init(generator, lin.in_features, lin.out_features, lin.weight.dtype)
             lin.weight.copy_(w.t())
+        if self.q_norm is not None:
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """The reference's ``attn_qkv``: projections and RoPE."""
+        """The reference's ``attn_qkv``: projections, qk-norm and RoPE."""
         b, s, _ = x.shape
         q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
         k = self.wk(x).reshape(b, s, self.n_kv_heads, self.head_dim)
         v = self.wv(x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        if self.q_norm is not None:
+            q = rms_norm(q, self.q_norm, self.eps)
+            k = rms_norm(k, self.k_norm, self.eps)
         if self.theta:
             q = apply_rope(q, positions, self.theta)
             k = apply_rope(k, positions, self.theta)

@@ -1,9 +1,14 @@
-"""xLSTM's recurrent mixers on PyTorch: the GLA core, the mLSTM and the sLSTM.
+"""The recurrent mixers on PyTorch: the GLA core, Mamba-2, the mLSTM and the
+sLSTM.
 
-The xLSTM subset of the reference's ``models/ssm.py`` (Mamba-2 is ROADMAP
-Queue 1 item 12c), with its cast points kept: the mLSTM's k is promoted to
-f32 by its input gate, its normaliser ``q·n_t`` is rounded to v's dtype
-before ``max(|·|, 1)``, and the sLSTM's gates run in f32.
+The reference's ``models/ssm.py``, with its cast points kept: Mamba-2's k
+(``B * dt``) is f32 while q (``C``, broadcast over the heads) and v (the
+conv output) keep the model dtype, and its ``D`` skip promotes y to f32
+through the gated norm and ``out_proj``; the mLSTM's k is promoted to f32
+by its input gate, its normaliser ``q·n_t`` is rounded to v's dtype before
+``max(|·|, 1)``; the sLSTM's gates run in f32. Mamba-2 is the mixer of the
+``zamba_super`` block (``zamba2-2.7b``), the mLSTM and the sLSTM those of
+``xlstm_pair`` (``xlstm-350m``).
 
 GLA routes (``gla_impl``):
 
@@ -13,8 +18,9 @@ GLA routes (``gla_impl``):
 * ``"plain"`` — the plain version everywhere.
 
 Decode (:func:`gla_decode_step`) is one plain recurrent step, as the
-reference computes it outside any kernel. The sLSTM is a strictly
-sequential scan: a Python loop over positions, one cell step each.
+reference computes it outside any kernel, and so is Mamba-2's depthwise
+causal conv (:func:`causal_conv`, :func:`causal_conv_step`). The sLSTM is a
+strictly sequential scan: a Python loop over positions, one cell step each.
 """
 from __future__ import annotations
 
@@ -62,6 +68,173 @@ def _linear(d_in: int, d_out: int, dtype) -> nn.Linear:
 def _init_linear(lin: nn.Linear, generator: torch.Generator) -> None:
     w = dense_init(generator, lin.in_features, lin.out_features, lin.weight.dtype)
     lin.weight.copy_(w.t())
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv (Mamba front conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,C]; w: [K,C] depthwise; returns [B,S,C] (causal, left-padded)."""
+    kk, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, kk - 1, 0))
+    out = xp[:, :s] * w[0]
+    for i in range(1, kk):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + bias
+
+
+def causal_conv_step(x_t, conv_cache, w, bias):
+    """x_t: [B,C]; conv_cache: [B,K-1,C] (previous inputs). Returns (y, cache)."""
+    full = torch.cat([conv_cache, x_t[:, None, :]], 1)  # [B,K,C]
+    y = (full * w).sum(1) + bias
+    return y, full[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 mixer
+# ---------------------------------------------------------------------------
+
+class Mamba2Dims(NamedTuple):
+    d_model: int
+    d_inner: int
+    n_heads: int
+    head_dim: int
+    d_state: int
+    conv_k: int
+
+    @staticmethod
+    def make(d_model: int, d_state: int, expand: int = 2, head_dim: int = 64,
+             conv_k: int = 4) -> "Mamba2Dims":
+        d_inner = expand * d_model
+        return Mamba2Dims(d_model, d_inner, d_inner // head_dim, head_dim, d_state, conv_k)
+
+
+def mamba2_state_shape(dims: Mamba2Dims, batch: int):
+    """(h, (conv_x, conv_bc)) shapes of one layer's decode state."""
+    return (
+        (batch, dims.n_heads, dims.d_state, dims.head_dim),
+        (
+            (batch, dims.conv_k - 1, dims.d_inner),
+            (batch, dims.conv_k - 1, 2 * dims.d_state),
+        ),
+    )
+
+
+def _last_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The last ``k`` positions of x ``[B, S, C]``, zero-padded in front."""
+    return F.pad(x, (0, 0, max(k - x.shape[1], 0), 0))[:, -k:]
+
+
+class Mamba2(nn.Module):
+    """The Mamba-2 (SSD) mixer (the reference's ``mamba2_init``/
+    ``mamba2_apply``/``mamba2_decode``): the separate projections ``z_proj``,
+    ``x_proj``, ``bc_proj`` and ``dt_proj`` (``nn.Linear``s, the reference's
+    ``[in, out]`` arrays transposed), the depthwise conv ``conv_w_*`` ``[K,
+    C]`` and ``conv_b_*``, one group of B and C shared by every head, and
+    f32 ``A_log``, ``D`` and ``dt_bias`` ``[H]``."""
+
+    def __init__(self, dims: Mamba2Dims, dtype):
+        super().__init__()
+        self.dims = dims
+        d, di, n, h, kk = dims.d_model, dims.d_inner, dims.d_state, dims.n_heads, dims.conv_k
+        self.z_proj = _linear(d, di, dtype)
+        self.x_proj = _linear(d, di, dtype)
+        self.bc_proj = _linear(d, 2 * n, dtype)
+        self.dt_proj = _linear(d, h, dtype)
+        self.conv_w_x = nn.Parameter(torch.zeros((kk, di), dtype=dtype))
+        self.conv_b_x = nn.Parameter(torch.zeros(di, dtype=dtype))
+        self.conv_w_bc = nn.Parameter(torch.zeros((kk, 2 * n), dtype=dtype))
+        self.conv_b_bc = nn.Parameter(torch.zeros(2 * n, dtype=dtype))
+        self.A_log = nn.Parameter(torch.zeros(h, dtype=torch.float32))
+        self.D = nn.Parameter(torch.ones(h, dtype=torch.float32))
+        self.dt_bias = nn.Parameter(torch.zeros(h, dtype=torch.float32))
+        self.norm_g = nn.Parameter(torch.ones(di, dtype=dtype))
+        self.out_proj = _linear(di, d, dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The reference's ``mamba2_init``, drawn in its key order: dt bias
+        ``softplus^-1`` of dt log-uniform in [1e-3, 1e-1], ``A_log =
+        log(linspace(1, 16))``, ``D`` 1, conv weights normal over sqrt(K)."""
+        for lin in (self.z_proj, self.x_proj, self.bc_proj, self.dt_proj):
+            _init_linear(lin, generator)
+        kk = self.dims.conv_k
+        for w in (self.conv_w_x, self.conv_w_bc):
+            r = torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            w.copy_((r / math.sqrt(kk)).to(w.dtype))
+        self.conv_b_x.zero_()
+        self.conv_b_bc.zero_()
+        h = self.dims.n_heads
+        u = torch.rand(h, generator=generator, dtype=torch.float32, device=generator.device)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        self.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+        self.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32)))
+        self.D.fill_(1.0)
+        self.norm_g.fill_(1.0)
+        _init_linear(self.out_proj, generator)
+
+    def _gates(self, dt_raw, bc):
+        """(B, C, dt, g) from the conv's ``bc`` and ``dt_raw``: dt =
+        softplus(dt_raw + dt_bias) and g = dt * -exp(A_log) f32."""
+        n = self.dims.d_state
+        dt = F.softplus(dt_raw.float() + self.dt_bias)
+        return bc[..., :n], bc[..., n:], dt, dt * -torch.exp(self.A_log)
+
+    def _out(self, y, xin, z, x_dtype, eps: float):
+        """``y + D * x``, gated by ``silu(z)``, RMS norm and ``out_proj``, in
+        the reference's types: f32 from the skip on, cast back at the end."""
+        y = y + xin * self.D[:, None]
+        y = y.reshape(*y.shape[:-2], self.dims.d_inner)
+        y = rms_norm(y * F.silu(z), self.norm_g, eps)
+        return F.linear(y, self.out_proj.weight.to(y.dtype)).to(x_dtype)
+
+    def forward(self, x, h0=None, conv0=None, chunk: int = DEFAULT_GLA_CHUNK,
+                eps: float = 1e-5, gla_impl: str = "auto"):
+        """x ``[B, S, D]`` -> (y, (h_final, (conv_x, conv_bc))); ``h0``
+        ``[B, H, N, hd]`` f32 and ``conv0`` (the last K-1 inputs of each conv)
+        continue a sequence, None starts from zeros."""
+        b, s, _ = x.shape
+        dims = self.dims
+
+        def conv_branch(raw, w, bias, cache):
+            if cache is not None:
+                xp = torch.cat([cache.to(raw.dtype), raw], 1)
+                out = causal_conv(xp, w, bias)[:, cache.shape[1]:]
+                tail = xp[:, -(dims.conv_k - 1):]
+            else:
+                out = causal_conv(raw, w, bias)
+                tail = _last_k(raw, dims.conv_k - 1)
+            return F.silu(out), tail
+
+        cx0, cbc0 = conv0 if conv0 is not None else (None, None)
+        xin, new_cx = conv_branch(self.x_proj(x), self.conv_w_x, self.conv_b_x, cx0)
+        bc, new_cbc = conv_branch(self.bc_proj(x), self.conv_w_bc, self.conv_b_bc, cbc0)
+        B, C, dt, g = self._gates(self.dt_proj(x), bc)
+        xin = xin.reshape(b, s, dims.n_heads, dims.head_dim)
+        k = B[:, :, None, :] * dt[..., None]  # [B,S,H,N] f32: dt absorbed into k
+        q = C[:, :, None, :].expand(b, s, dims.n_heads, dims.d_state)  # a stride-0 head axis
+        y, hT = chunked_gla(q, k, xin, g, h0, chunk, gla_impl)
+        return self._out(y, xin, self.z_proj(x), x.dtype, eps), (hT, (new_cx, new_cbc))
+
+    def decode(self, x_t, state, eps: float = 1e-5):
+        """x_t ``[B, D]`` -> (y ``[B, D]``, (h, (conv_x, conv_bc))), one
+        recurrent step."""
+        h, (conv_x, conv_bc) = state
+        b = x_t.shape[0]
+        dims = self.dims
+        xraw, bcraw = self.x_proj(x_t), self.bc_proj(x_t)
+        xin, conv_x = causal_conv_step(xraw, conv_x.to(xraw.dtype), self.conv_w_x,
+                                       self.conv_b_x)
+        bc, conv_bc = causal_conv_step(bcraw, conv_bc.to(bcraw.dtype), self.conv_w_bc,
+                                       self.conv_b_bc)
+        B, C, dt, g = self._gates(self.dt_proj(x_t), F.silu(bc))
+        xin = F.silu(xin).reshape(b, dims.n_heads, dims.head_dim)
+        k = B[:, None, :] * dt[..., None]  # [B,H,N] f32
+        q = C[:, None, :].expand(b, dims.n_heads, dims.d_state)
+        y, h = gla_decode_step(q, k, xin, g, h)
+        return self._out(y, xin, self.z_proj(x_t), x_t.dtype, eps), (h, (conv_x, conv_bc))
 
 
 # ---------------------------------------------------------------------------

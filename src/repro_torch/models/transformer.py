@@ -1,10 +1,15 @@
-"""The LM stack as ``nn.Module``s: the dense and the xLSTM block programs.
+"""The LM stack as ``nn.Module``s: the dense, hybrid and xLSTM block programs.
 
-Two block types of the reference's block-programmed stack
+Three block types of the reference's block-programmed stack
 (``models/transformer.py``):
 
-* ``dense`` — attention (GQA, RoPE) and a SwiGLU MLP, each behind an RMS
-  norm, with residuals (``internlm2-1.8b``);
+* ``dense`` — attention (GQA, RoPE, optional qk-norm) and a SwiGLU MLP,
+  each behind an RMS norm, with residuals (``internlm2-1.8b``, ``glm4-9b``,
+  ``stablelm-3b``, ``qwen3-14b``);
+* ``zamba_super`` — ``mamba_per_super`` Mamba-2 blocks, each ``x +
+  mixer(norm(x))``, then one application of the weight-tied shared
+  attention block, a ``dense`` block whose parameters the
+  :class:`Transformer` holds once for every super-block (``zamba2-2.7b``);
 * ``xlstm_pair`` — an mLSTM block then an sLSTM block, each ``x +
   mixer(norm(x))`` (``xlstm-350m``).
 
@@ -20,12 +25,15 @@ logits) and :meth:`decode_step` (one token per sequence). The cache is the
 reference's stacked stage cache, one tensor per field with the layer axis
 first, preallocated and written in place, which stands in for the
 reference's buffer donation: a :class:`KVCache` ``[L, B, S_max, KH, hd]``
-for ``dense``, an :class:`XLstmCache` of recurrent states for
+for ``dense``, a :class:`ZambaCache` (each Mamba-2 layer's state and conv
+tails, each shared-attention application's keys and values) for
+``zamba_super``, an :class:`XLstmCache` of recurrent states for
 ``xlstm_pair``. The port runs inference only: parameters do not require
 gradients (training is ROADMAP Queue 1 item 12c).
 
-Every other block type, and a program that mixes block types, raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 12c.
+Every other block type, a program that mixes block types, and the image and
+encoder front ends raise ``NotImplementedError`` naming ROADMAP Queue 1
+item 12c.
 """
 from __future__ import annotations
 
@@ -55,7 +63,19 @@ class XLstmCache(NamedTuple):
     slstm_h: torch.Tensor  # [P, B, di]
 
 
-Cache = Union[KVCache, XLstmCache]
+class ZambaCache(NamedTuple):
+    """The state of each ``zamba_super`` (P super-blocks of M Mamba-2 layers,
+    layer ``p * M + m`` for the p-th super-block's m-th), layer axis first:
+    the Mamba-2 state and conv tails f32, and the keys and values of each
+    shared-attention application in the model dtype."""
+    mamba_h: torch.Tensor  # [P*M, B, H, N, hd]
+    conv_x: torch.Tensor  # [P*M, B, K-1, d_inner]
+    conv_bc: torch.Tensor  # [P*M, B, K-1, 2N]
+    k: torch.Tensor  # [P, B, S_max, KH, hd]
+    v: torch.Tensor  # [P, B, S_max, KH, hd]
+
+
+Cache = Union[KVCache, ZambaCache, XLstmCache]
 
 
 class DenseBlock(nn.Module):
@@ -66,7 +86,8 @@ class DenseBlock(nn.Module):
         self.eps = cfg.norm_eps
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
         self.attn = L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                cfg.dtype, theta=cfg.rope_theta)
+                                cfg.dtype, theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                                eps=cfg.norm_eps)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
         self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype)
 
@@ -135,13 +156,78 @@ class XLstmPair(nn.Module):
         return x + y
 
 
-_BLOCKS = {"dense": DenseBlock, "xlstm_pair": XLstmPair}
+def mamba_dims(cfg: ArchConfig) -> S.Mamba2Dims:
+    return S.Mamba2Dims.make(cfg.d_model, cfg.ssm_state, cfg.ssm_expand, cfg.ssm_head_dim)
+
+
+class Mamba2Block(nn.Module):
+    """``x + mamba2(norm(x))`` (the reference's ``mamba2`` block)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps, self.chunk = cfg.norm_eps, cfg.gla_chunk
+        self.ln = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
+        self.mixer = S.Mamba2(mamba_dims(cfg), cfg.dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln.fill_(1.0)
+        self.mixer.init(generator)
+
+    def forward(self, x, cache=None, gla_impl: str = "auto") -> torch.Tensor:
+        """``cache``: this layer's (h, conv_x, conv_bc) slices of a
+        :class:`ZambaCache`, read as the state and overwritten with the new
+        one; None runs from zeros. A one-token ``x`` with a cache takes the
+        recurrent decode step."""
+        inner = L.rms_norm(x, self.ln, self.eps)
+        if cache is None:
+            return x + self.mixer(inner, chunk=self.chunk, eps=self.eps, gla_impl=gla_impl)[0]
+        h, cx, cbc = cache
+        if x.shape[1] == 1:
+            y, (h_new, (cx_new, cbc_new)) = self.mixer.decode(inner[:, 0], (h, (cx, cbc)),
+                                                              self.eps)
+            y = y[:, None]
+        else:
+            y, (h_new, (cx_new, cbc_new)) = self.mixer(inner, h, (cx, cbc), self.chunk,
+                                                       self.eps, gla_impl)
+        for dst, src in zip(cache, (h_new, cx_new, cbc_new)):
+            dst.copy_(src)
+        return x + y
+
+
+class ZambaSuper(nn.Module):
+    """``mamba_per_super`` :class:`Mamba2Block`s, then the shared attention
+    block, which the :class:`Transformer` holds and passes in (the
+    reference's ``zamba_super`` branch of ``block_apply``)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.mamba = nn.ModuleList(Mamba2Block(cfg) for _ in range(cfg.mamba_per_super))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for block in self.mamba:
+            block.init(generator)
+
+    def forward(self, x, positions, shared: DenseBlock, cache=None,
+                cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0,
+                attn_impl: str = "auto", gla_impl: str = "auto") -> torch.Tensor:
+        """``cache``: this super-block's (h, conv_x, conv_bc) ``[M, ...]`` and
+        (k, v) slices of a :class:`ZambaCache`, or None."""
+        for m, block in enumerate(self.mamba):
+            x = block(x, None if cache is None else tuple(f[m] for f in cache[:3]), gla_impl)
+        return shared(x, positions, None if cache is None else cache[3:], cache_pos,
+                      attn_impl)
+
+
+_BLOCKS = {"dense": DenseBlock, "zamba_super": ZambaSuper, "xlstm_pair": XLstmPair}
 
 
 class Transformer(nn.Module):
-    """The LM: embedding, the stage's blocks (:class:`DenseBlock` or
-    :class:`XLstmPair`), final norm and LM head over the padded vocabulary.
-    ``attn_impl`` selects the attention route (see
+    """The LM: embedding, the stage's blocks (:class:`DenseBlock`,
+    :class:`ZambaSuper` or :class:`XLstmPair`), for ``zamba_super`` the
+    shared attention block ``shared_attn``, final norm and LM head over the
+    padded vocabulary. ``attn_impl`` selects the attention route (see
     :mod:`repro_torch.models.layers`), ``gla_impl`` the GLA route (see
     :mod:`repro_torch.models.ssm`)."""
 
@@ -159,10 +245,10 @@ class Transformer(nn.Module):
                 f"a program of mixed block types {program} is not ported to PyTorch "
                 "yet (ROADMAP Queue 1 item 12c)"
             )
-        if cfg.n_image_embeds or cfg.encoder_layers or cfg.qk_norm:
+        if cfg.n_image_embeds or cfg.encoder_layers:
             raise NotImplementedError(
-                "image and encoder front ends and qk-norm are not ported to "
-                "PyTorch yet (ROADMAP Queue 1 item 12c)"
+                "image and encoder front ends are not ported to PyTorch yet "
+                "(ROADMAP Queue 1 item 12c)"
             )
         if attn_impl not in L.ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {L.ATTN_IMPLS}, got {attn_impl!r}")
@@ -176,6 +262,7 @@ class Transformer(nn.Module):
         self.embed = nn.Embedding(vp, d, dtype=cfg.dtype)
         n_blocks = sum(count for _, count in program)
         self.blocks = nn.ModuleList(_BLOCKS[self.block_type](cfg) for _ in range(n_blocks))
+        self.shared_attn = DenseBlock(cfg) if self.block_type == "zamba_super" else None
         self.final_norm = nn.Parameter(torch.ones(d, dtype=cfg.dtype))
         self.lm_head = nn.Linear(d, vp, bias=False, dtype=cfg.dtype)
 
@@ -197,6 +284,8 @@ class Transformer(nn.Module):
         self.lm_head.weight.copy_(head.t())
         for block in self.blocks:
             block.init(generator)
+        if self.shared_attn is not None:
+            self.shared_attn.init(generator)
         return self
 
     # ---------------- shared machinery ----------------
@@ -210,12 +299,25 @@ class Transformer(nn.Module):
     def _run(self, x, positions, cache: Optional[Cache] = None,
              cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0):
         for i, block in enumerate(self.blocks):
+            if self.block_type == "zamba_super":
+                x = block(x, positions, self.shared_attn, self._super_cache(cache, i),
+                          cache_pos, self.attn_impl, self.gla_impl)
+                continue
             layer_cache = None if cache is None else tuple(f[i] for f in cache)
             if self.block_type == "dense":
                 x = block(x, positions, layer_cache, cache_pos, self.attn_impl)
             else:
                 x = block(x, layer_cache, self.gla_impl)
         return x
+
+    def _super_cache(self, cache: Optional[ZambaCache], i: int):
+        """Super-block i's slices of a :class:`ZambaCache`: its M Mamba-2
+        layers' fields and its shared-attention application's keys and
+        values (views, written in place)."""
+        if cache is None:
+            return None
+        m = self.config.mamba_per_super
+        return (*(f[i * m:(i + 1) * m] for f in cache[:3]), cache.k[i], cache.v[i])
 
     # ---------------- paths ----------------
     def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,10 +331,17 @@ class Transformer(nn.Module):
         """Zeros (the sLSTM's ``m`` at -10, the reference's zero state);
         ``cache_len`` sizes the KV cache and is not read by recurrent blocks."""
         cfg, dev, n = self.config, self.device, len(self.blocks)
+        kv = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.hd)
         if self.block_type == "dense":
-            shape = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.hd)
-            return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                           torch.zeros(shape, dtype=cfg.dtype, device=dev))
+            return KVCache(torch.zeros(kv, dtype=cfg.dtype, device=dev),
+                           torch.zeros(kv, dtype=cfg.dtype, device=dev))
+        if self.block_type == "zamba_super":
+            hs, (cxs, cbcs) = S.mamba2_state_shape(mamba_dims(cfg), batch_size)
+            layers = n * cfg.mamba_per_super
+            return ZambaCache(*(torch.zeros((layers, *shape), dtype=torch.float32, device=dev)
+                                for shape in (hs, cxs, cbcs)),
+                              torch.zeros(kv, dtype=cfg.dtype, device=dev),
+                              torch.zeros(kv, dtype=cfg.dtype, device=dev))
         hs, ns = S.mlstm_state_shape(self.blocks[0].mlstm.dims, batch_size)
         di = self.blocks[0].slstm.dims.d_inner
 
@@ -265,8 +374,8 @@ class Transformer(nn.Module):
         x = self._embed(tokens)
         if torch.is_tensor(pos):
             positions = pos[:, None]
-            if self.block_type == "dense":  # every layer's indices and mask
-                pos = L.row_offsets(pos, 1, cache[0].shape[2])
+            if self.block_type != "xlstm_pair":  # every attention's indices and mask
+                pos = L.row_offsets(pos, 1, cache.k.shape[2])
         else:
             positions = torch.arange(pos, pos + 1, device=x.device)
             pos = int(pos)

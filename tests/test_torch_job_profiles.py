@@ -2,7 +2,7 @@
 numbers, against the JAX reference: ``profile_workload()`` is the
 reference's job for job (default and other arguments), the profiles are the
 reference's, the numbers of all ten architectures are the reference's
-``ArchConfig`` fields, ``get_arch`` still refuses the eight whose models are
+``ArchConfig`` fields, ``get_arch`` still refuses the four whose models are
 not ported (naming ROADMAP item 12c), and ``"profiles"`` resolves in the
 experiment spec and the single-run driver.
 """
@@ -18,8 +18,7 @@ from repro_torch.configs import job_profiles as tprof
 from repro_torch.experiments import resolve_workload
 from repro_torch.launch import sim as tsim
 
-UNPORTED = ("zamba2-2.7b", "glm4-9b", "qwen3-14b", "stablelm-3b",
-            "qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny")
+UNPORTED = ("qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny")
 
 
 def test_ten_archs_are_the_references():
