@@ -35,8 +35,10 @@ Phases (each prints a line; any failed check exits non-zero):
    ``scaled_dot_product_attention``; flash attention held and timed the
    same way (the variant the table names, the plain version, SDPA, the
    bound and the host time) at phase 14's prefill shapes (``FLASH_NEW``:
-   glm4-9b's GQA 16:1 and qwen3-14b's 5:1 in bf16, head dim 80 in bf16 and
-   f32);
+   glm4-9b's GQA 16:1, qwen3-14b's 5:1, qwen2-moe-a2.7b's MHA and
+   internvl2-26b's 6:1 in bf16, head dim 80 in bf16 and f32, whisper-tiny's
+   causal decoder self attention, unmasked encoder, Sq = Sk = 1500, and
+   cross attention, Sq 1024 over Sk 1500, at hd 64 in bf16);
 4. labels: the paper's seven schedulers on a 16-node homogeneous and a
    16-node mixed platform on the card, and every DVFS and Forecast label
    (``scheduler_labels(include_dvfs=True, include_forecast=True)`` and
@@ -47,7 +49,7 @@ Phases (each prints a line; any failed check exits non-zero):
    ``allocation="partition"`` and ``merge_bursts`` under EASY PSUS and FCFS
    PSAS — each held against the port's sequential oracle (schedule exact,
    energy and the DVFS mode energy to rel 1e-5), the grouped runs with one
-   occupancy-kernel launch a batch (the 16-node runs on ``LABEL_JOBS`` (50)
+   occupancy-kernel launch a batch (the 16-node runs on ``LABEL_JOBS`` (30)
    generated jobs, the grouped ones on the first ``GROUPED_JOBS`` (60)
    replayed jobs);
 5. main path, dense: one simulation at CEA-Curie scale (11 200 nodes, the
@@ -98,10 +100,10 @@ Phases (each prints a line; any failed check exits non-zero):
    profiled (device ops a batch, device busy share);
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
-   x timeouts ``300 + 300 i``, on phase 5's inputs at E = 1 (EASY PSUS 1800
-   alone) and 8 on their first ``SWEEP_JOBS`` (500) jobs and at E = 64 on
-   ``SWEEP_CUT_JOBS`` (250) — one ``event_fuse_ledger`` launch per loop
-   iteration for the grid, at most two host syncs an iteration; (e) the
+   x timeouts ``300 + 300 i``, on phase 5's inputs at E = 8 on their first
+   ``SWEEP_JOBS`` (500) jobs and at E = 64 on ``SWEEP_CUT_JOBS`` (250) — one
+   ``event_fuse_ledger`` launch per loop iteration for the grid, at most
+   two host syncs an iteration; (e) the
    grouped E = 8 grid (timeouts 600-2400) on the first 500 of phase 6's
    jobs with ``OPTIONS`` (``node_order="pack"``, ``allocation=
    "partition"``, ``merge_bursts``) — one ``event_fuse_occ`` launch an
@@ -109,9 +111,9 @@ Phases (each prints a line; any failed check exits non-zero):
    with ``OPTIONS`` on phase 4's 280-node Curie inputs. Held bit for bit
    against single runs of their scenarios on the same jobs (state, schedule
    table, every ``SimMetrics`` field), run in a worker process beside the
-   grids: the E = 1 sweep and the E = 64 row EASY PSUS 1800 (phase 5's
-   configuration), the E = 8 row FCFS PSAS+IPM 600, (e)'s rows EASY PSUS
-   1800 and FCFS PSAS+IPM 600 and every row of (f). Per grid the wall and
+   grids: the E = 64 row EASY PSUS 1800 (phase 5's configuration), the E =
+   8 row FCFS PSAS+IPM 600, (e)'s rows EASY PSUS 1800 and FCFS PSAS+IPM 600
+   and every row of (f). Per grid the wall and
    the wall a scenario, iterations, µs and host syncs an iteration (the
    loop's, the passes' windows, the partition head outcomes and the merge
    repeat conditions counted apart), the first 100 iterations of the dense
@@ -162,23 +164,31 @@ Phases (each prints a line; any failed check exits non-zero):
    request, ``bench_scale.py``'s Curie grid at phase 11's depth (E = 8, each
    row equal to phase 11's dense E = 8 row bit for bit) and a request whose
    workload does not exist (an error response while the others finish);
-14. dense and hybrid archs: ``repro_torch.launch.serve --per-slot-positions``
-   serves glm4-9b, stablelm-3b, qwen3-14b and zamba2-2.7b at full width and
-   depth in bf16 (random weights from seed 0; 8 requests of 1024 tokens, 4
-   slots, 32 new tokens, cache 1280), one model at a time — each must
-   launch flash attention once per attention layer per request, all on the
-   variant ``ARCHS14`` names (320 wgmma, 256 SIMT, 320 wgmma, 72 SIMT: 9
-   shared-attention applications), zamba2 ``ssd_scan`` once per Mamba-2
-   layer per request (432), the dense archs none, no event kernel; the
-   refilled requests 4 and 7 are held against their own single-sequence
-   decode within ``REFILL_TOL``; tokens/s, TTFT, prefill and decode ms, the
-   weights' GB and peak memory are printed, and one decode step of the 4
-   slots (and zamba2's prefill) profiled; then, in f32 at full width and
-   cut depth (2 layers, or one super-block of 6 Mamba-2 layers and the
-   shared block), two 1024-token prompts go through ``prefill`` by the
-   kernel route and by the plain route (``attn_impl="naive"``,
-   ``gla_impl="plain"``): last-position logits within ``LOGITS_REL_TOL``,
-   the same greedy tokens.
+14. dense, hybrid, MoE, VLM and encoder-decoder archs:
+   ``repro_torch.launch.serve --per-slot-positions`` serves glm4-9b,
+   stablelm-3b, qwen3-14b, zamba2-2.7b, qwen2-moe-a2.7b, internvl2-26b (at
+   ``INTERNVL_LAYERS``, 24 of its 48 layers, a cut for time) and
+   whisper-tiny at full width and depth in bf16 (random weights from seed
+   0; 8 requests of 1024 tokens, 4 slots, 32 new tokens, cache 1280; zero
+   image embeds and encoder frames, as the reference's loop), one model at
+   a time — each must launch flash attention once per attention per
+   request, all on the variant ``ARCHS14`` names (320 wgmma, 256 SIMT, 320
+   wgmma, 72 SIMT: 9 shared-attention applications, 192 wgmma, 192 wgmma,
+   96 wgmma: 4 encoder, 4 self and 4 cross attentions), zamba2 ``ssd_scan``
+   once per Mamba-2 layer per request (432), the others none, no event
+   kernel; the refilled requests 4 and 7 are held against their own decode
+   within ``REFILL_TOL`` (single-sequence; the MoE's at the serve's batch
+   shape of 4 rows, since a bf16 routing choice tips between batch shapes,
+   with their single-sequence gaps printed, not held); tokens/s, TTFT,
+   prefill and decode ms, the weights' GB and peak memory are printed, and
+   one decode step of the 4 slots (and zamba2's prefill) profiled; then, in
+   f32 at full width and cut depth (2 layers, one super-block of 6 Mamba-2
+   layers and the shared block, or 2 encoder and 2 decoder layers), two
+   1024-token prompts (with seeded image embeds or frames) go through
+   ``prefill`` by the kernel route and by the plain route
+   (``attn_impl="naive"``, ``gla_impl="plain"``): last-position logits
+   within ``LOGITS_REL_TOL``, the same greedy tokens, and for the MoE the
+   smallest router margin seen.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -229,12 +239,20 @@ ARCH = "internlm2-1.8b"
 # (B, Sq, Sk, H, KH, hd, causal): the serve path's prefill shape first
 FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
 # phase 14's prefill shapes: glm4-9b's GQA 16:1 and qwen3-14b's 5:1 (wgmma
-# in bf16), and head dim 80 (stablelm-3b, and zamba2-2.7b's shared
-# attention; the SIMT kernel)
+# in bf16), head dim 80 (stablelm-3b, and zamba2-2.7b's shared attention;
+# the SIMT kernel), qwen2-moe-a2.7b's MHA and internvl2-26b's 6:1 (wgmma),
+# and whisper-tiny's causal decoder self attention, unmasked encoder
+# (Sq = Sk = 1500) and cross attention (Sq 1024 over the 1500 frames) at
+# hd 64 (wgmma; 1500 = 23 x 64 + 28)
 FLASH_NEW = {
     "glm4-9b": (1, 1024, 1024, 32, 2, 128, True),
     "qwen3-14b": (1, 1024, 1024, 40, 8, 128, True),
     "hd 80": (1, 1024, 1024, 32, 32, 80, True),
+    "qwen2-moe-a2.7b": (1, 1024, 1024, 16, 16, 128, True),
+    "internvl2-26b": (1, 1024, 1024, 48, 8, 128, True),
+    "whisper decoder": (1, 1024, 1024, 6, 6, 64, True),
+    "whisper encoder": (1, 1500, 1500, 6, 6, 64, False),
+    "whisper cross": (1, 1024, 1500, 6, 6, 64, False),
 }
 FLASH_SHAPES = [
     FLASH_MAIN,
@@ -255,16 +273,23 @@ XARCH = "xlstm-350m"
 XSERVE_ARGS = ["--arch", XARCH] + SERVE_ARGS[2:]
 # phase 9 serves and checks the xLSTM at full width and 6 of its 12 pairs
 XPAIRS = 6
-# phase 14: the dense and hybrid archs at full width and depth, 8 requests
-# of 1024 tokens on 4 slots (requests 4-7 each refill a freed slot); per
-# arch the flash launches of the serve and their variant, its ssd_scan
-# calls, and the depth of its f32 kernel-route check (2 layers, or one
-# super-block of 6 Mamba-2 layers and the shared block)
+# phase 14: the dense, hybrid, MoE, VLM and encoder-decoder archs at full
+# width, 8 requests of 1024 tokens on 4 slots (requests 4-7 each refill a
+# freed slot); per arch the flash launches of the serve (one per attention
+# a prefill: a layer's, a super-block's shared block's, or whisper's
+# encoder, self and cross attention) and their variant, its ssd_scan
+# calls, the depth of its f32 kernel-route check (2 layers, or one
+# super-block of 6 Mamba-2 layers and the shared block, or 2 encoder and 2
+# decoder layers) and its serve depth (None: the full depth)
+INTERNVL_LAYERS = 24  # a cut for time: internvl2-26b serves 24 of its 48 layers
 ARCHS14 = {
-    "glm4-9b": (320, "wgmma", 0, 2),
-    "stablelm-3b": (256, "simt", 0, 2),
-    "qwen3-14b": (320, "wgmma", 0, 2),
-    "zamba2-2.7b": (72, "simt", 432, 6),
+    "glm4-9b": (320, "wgmma", 0, 2, None),
+    "stablelm-3b": (256, "simt", 0, 2, None),
+    "qwen3-14b": (320, "wgmma", 0, 2, None),
+    "zamba2-2.7b": (72, "simt", 432, 6, None),
+    "qwen2-moe-a2.7b": (192, "wgmma", 0, 2, None),
+    "internvl2-26b": (192, "wgmma", 0, 2, INTERNVL_LAYERS),
+    "whisper-tiny": (96, "wgmma", 0, 2, None),
 }
 SERVE14_ARGS = ["--requests", "8", "--slots", "4", "--prompt-len", "1024", "--max-new", "32",
                 "--cache-len", "1280", "--per-slot-positions"]
@@ -324,6 +349,8 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 # amplify; atol = 1e-3 of the logits' largest magnitude
 LOGITS_REL_TOL = 1e-3
 INF_TIME = 2**30
+# captures of one device_ms window before "the profiler saw nothing" fails
+PROFILE_TRIES = 3
 # rows of 11 199 and 11 201 nodes start off a 16-byte boundary from row 1 on
 # (256, 64): phase 12 (c)'s RL-throughput batch
 EXACT_SHAPES = [(1, 16), (1, 131), (13, 131), (1, 11200), (64, 11200),
@@ -365,9 +392,9 @@ DVFS_JOBS = 125
 SWEEP_CUT_JOBS = 250
 # phase 11 (e) and (f): the engine options a grid runs with
 OPTIONS = dict(node_order="pack", allocation="partition", merge_bursts=True)
-# and phase 4's 16-node runs take 50 generated jobs, not 100, and its
-# grouped runs the first 60 replayed jobs, not 120
-LABEL_JOBS = 50
+# and phase 4's 16-node runs take 30 generated jobs, not 100 (50 to PR
+# 22), and its grouped runs the first 60 replayed jobs, not 120
+LABEL_JOBS = 30
 GROUPED_JOBS = 60
 GROUPED_OPTIONS = [
     ({"node_order": "pack"}, label) for label in ("EASY PSUS", "FCFS PSAS")
@@ -442,6 +469,25 @@ def time_ms(torch, fn, args, reps=5, iters=200, warmup=20):
     return statistics.median(per_call)
 
 
+def captured(torch, body, what, cpu=True):
+    """(the profile, ``body()``'s result): ``body`` run under
+    ``torch.profiler`` (CUDA activity, and CPU with ``cpu``). The profiler
+    has lost whole captures on the card, so a capture that records no
+    device operation is taken again, ``body`` and all, up to
+    ``PROFILE_TRIES`` captures; the callers' checks then read the last."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    for attempt in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            result = body()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
+            break
+        print(f"profiler: capture {attempt + 1} of {PROFILE_TRIES} of {what} recorded "
+              "no device operation", flush=True)
+    return prof, result
+
+
 def device_ms(torch, fn, args, calls=200, warmup=20):
     """(device ms per call, device ops per call, {op name: device ms per
     call}, share recorded): the durations of the device operations that
@@ -454,12 +500,13 @@ def device_ms(torch, fn, args, calls=200, warmup=20):
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def body():
         for _ in range(calls):
             fn(*args)
         torch.cuda.synchronize()
+
+    prof, _ = captured(torch, body, fn.__name__)
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -644,25 +691,44 @@ def mamba_ssd_inputs(torch, np, shape, dtypes, h0=False, seed=0):
             None if st is None else dev(st, "float32")]
 
 
-def refill_gaps(torch, model, prompts, tokens, rids, cache_len, dev="cuda"):
+def refill_gaps(torch, model, prompts, tokens, rids, cache_len, dev="cuda", extras=None,
+                rows=1):
     """(each token's gap below its own decode's greedy maximum over the
     largest |logit|, the count of tokens that are that maximum) of the
     requests ``rids``' served ``tokens``: each request's prompt (``prompts``,
-    numpy) prefilled alone and decoded teacher-forced with the served
-    tokens, so one token within tolerance does not derail the rest."""
+    numpy) prefilled alone, with the prefill keywords ``extras``, and
+    decoded teacher-forced with the served tokens, so one token within
+    tolerance does not derail the rest. With ``rows`` > 1 the request's
+    cache fills each of ``rows`` slots and decodes at ``[rows]`` positions,
+    the serve loop's batch shape: every product then has the shape the
+    served row's had, and an MoE layer's routing, which a last bf16 bit
+    can tip, is the served row's own."""
+    from repro_torch.launch import serve
+
     gaps, exact = [], 0
     with torch.inference_mode():
         for rid in rids:
             served = tokens[rid]
             prompt = torch.from_numpy(prompts[rid][None]).to(dev)
-            logits, one = model.prefill(prompt, cache_len=cache_len)
+            logits, one = model.prefill(prompt, cache_len=cache_len, **(extras or {}))
+            if rows > 1:
+                alone, one = one, model.init_cache(rows, cache_len)
+                for r in range(rows):
+                    serve.insert_cache(one, alone, r)
+                del alone
             for i, tok in enumerate(served):
                 ref = logits[0, -1].float()
                 gaps.append(float(ref.max() - ref[tok]) / float(ref.abs().max()))
                 exact += int(ref.argmax()) == tok
                 if i + 1 < len(served):
-                    logits, one = model.decode_step(
-                        torch.tensor([[tok]], device=dev), one, prompt.shape[1] + i)
+                    pos = prompt.shape[1] + i
+                    if rows > 1:
+                        logits, one = model.decode_step(
+                            torch.full((rows, 1), tok, device=dev), one,
+                            torch.full((rows,), pos, device=dev))
+                    else:
+                        logits, one = model.decode_step(
+                            torch.tensor([[tok]], device=dev), one, pos)
     return gaps, exact
 
 
@@ -683,13 +749,15 @@ def profile_split(torch, fn, calls):
     records of a long capture; the share seen must be at least a half."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def body():
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    prof, wall = captured(torch, body, "a profiled split")
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -811,12 +879,14 @@ def profile_window(torch, run, cfg, n_batches=100):
         warnings.simplefilter("ignore", RuntimeWarning)
         run(cut)  # warm-up
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+
+        def body():
             t0 = time.perf_counter()
             nb = run(cut)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            return nb, time.perf_counter() - t0
+
+        prof, (nb, wall) = captured(torch, body, "a profiled window", cpu=False)
     ops_ms = [e.device_time_total / 1e3 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     check(nb == n_batches and ops_ms,
@@ -1113,9 +1183,9 @@ def single_runs(runs, dev="cuda"):
 
 def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
             cut_jobs=SWEEP_CUT_JOBS):
-    """Phase 11: the batched sweep at Curie scale. Dense grids at E = 1 and 8
-    on phase 5's inputs cut to their first ``max_jobs`` jobs and at E = 64
-    on ``cut_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
+    """Phase 11: the batched sweep at Curie scale. Dense grids at E = 8 on
+    phase 5's inputs cut to their first ``max_jobs`` jobs and at E = 64 on
+    ``cut_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
     ``max_jobs`` with ``OPTIONS`` (pack, partition, burst merging); (f) a
     dense E = 4 grid with ``OPTIONS`` on phase 4's 280-node Curie inputs.
     Each checked row is held bit for bit against a single run of its
@@ -1153,8 +1223,6 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
     f_wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=GROUPED_JOBS)
     f_cfg = dataclasses.replace(dense_cfg, **OPTIONS)
     grids = [  # name, platform, jobs, config, scenarios, kernel, profiled
-        ("dense E=1", dense_plat, dense_wl, dense_cfg,
-         [{"scheduler": "EASY PSUS", "timeout": 1800}], "event_fuse_ledger", True),
         ("dense E=8", dense_plat, dense_wl, dense_cfg, sweep_grid(8), "event_fuse_ledger",
          True),
         ("dense E=64", dense_plat, dense_cut, dense_cfg, sweep_grid(64),
@@ -1171,7 +1239,6 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
 
     # (grid, scenario, platform, jobs, config) of every checked row
     checks = [
-        ("dense E=1", ("EASY PSUS", 1800), dense_plat, dense_wl, dense_cfg),
         ("dense E=64", ("EASY PSUS", 1800), dense_plat, dense_cut, dense_cfg),
         ("dense E=8", ("FCFS PSAS+IPM", 600), dense_plat, dense_wl, dense_cfg),
         ("(e) options E=8", ("EASY PSUS", 1800), g_plat, g_wl, e_cfg),
@@ -1267,15 +1334,15 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
               f"{what}: schedule table or metrics differ")
         walls[name, scheduler] = wall
     e, m8 = runs["(e) options E=8"], runs["dense E=8"]
-    print(f"phase 11 rows: the E=1 sweep == phase 5's configuration run alone on its "
-          f"first {max_jobs} jobs, the E=64 row EASY PSUS 1800 == it on {cut_jobs} jobs, "
-          "the E=8 row FCFS PSAS+IPM 600 == its single run, bit for bit; (e) "
+    print(f"phase 11 rows: the E=64 row EASY PSUS 1800 == phase 5's configuration run "
+          f"alone on its first {cut_jobs} jobs, the E=8 row FCFS PSAS+IPM 600 == its "
+          f"single run on {max_jobs}, bit for bit; (e) "
           f"{OPTIONS}: rows EASY PSUS 1800 and FCFS PSAS+IPM 600 == their single runs "
           "(every state field, the schedule table, every SimMetrics field); (f) every "
           f"row == its single run on curie_platform(280), {len(f_wl)} jobs, dense. The "
           f"{len(checks)} single runs ran in a worker process beside the grids (waited "
-          f"{wait_s:.2f} s for them): dense EASY PSUS 1800 "
-          f"{walls['dense E=1', 'EASY PSUS']:.2f} s, FCFS PSAS+IPM 600 "
+          f"{wait_s:.2f} s for them): dense EASY PSUS 1800 on {cut_jobs} jobs "
+          f"{walls['dense E=64', 'EASY PSUS']:.2f} s, FCFS PSAS+IPM 600 "
           f"{walls['dense E=8', 'FCFS PSAS+IPM']:.2f} s; (e)'s EASY PSUS 1800 "
           f"{walls['(e) options E=8', 'EASY PSUS']:.2f} s and FCFS PSAS+IPM 600 "
           f"{walls['(e) options E=8', 'FCFS PSAS+IPM']:.2f} s against (e)'s "
@@ -1288,7 +1355,7 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
                       if sc["scheduler"] == "EASY PSUS")
           + f"; phase wall {time.perf_counter() - t11:.1f} s", flush=True)
     dense = sum(runs[n]["launches"]["event_fuse_ledger"]
-                for n in ("dense E=1", "dense E=8", "dense E=64"))
+                for n in ("dense E=8", "dense E=64"))
     e8_rows = {(sc["scheduler"], sc["timeout"]): mm.row()
                for sc, mm in zip(m8["scen"], m8["batch"].metrics)}
     return dense, e["launches"], runs["(f) options dense E=4"]["launches"], e8_rows
@@ -1405,11 +1472,13 @@ def phase12(torch, np, swf, tmp, dev="cuda", nodes=11200):
     # the first 100 steps profiled (a warm run of the same steps came first)
     n_prof = min(100, RL_STEPS)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    def env_window():
         t0 = time.perf_counter()
         run_env(n_prof, False)
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    prof, prof_wall = captured(torch, env_window, "phase 12 (a)'s steps", cpu=False)
     dev_ms = [e.device_time_total / 1e3 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     check(dev_ms, "phase 12 (a): the profiler saw no device op")
@@ -1924,12 +1993,34 @@ def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
     return by_part
 
 
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per attention — a layer's, a
+    super-block's shared block's, or whisper's encoder, self and cross
+    attention."""
+    n = cfg.block_program()[0][1]
+    return 2 * n + cfg.encoder_layers if cfg.encoder_layers else n
+
+
+def random_front_end(torch, np, cfg, batch, dev, seed=2):
+    """Seeded standard normal image embeds or encoder frames for ``batch``
+    sequences of ``cfg``, in its dtype, as ``prefill`` keywords."""
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32)).to(
+        dev, cfg.dtype) for k, v in serve.front_end_inputs(cfg, batch, "cpu").items()}
+
+
 def phase14(torch, np, dev="cuda"):
-    """Phase 14: each of ``ARCHS14`` served at full width and depth in bf16
-    with random weights from seed 0 (``SERVE14_ARGS``) on ``dev``, its
-    kernel launches counted, its refilled requests held against their own
-    decode, then its f32 kernel route against the plain route at full width
-    and cut depth. Returns {arch: the serve's launches by counter}."""
+    """Phase 14: each of ``ARCHS14`` served at full width (and depth, or
+    its serve depth) in bf16 with random weights from seed 0
+    (``SERVE14_ARGS``; the reference loop's zero image embeds and encoder
+    frames) on ``dev``, its kernel launches counted, its refilled requests
+    held against their own decode, then its f32 kernel route against the
+    plain route at full width and cut depth (random front-end inputs; for
+    the MoE, the smallest margin between the k-th and (k+1)-th router
+    probability of either route). Returns {arch: the serve's launches by
+    counter}."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import event_fuse
     from repro_torch.kernels import flash_attention as fa
@@ -1940,19 +2031,25 @@ def phase14(torch, np, dev="cuda"):
     t14 = time.perf_counter()
     n_req, max_new, prompt_len, cache_len = 8, 32, 1024, 1280
     launches = {}
-    for arch, (n_flash, route, n_ssd, depth) in ARCHS14.items():
+    for arch, (n_flash, route, n_ssd, depth, layers) in ARCHS14.items():
         t_arch = time.perf_counter()
         cfg = get_arch(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
         check(fa.variant(cfg.dtype, cfg.hd) == route,
               f"{arch}: flash_attention.variant names {fa.variant(cfg.dtype, cfg.hd)}, "
               f"not {route}")
+        check(n_flash == n_req * flash_per_prefill(cfg),
+              f"{arch}: {n_flash} flash launches expected, {n_req} prefills of "
+              f"{flash_per_prefill(cfg)}")
         stats = {}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         event_fuse.reset_launches()
         fa.reset_launches()
         ssd.reset_launches()
-        result = serve.main(["--arch", arch] + SERVE14_ARGS + ["--device", dev], stats=stats)
+        result = serve.main(["--arch", arch] + SERVE14_ARGS + ["--device", dev], stats=stats,
+                            config=cfg)
         got = dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"])
         events = dict(event_fuse.LAUNCHES)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1971,17 +2068,29 @@ def phase14(torch, np, dev="cuda"):
         dec_ms = [1e3 * x for x in stats["decode_s"]]
 
         # the refilled requests against their own prefill + decode, on
-        # serve's weights and prompts
+        # serve's weights, prompts and front-end inputs
         model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
         weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
         prompt_rng = np.random.default_rng(0)
         queue = [prompt_rng.integers(0, cfg.vocab_size, size=prompt_len)
                  for _ in range(n_req)]
+        # an MoE's refilled requests are held at the serve's batch shape (4
+        # rows): a bf16 routing choice tips between a batch of 4 and of 1
+        # (PERF.md §6, the MoE's refill finding), so their decode as 1 row is
+        # printed, not held
+        extras = serve.front_end_inputs(cfg, 1, dev)
+        rows = 4 if cfg.n_experts else 1
         gaps, exact = refill_gaps(torch, model, queue, stats["tokens"], REFILLED14, cache_len,
-                                  dev)
+                                  dev, extras, rows)
         check(max(gaps) <= REFILL_TOL,
               f"{arch} serve: a refilled request's token is {max(gaps):.4g} of the largest "
               f"|logit| below its own decode's maximum (tolerance {REFILL_TOL})")
+        one_row = ""
+        if rows > 1:
+            gaps1, exact1 = refill_gaps(torch, model, queue, stats["tokens"], REFILLED14,
+                                        cache_len, dev, extras)
+            one_row = (f"; decoded as 1 row: {exact1} of {len(gaps1)} the greedy maximum, "
+                       f"largest gap {max(gaps1):.4g} (not held)")
         # one decode step of the 4 slots at [4] positions, as serve runs it,
         # profiled, and for the hybrid one prefill (1 x 1024 tokens) too (a
         # profile costs seconds of host time: the dense prefills are
@@ -1999,17 +2108,28 @@ def phase14(torch, np, dev="cuda"):
         torch.cuda.empty_cache()
 
         # the kernel route against the plain route, full width, cut depth, f32
-        cut = cfg.replace(dtype_name="float32", n_layers=depth)
-        n_attn = cut.block_program()[0][1]  # one attention a layer or a super-block
-        n_mamba = n_attn * cut.mamba_per_super if n_ssd else 0
+        cut = cfg.replace(dtype_name="float32", n_layers=depth,
+                          encoder_layers=depth if cfg.encoder_layers else 0)
+        n_attn = flash_per_prefill(cut)
+        n_mamba = cut.block_program()[0][1] * cut.mamba_per_super if n_ssd else 0
         model = build_model(cut, dev).init(torch.Generator(device=dev).manual_seed(0))
         prompts = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, prompt_len))).to(dev)
+        front = random_front_end(torch, np, cut, 2, dev)
+        margins = []
+
+        def router_margin(module, args, out):
+            top = torch.softmax(args[0].float() @ module.router, -1).topk(
+                module.top_k + 1, dim=-1).values
+            margins.append(float((top[..., -2] - top[..., -1]).min()))
+
+        hooks = [b.moe.register_forward_hook(router_margin) for b in model.blocks
+                 if hasattr(b, "moe")]
         with torch.inference_mode():
             fa.reset_launches()
             ssd.reset_launches()
             model.attn_impl, model.gla_impl = "auto", "auto"
-            logits_k = model.prefill(prompts)[0][:, -1]
+            logits_k = model.prefill(prompts, **front)[0][:, -1]
             torch.cuda.synchronize()
             k_got = dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"])
             check(k_got["flash_attention"] == k_got["flash_attention_simt"] == n_attn
@@ -2017,22 +2137,32 @@ def phase14(torch, np, dev="cuda"):
                   f"{arch} f32 prefill: launches {k_got}, expected {n_attn} SIMT flash and "
                   f"{n_mamba} ssd_scan")
             model.attn_impl, model.gla_impl = "naive", "plain"
-            logits_p = model.prefill(prompts)[0][:, -1]
+            logits_p = model.prefill(prompts, **front)[0][:, -1]
             check(dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"]) == k_got,
                   f"{arch}: the plain route launched a kernel")
+        for hook in hooks:
+            hook.remove()
         scale = float(logits_p.abs().max())
         diff = float((logits_k - logits_p).abs().max())
         tok_k, tok_p = logits_k.argmax(-1).tolist(), logits_p.argmax(-1).tolist()
         top2 = logits_p.topk(2, dim=-1).values
         margin = float((top2[:, 0] - top2[:, 1]).min())
-        del model, logits_k, logits_p
+        del model, logits_k, logits_p, front
         torch.cuda.empty_cache()
+        routing = (f"; smallest router margin (k-th less (k+1)-th probability) of "
+                   f"{len(margins)} MoE layer calls {min(margins):.3g}" if margins else "")
         check(diff <= LOGITS_REL_TOL * max(scale, 1.0),
               f"{arch} f32 logits: kernel route vs plain route max abs diff {diff} > "
-              f"{LOGITS_REL_TOL} x {scale}")
-        check(tok_k == tok_p, f"{arch} f32 greedy tokens: kernel {tok_k} vs plain {tok_p}")
-        print(f"phase 14 serve: {arch} full width bf16 on cuda ({cfg.n_layers} layers, d "
-              f"{cfg.d_model}, H {cfg.n_heads}, KH {cfg.n_kv_heads}, hd {cfg.hd}; "
+              f"{LOGITS_REL_TOL} x {scale}{routing}")
+        check(tok_k == tok_p,
+              f"{arch} f32 greedy tokens: kernel {tok_k} vs plain {tok_p}{routing}")
+        f32_depth = (f"{depth} encoder and {depth} decoder layers" if cut.encoder_layers
+                     else f"{depth} layers")
+        print(f"phase 14 serve: {arch} full width bf16 on cuda ({cfg.n_layers} layers"
+              f"{f' (of {get_arch(arch).n_layers})' if layers is not None else ''}"
+              f"{f' and {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}"
+              f", d {cfg.d_model}, H {cfg.n_heads}, KH {cfg.n_kv_heads}, hd {cfg.hd}"
+              f"{f', {cfg.n_experts} experts top-{cfg.top_k}' if cfg.n_experts else ''}; "
               f"{weights_gb:.2f} GB of weights), 8 requests x 1024 tokens, 4 slots, 32 new "
               f"tokens, cache 1280, per-slot positions: {result}; flash_attention launches "
               f"{got['flash_attention']} all {route}, ssd_scan calls {got['ssd_scan']}, no "
@@ -2040,13 +2170,13 @@ def phase14(torch, np, dev="cuda"):
               f"{statistics.median(pre_ms[1:]):.2f} ms per request; decode median "
               f"{statistics.median(dec_ms):.3f} ms, mean {statistics.fmean(dec_ms):.3f} ms "
               f"per step ({len(dec_ms)} steps); peak device memory {peak_gib:.2f} GiB; "
-              f"refilled requests {REFILLED14} against their own decode: {exact} of "
-              f"{len(gaps)} tokens the greedy maximum, largest gap {max(gaps):.4g} "
-              f"(tolerance {REFILL_TOL}); f32 at {depth} layers, 2 x 1024-token prompts, "
-              f"kernel route ({n_attn} SIMT flash, {n_mamba} ssd_scan) vs plain route: "
+              f"refilled requests {REFILLED14} against their own decode at {rows} "
+              f"row(s): {exact} of {len(gaps)} tokens the greedy maximum, largest gap "
+              f"{max(gaps):.4g} (tolerance {REFILL_TOL}){one_row}; f32 at {f32_depth}, 2 x "
+              f"1024-token prompts, kernel route ({n_attn} SIMT flash, {n_mamba} ssd_scan) vs plain route: "
               f"last-position logits max abs diff {diff:.3g} (largest |logit| {scale:.3g}, "
               f"tolerance {LOGITS_REL_TOL} of it), greedy tokens {tok_k} == {tok_p} (top-2 "
-              f"margin {margin:.3g}); arch wall {time.perf_counter() - t_arch:.1f} s",
+              f"margin {margin:.3g}){routing}; arch wall {time.perf_counter() - t_arch:.1f} s",
               flush=True)
         for part, (by_kind, ops, n_dev, _, seen, wall) in prof.items():
             dev_ms = sum(by_kind.values())
@@ -2055,8 +2185,8 @@ def phase14(torch, np, dev="cuda"):
                   f"(busy {100 * dev_ms / wall:.1f} %): "
                   + ", ".join(f"{k} {ms:.3f} ms" for k, ms in by_kind.items())
                   + f" (records seen {seen:.3f})", flush=True)
-    print(f"phase 14 dense and hybrid archs: wall {time.perf_counter() - t14:.1f} s",
-          flush=True)
+    print(f"phase 14 dense, hybrid, MoE, VLM and encoder-decoder archs: wall "
+          f"{time.perf_counter() - t14:.1f} s", flush=True)
     return launches
 
 
@@ -2328,24 +2458,40 @@ def main() -> None:
 
     # the new serve paths' prefill shapes: the variant the table names, the
     # plain version and scaled_dot_product_attention, in bf16, and at hd 80
-    # in f32 as well
+    # in f32 as well; each with its own mask as it runs (whisper's encoder
+    # and cross attention unmasked)
     flash_new = {}
     for label, shape in FLASH_NEW.items():
+        causal = shape[-1]
+
+        def new_kernel(q, k, v, causal=causal):
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        def new_plain(q, k, v, causal=causal):
+            return fa.flash_attention_plain(q, k, v, causal=causal)
+
+        def new_sdpa(q, k, v, causal=causal):  # timed only: the port never calls it
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True).transpose(1, 2)
+
         for dname in ("bfloat16", "float32") if shape[5] == 80 else ("bfloat16",):
             args = flash_inputs(torch, np, shape, getattr(torch, dname))
             route = fa.variant(args[0].dtype, shape[5])
             kname = ("flash_attention_wgmma_kernel" if route == "wgmma"
                      else "flash_attention_kernel")
-            k_ms, k_seen = one_kernel(flash_kernel, args, kname)
-            p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=20)
-            l_ms, l_ops, _, l_seen = device_ms(torch, sdpa, args, calls=100)
-            k_host = host_ms(torch, flash_kernel, args)
+            k_ms, k_seen = one_kernel(new_kernel, args, kname)
+            p_ms, p_ops, _, p_seen = device_ms(torch, new_plain, args, calls=20)
+            l_ms, l_ops, _, l_seen = device_ms(torch, new_sdpa, args, calls=100)
+            k_host = host_ms(torch, new_kernel, args)
             b_ms, b_by = flash_bound(*shape, itemsize=args[0].element_size())
             flash_new[f"{label} {dname}"] = {
-                "shape": list(shape[:6]), "variant": route, "ms": k_ms, "plain_ms": p_ms,
-                "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "host_ms": k_host}
+                "shape": list(shape[:6]), "causal": causal, "variant": route, "ms": k_ms,
+                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "host_ms": k_host}
             print(f"phase 3 kernels: flash_attention {label} {dname} (B, Sq, Sk, H, KH, hd) "
-                  f"{shape[:6]} causal: device time {route} kernel {1e3 * k_ms:.3f} us, plain "
+                  f"{shape[:6]} {'causal' if causal else 'unmasked'}: device time {route} "
+                  f"kernel {1e3 * k_ms:.3f} us, plain "
                   f"{1e3 * p_ms:.3f} us ({p_ops} device ops), scaled_dot_product_attention "
                   f"{1e3 * l_ms:.3f} us ({l_ops} device ops; kernel / SDPA "
                   f"{k_ms / l_ms:.2f}); bound {1e3 * b_ms:.3f} us ({b_by}), kernel at "
@@ -2754,16 +2900,17 @@ def main() -> None:
     # one prefill of the serve path, profiled: flash kernel against matmuls
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, lm.vocab_size, (1, 1024))).cuda()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.inference_mode():
         for _ in range(2):
             model.prefill(prompt, cache_len=1280)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        def one_prefill():
             t0 = time.perf_counter()
             model.prefill(prompt, cache_len=1280)
             torch.cuda.synchronize()
-            prefill_wall = time.perf_counter() - t0
+            return time.perf_counter() - t0
+
+        prof, prefill_wall = captured(torch, one_prefill, "phase 8's prefill")
     by_class, by_name = {"flash": 0.0, "matmul": 0.0, "other": 0.0}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2802,8 +2949,8 @@ def main() -> None:
     with torch.inference_mode():
         for key, pos in step_pos.items():
             decode_steps(pos, 2)
-            with torch.profiler.profile(activities=acts) as dprof:
-                wall = decode_steps(pos, 1)
+            dprof, wall = captured(torch, lambda pos=pos: decode_steps(pos, 1),
+                                   "phase 8's decode step")
             dev = [e.device_time_total / 1e3 for e in dprof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
             step_prof[key] = (wall, top_level_ops(torch, dprof), len(dev), sum(dev))
@@ -2952,11 +3099,13 @@ def main() -> None:
         for _ in range(2):
             model.decode_step(step_tok, cache, 1100)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as dprof:
+        def one_step():
             t0 = time.perf_counter()
             model.decode_step(step_tok, cache, 1100)
             torch.cuda.synchronize()
-            decode_wall = time.perf_counter() - t0
+            return time.perf_counter() - t0
+
+        dprof, decode_wall = captured(torch, one_step, "phase 9's decode step")
     dec_dev = [e.device_time_total / 1e3 for e in dprof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     print(f"phase 9 serve: one bf16 decode step (4 slots) profiled: wall "
@@ -3020,7 +3169,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     exp_by_part = phase13(torch, np, tmp, fig45_oracles, e8_rows)
 
-    # ---- 14. the dense and hybrid archs ----
+    # ---- 14. the dense, hybrid, MoE, VLM and encoder-decoder archs ----
     torch.cuda.empty_cache()
     lm_by_arch = phase14(torch, np)
 
@@ -3082,8 +3231,9 @@ def main() -> None:
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "
                     "launch), simt_ms the SIMT kernel on the same inputs, ms_f32 the "
                     "SIMT kernel in f32; by_shape: phase 14's prefill shapes on the "
-                    "variant the table names; library: "
-                    "scaled_dot_product_attention(is_causal, enable_gqa)",
+                    "variant the table names (whisper's unmasked); library: "
+                    "scaled_dot_product_attention(is_causal as the shape's mask, "
+                    "enable_gqa)",
         },
         {
             "name": "ssd_scan", "route": "cuda",

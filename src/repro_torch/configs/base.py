@@ -1,10 +1,8 @@
 """ArchConfig dataclass and the architecture registry.
 
 A copy of the reference's ``configs/base.py`` (the port imports nothing of
-``repro``) with ``dtype`` returning a torch dtype. Only the architectures
-whose block types the port runs are registered; every other name the
-reference knows raises ``NotImplementedError`` naming the ROADMAP item that
-ports it; :func:`arch_config` gives every architecture's numbers.
+``repro``) with ``dtype`` returning a torch dtype. Every architecture the
+reference registers is registered here, with the same numbers.
 """
 from __future__ import annotations
 
@@ -106,11 +104,10 @@ _ARCH_MODULES = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
-}
-# the reference's other architectures, with the ROADMAP item that ports them
-_NOT_PORTED = {
-    name: "ROADMAP Queue 1 item 12c (the rest of the LM scaffold)"
-    for name in ("qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny")
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 
@@ -125,26 +122,10 @@ def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     if name not in ARCH_REGISTRY:
         if name in _ARCH_MODULES:
             importlib.import_module(_ARCH_MODULES[name])
-        elif name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"arch {name!r} is not ported to PyTorch yet ({_NOT_PORTED[name]})"
-            )
         else:
             raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     return (REDUCED_REGISTRY if reduced else ARCH_REGISTRY)[name]()
 
 
 def list_archs():
-    """The reference's architecture names, ported or not."""
-    return sorted({**_ARCH_MODULES, **_NOT_PORTED})
-
-
-def arch_config(name: str) -> ArchConfig:
-    """The full configuration of any of the reference's architectures, as
-    numbers: ``get_arch(name)`` for the ported ones, the copied numbers of
-    ``configs/catalog.py`` for the rest (whose models do not run here)."""
-    if name in _NOT_PORTED:
-        from repro_torch.configs.catalog import CONFIG_ONLY
-
-        return CONFIG_ONLY[name]()
-    return get_arch(name)
+    return sorted(_ARCH_MODULES)

@@ -15,9 +15,8 @@ numbers the dry-run produces:
 profiles — so scheduler/PSM policies are evaluated against a realistic
 mix of LM training and serving jobs rather than synthetic lognormals.
 
-Every architecture's numbers come from ``configs.arch_config`` (the ported
-models' configs and the copied numbers of the rest), so the workload is the
-reference's job for job without running any model.
+Every architecture's numbers come from ``configs.get_arch``, so the workload
+is the reference's job for job without running any model.
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.configs import arch_config, list_archs
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.launch.shapes import SHAPE_SETS, applicable
 from repro_torch.workloads.workload import Job, Workload
 
@@ -53,7 +52,7 @@ class JobProfile:
 
 def _param_count(arch: str) -> float:
     # avoids jax.eval_shape cost: analytic count from the config
-    cfg = arch_config(arch)
+    cfg = get_arch(arch)
     d, v = cfg.d_model, cfg.padded_vocab
     per_layer = 4 * d * d + 3 * d * max(cfg.d_ff, 1)
     if cfg.n_experts:
@@ -79,7 +78,7 @@ def build_profiles(
 ) -> List[JobProfile]:
     profiles = []
     for arch in list_archs():
-        cfg = arch_config(arch)
+        cfg = get_arch(arch)
         for shape_name, shape in SHAPE_SETS.items():
             if not applicable(cfg, shape)[0]:
                 continue

@@ -7,10 +7,16 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --reduced --device cpu --prompt-len 16 --per-slot-positions
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+        --reduced --device cpu --prompt-len 16 --per-slot-positions
 
-``--arch`` takes every architecture the port runs: the dense
+``--arch`` takes every architecture the reference registers: the dense
 ``internlm2-1.8b``, ``glm4-9b``, ``stablelm-3b`` and ``qwen3-14b``, the
-hybrid ``zamba2-2.7b`` and ``xlstm-350m``.
+MoE ``qwen2-moe-a2.7b`` and ``grok-1-314b`` (at ``--reduced`` only: its
+full weights are 628 GB), the hybrid ``zamba2-2.7b``, ``xlstm-350m``, the
+VLM ``internvl2-26b`` and the encoder-decoder ``whisper-tiny``. As the
+reference's loop does, each prefill gets zero front-end inputs: ``[1,
+n_image_embeds, D]`` image embeds, ``[1, encoder_seq, D]`` encoder frames.
 
 The counterpart of the reference's ``launch/serve.py``, with the same flags
 (plus ``--device``: cuda unless ``cpu`` is asked for), the same loop and the
@@ -21,7 +27,9 @@ same result keys and ``[serve] done:`` line:
   is prefilled into it;
 * one shared position counter for the batch (prompts have one length), and
   the reference's drain when ``pos + 1`` reaches the cache length;
-* greedy tokens (``argmax``, the first maximum on ties).
+* greedy tokens (``argmax``, the first maximum on ties);
+* zero image embeds or encoder frames at each prefill, for the archs that
+  take them (:func:`front_end_inputs`).
 
 The shared counter is the reference's, and it is wrong for a refilled slot:
 the new request decodes at the batch's position instead of its own prompt
@@ -41,7 +49,8 @@ but its shared attention does.
 Two differences, both deliberate. The slot's cache insert writes **every
 layer** of every field of the stacked cache (the ``[L, B, S, KH, hd]`` keys
 and values, zamba2's Mamba-2 states and shared-attention keys and values,
-or the xLSTM's recurrent states); the reference writes only
+the xLSTM's recurrent states, or whisper's self and cross keys and
+values); the reference writes only
 layer 0 (its insert updates index ``slot`` of axis 1 with ``s[0]``, which is
 layer 0's slice of each field; see ROADMAP Queue 3), so its later layers
 keep zeros or the slot's previous request. And the cache is preallocated
@@ -65,6 +74,20 @@ from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.transformer import Cache
+
+
+def front_end_inputs(cfg: ArchConfig, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The reference serve loop's prefill extras: zero ``image_embeds``
+    ``[batch, n_image_embeds, D]`` and zero ``encoder_frames`` ``[batch,
+    encoder_seq, D]`` in the model dtype, for the archs that take them."""
+    out = {}
+    if cfg.n_image_embeds:
+        out["image_embeds"] = torch.zeros((batch, cfg.n_image_embeds, cfg.d_model),
+                                          dtype=cfg.dtype, device=device)
+    if cfg.encoder_layers:
+        out["encoder_frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                            dtype=cfg.dtype, device=device)
+    return out
 
 
 def insert_cache(big: Cache, small: Cache, slot: int) -> None:
@@ -105,6 +128,7 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None,
     cfg = config or get_arch(args.arch, reduced=args.reduced)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = build_model(cfg, dev).init(gen)
+    extras = front_end_inputs(cfg, 1, dev)
     rng = np.random.default_rng(args.seed)
 
     n_slots = args.slots
@@ -142,7 +166,7 @@ def main(argv=None, stats: Optional[Dict[str, Any]] = None,
         next_req += 1
         t0 = time.perf_counter()
         prompt = torch.from_numpy(queue[rid][None, :]).to(dev)
-        logits, small = model.prefill(prompt, cache_len=args.cache_len)
+        logits, small = model.prefill(prompt, cache_len=args.cache_len, **extras)
         tok = int(torch.argmax(logits[0, -1]))
         prefill_s.append(time.perf_counter() - t0)
         ttft[rid] = time.time() - t_submit[rid]

@@ -1,14 +1,18 @@
-"""The LM substrate on PyTorch: the dense family (``internlm2-1.8b``,
-``glm4-9b``, ``stablelm-3b``, ``qwen3-14b``), the Mamba-2 hybrid
-(``zamba2-2.7b``) and xLSTM (``xlstm-350m``).
+"""The LM substrate on PyTorch: every architecture the reference registers —
+the dense family (``internlm2-1.8b``, ``glm4-9b``, ``stablelm-3b``,
+``qwen3-14b``, ``internvl2-26b`` with its image embeds), the MoE family
+(``qwen2-moe-a2.7b``, ``grok-1-314b``), the Mamba-2 hybrid
+(``zamba2-2.7b``), xLSTM (``xlstm-350m``) and the encoder-decoder
+``whisper-tiny``.
 
-``build_model(arch_config, device)`` returns a :class:`Transformer`
+``build_model(config, device)`` returns a :class:`Transformer`
 (``nn.Module``) with ``init``, ``forward``, ``prefill``, ``decode_step``,
 ``init_cache`` and ``n_params``; ``convert.params_from_arrays`` loads the
 reference's parameter pytree into it.
 """
 from repro_torch.models.transformer import (
-    KVCache, Transformer, XLstmCache, ZambaCache, build_model,
+    EncDecCache, KVCache, Transformer, XLstmCache, ZambaCache, build_model,
 )
 
-__all__ = ["KVCache", "Transformer", "XLstmCache", "ZambaCache", "build_model"]
+__all__ = ["EncDecCache", "KVCache", "Transformer", "XLstmCache", "ZambaCache",
+           "build_model"]

@@ -1,11 +1,12 @@
 """Core layers of the attention blocks: init helpers, RMS norm, RoPE, GQA
-attention (with the optional per-head qk-norm) and a KV cache, and the
-SwiGLU MLP. They make the ``dense`` block (``internlm2-1.8b``, ``glm4-9b``,
-``stablelm-3b``, ``qwen3-14b``) and the shared attention block of
-``zamba_super`` (``zamba2-2.7b``).
+attention (with the optional per-head qk-norm) and a KV cache, cross
+attention over an encoder memory, the SwiGLU and GELU MLPs and the
+encoder's sinusoidal positions. They make the ``dense`` and ``moe`` blocks,
+the shared attention block of ``zamba_super`` (``zamba2-2.7b``) and
+whisper's ``enc`` and ``dec`` blocks.
 
-The dense subset of the reference's ``models/layers.py``, with its cast
-order kept exactly: ``rms_norm`` normalises in f32, casts to the input dtype,
+The reference's ``models/layers.py`` but its unused ``layer_norm``, with
+its cast order kept exactly: ``rms_norm`` normalises in f32, casts to the input dtype,
 then multiplies by the gain (the qk-norm of q and k per head included); RoPE
 runs in f32 and casts back; logits are computed in the input dtype, cast to
 f32 and scaled; masked logits are -1e30.
@@ -18,7 +19,11 @@ Attention routes (``attn_impl``, the reference's values):
   the flash kernel) — attention that starts at position 0 (the cache-free
   forward, and prefill at ``cache_pos == 0``) goes to the flash attention
   kernel over the fresh k, v; decode keeps the plain masked attention over
-  the cache, as the reference computes it outside any kernel.
+  the cache, as the reference computes it outside any kernel. Cross
+  attention follows the same rule: over a fresh encoder memory (the
+  forward and prefill) it takes the kernel with ``causal=False``, where the
+  reference takes its naive attention; over the cached memory (decode) the
+  plain route.
 
 Prefill at ``cache_pos == 0`` over the fresh k, v equals the reference's
 masked attention over the whole cache: the causal mask, counted from 0,
@@ -57,7 +62,7 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# norms and RoPE
+# norms, RoPE and sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -79,6 +84,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The reference's ``_sinusoidal``: ``[S, d]`` f32, sines then cosines
+    of ``positions`` over ``d // 2`` geometric frequencies."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0)) / (half - 1)  # f32, as jnp.log
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32) * step).to(positions.device)
+    ang = positions[:, None].float() * freq[None, :]
+    return torch.cat([ang.sin(), ang.cos()], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +279,36 @@ class Attention(nn.Module):
             out = _attend(q, keys, vals, True, cache_pos, attn_impl)
         return self.wo(out.reshape(b, s, self.n_heads * self.head_dim))
 
+    def cross(
+        self,
+        x: torch.Tensor,
+        memory: Optional[torch.Tensor] = None,
+        cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        attn_impl: str = "auto",
+    ) -> torch.Tensor:
+        """Cross attention of ``x``'s queries ``[B, S, D]`` over an encoder
+        memory, unmasked and without RoPE (the reference's ``dec`` block).
+
+        With ``memory`` ``[B, Sm, D]``, its keys and values are projected,
+        written into ``cache`` (k, v) ``[B, Sm, KH, hd]`` when one is given,
+        and attended by the route ``attn_impl`` names; without it (decode)
+        they are read from ``cache`` and attended by the plain route.
+        """
+        b, s, _ = x.shape
+        q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
+        if memory is None:
+            k, v = cache
+            out = _masked_naive(q, k, v, False, 0)
+        else:
+            sm = memory.shape[1]
+            k = self.wk(memory).reshape(b, sm, self.n_kv_heads, self.head_dim)
+            v = self.wv(memory).reshape(b, sm, self.n_kv_heads, self.head_dim)
+            if cache is not None:
+                cache[0].copy_(k)
+                cache[1].copy_(v)
+            out = _attend(q, k, v, False, 0, attn_impl)
+        return self.wo(out.reshape(b, s, self.n_heads * self.head_dim))
+
 
 # ---------------------------------------------------------------------------
 # MLP
@@ -284,3 +329,23 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+
+
+class GeluMLP(nn.Module):
+    """The reference's ``gelu_mlp``: ``gelu(x @ w_in + b_in) @ w_out +
+    b_out`` with ``jax.nn.gelu``'s default, the tanh approximation."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype):
+        super().__init__()
+        self.w_in = nn.Linear(d_model, d_ff, dtype=dtype)
+        self.w_out = nn.Linear(d_ff, d_model, dtype=dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for lin in (self.w_in, self.w_out):
+            w = dense_init(generator, lin.in_features, lin.out_features, lin.weight.dtype)
+            lin.weight.copy_(w.t())
+            lin.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_out(F.gelu(self.w_in(x), approximate="tanh"))

@@ -1,39 +1,55 @@
-"""The LM stack as ``nn.Module``s: the dense, hybrid and xLSTM block programs.
+"""The LM stack as ``nn.Module``s: every block program the reference's
+registered architectures use.
 
-Three block types of the reference's block-programmed stack
+The block types of the reference's block-programmed stack
 (``models/transformer.py``):
 
 * ``dense`` — attention (GQA, RoPE, optional qk-norm) and a SwiGLU MLP,
   each behind an RMS norm, with residuals (``internlm2-1.8b``, ``glm4-9b``,
-  ``stablelm-3b``, ``qwen3-14b``);
+  ``stablelm-3b``, ``qwen3-14b``, and ``internvl2-26b``'s backbone);
+* ``moe`` — the same attention, then routed top-k experts with per-row
+  capacity dropping and optional shared experts (:mod:`.moe`;
+  ``qwen2-moe-a2.7b``, ``grok-1-314b``);
 * ``zamba_super`` — ``mamba_per_super`` Mamba-2 blocks, each ``x +
   mixer(norm(x))``, then one application of the weight-tied shared
   attention block, a ``dense`` block whose parameters the
   :class:`Transformer` holds once for every super-block (``zamba2-2.7b``);
 * ``xlstm_pair`` — an mLSTM block then an sLSTM block, each ``x +
-  mixer(norm(x))`` (``xlstm-350m``).
+  mixer(norm(x))`` (``xlstm-350m``);
+* ``dec`` — causal self-attention with RoPE, cross attention over the
+  encoder memory, then a GELU MLP (``whisper-tiny``'s decoder), beside the
+  :class:`Encoder`, a stack of ``enc`` blocks (unmasked attention without
+  RoPE, then a GELU MLP) over frame embeddings plus sinusoidal positions.
+
+Two front ends: ``image_embeds`` take the place of the first
+``n_image_embeds`` token embeddings (``internvl2-26b``; the length is
+unchanged), and ``encoder_frames`` go through the encoder, whose output is
+the decoder's cross-attention memory (``whisper-tiny``). Both enter at the
+forward and prefill; decode embeds tokens only.
 
 The reference stacks each stage's per-layer params on a leading axis for
 ``lax.scan``; here a :class:`Transformer` holds an ``nn.ModuleList`` of
 blocks, and ``models/convert.py`` slices the reference's stacked arrays into
-it. A model runs one stage (one block type), as every architecture the port
-registers does.
+it. A model runs one stage (one block type), as every architecture the
+reference registers does.
 
 Three execution paths, as in the reference's ``Model``: :meth:`forward`
-(no cache), :meth:`prefill` (builds the cache, returns the last position's
-logits) and :meth:`decode_step` (one token per sequence). The cache is the
-reference's stacked stage cache, one tensor per field with the layer axis
-first, preallocated and written in place, which stands in for the
-reference's buffer donation: a :class:`KVCache` ``[L, B, S_max, KH, hd]``
-for ``dense``, a :class:`ZambaCache` (each Mamba-2 layer's state and conv
+(no cache; it returns the layers' summed MoE aux loss beside the logits),
+:meth:`prefill` (builds the cache, returns the last position's logits) and
+:meth:`decode_step` (one token per sequence). The cache is the reference's
+stacked stage cache, one tensor per field with the layer axis first,
+preallocated and written in place, which stands in for the reference's
+buffer donation: a :class:`KVCache` ``[L, B, S_max, KH, hd]`` for ``dense``
+and ``moe``, a :class:`ZambaCache` (each Mamba-2 layer's state and conv
 tails, each shared-attention application's keys and values) for
 ``zamba_super``, an :class:`XLstmCache` of recurrent states for
-``xlstm_pair``. The port runs inference only: parameters do not require
+``xlstm_pair`` and an :class:`EncDecCache` (self and cross keys and values)
+for ``dec``. The port runs inference only: parameters do not require
 gradients (training is ROADMAP Queue 1 item 12c).
 
-Every other block type, a program that mixes block types, and the image and
-encoder front ends raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 12c.
+A program that mixes block types and a standalone ``mamba2``, ``mlstm``,
+``slstm`` or ``enc`` stage raise ``NotImplementedError`` naming ROADMAP
+Queue 1 item 12c; no registered architecture uses one.
 """
 from __future__ import annotations
 
@@ -46,6 +62,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.moe import MoE
 
 
 class KVCache(NamedTuple):
@@ -75,7 +92,28 @@ class ZambaCache(NamedTuple):
     v: torch.Tensor  # [P, B, S_max, KH, hd]
 
 
-Cache = Union[KVCache, ZambaCache, XLstmCache]
+class EncDecCache(NamedTuple):
+    """Each ``dec`` layer's self-attention keys and values and its cross
+    keys and values over the encoder memory, layer axis first."""
+    k: torch.Tensor  # [L, B, S_max, KH, hd]
+    v: torch.Tensor  # [L, B, S_max, KH, hd]
+    cross_k: torch.Tensor  # [L, B, encoder_seq, KH, hd]
+    cross_v: torch.Tensor  # [L, B, encoder_seq, KH, hd]
+
+
+Cache = Union[KVCache, ZambaCache, XLstmCache, EncDecCache]
+
+
+def _attention(cfg: ArchConfig, rope: bool = True, qk_norm: Optional[bool] = None
+               ) -> L.Attention:
+    return L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.dtype,
+                       theta=cfg.rope_theta if rope else 0.0,
+                       qk_norm=cfg.qk_norm if qk_norm is None else qk_norm,
+                       eps=cfg.norm_eps)
+
+
+def _norm_gain(cfg: ArchConfig) -> nn.Parameter:
+    return nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
 
 
 class DenseBlock(nn.Module):
@@ -84,11 +122,9 @@ class DenseBlock(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.eps = cfg.norm_eps
-        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
-        self.attn = L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                cfg.dtype, theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-                                eps=cfg.norm_eps)
-        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
+        self.ln1 = _norm_gain(cfg)
+        self.attn = _attention(cfg)
+        self.ln2 = _norm_gain(cfg)
         self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype)
 
     @torch.no_grad()
@@ -106,6 +142,125 @@ class DenseBlock(nn.Module):
                       cache=cache, cache_pos=cache_pos, attn_impl=attn_impl)
         x = x + h
         return x + self.mlp(L.rms_norm(x, self.ln2, self.eps))
+
+
+class MoeBlock(nn.Module):
+    """``x + attn(norm(x))`` (the ``dense`` block's attention), then ``x +
+    moe(norm(x))``; the forward returns the MoE's aux loss beside x."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = _norm_gain(cfg)
+        self.attn = _attention(cfg)
+        self.ln2 = _norm_gain(cfg)
+        self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.top_k, cfg.expert_d_ff,
+                       cfg.n_shared_experts, cfg.shared_d_ff, cfg.capacity_factor, cfg.dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The reference's ``block_init`` for ``moe``."""
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.init(generator)
+        self.moe.init(generator)
+
+    def forward(self, x, positions, cache=None,
+                cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0,
+                attn_impl: str = "auto"):
+        h = self.attn(L.rms_norm(x, self.ln1, self.eps), positions, causal=True,
+                      cache=cache, cache_pos=cache_pos, attn_impl=attn_impl)
+        x = x + h
+        y, aux = self.moe(L.rms_norm(x, self.ln2, self.eps))
+        return x + y, aux
+
+
+class EncBlock(nn.Module):
+    """``x + attn(norm(x))`` unmasked and without RoPE, then ``x +
+    gelu_mlp(norm(x))`` (the reference's ``enc`` block)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = _norm_gain(cfg)
+        self.attn = _attention(cfg, rope=False)
+        self.ln2 = _norm_gain(cfg)
+        self.mlp = L.GeluMLP(cfg.d_model, cfg.d_ff, cfg.dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.init(generator)
+        self.mlp.init(generator)
+
+    def forward(self, x, positions, attn_impl: str = "auto") -> torch.Tensor:
+        x = x + self.attn(L.rms_norm(x, self.ln1, self.eps), positions, causal=False,
+                          attn_impl=attn_impl)
+        return x + self.mlp(L.rms_norm(x, self.ln2, self.eps))
+
+
+class Encoder(nn.Module):
+    """The reference's ``encode``: frames plus sinusoidal positions, the
+    ``enc`` blocks, then the final norm."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.blocks = nn.ModuleList(EncBlock(cfg) for _ in range(cfg.encoder_layers))
+        self.final_norm = _norm_gain(cfg)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for block in self.blocks:
+            block.init(generator)
+        self.final_norm.fill_(1.0)
+
+    def forward(self, frames: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+        """frames ``[B, S, D]`` -> the memory ``[B, S, D]`` in the model dtype."""
+        dt = self.final_norm.dtype
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        x = frames.to(dt) + L.sinusoidal(pos, frames.shape[2]).to(dt)[None]
+        for block in self.blocks:
+            x = block(x, pos, attn_impl)
+        return L.rms_norm(x, self.final_norm, self.eps)
+
+
+class DecBlock(nn.Module):
+    """``x + self_attn(norm(x))`` (causal, RoPE, cached), ``x +
+    cross_attn(norm(x), memory)``, then ``x + gelu_mlp(norm(x))`` (the
+    reference's ``dec`` block; its cross attention has no qk-norm)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln1 = _norm_gain(cfg)
+        self.self_attn = _attention(cfg)
+        self.ln2 = _norm_gain(cfg)
+        self.cross_attn = _attention(cfg, rope=False, qk_norm=False)
+        self.ln3 = _norm_gain(cfg)
+        self.mlp = L.GeluMLP(cfg.d_model, cfg.d_ff, cfg.dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for ln in (self.ln1, self.ln2, self.ln3):
+            ln.fill_(1.0)
+        self.self_attn.init(generator)
+        self.cross_attn.init(generator)
+        self.mlp.init(generator)
+
+    def forward(self, x, positions, memory=None, cache=None,
+                cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0,
+                attn_impl: str = "auto") -> torch.Tensor:
+        """``memory``: the encoder's output, or None to read the cross keys
+        and values from ``cache`` (this layer's four :class:`EncDecCache`
+        slices), as decode does."""
+        x = x + self.self_attn(L.rms_norm(x, self.ln1, self.eps), positions, causal=True,
+                               cache=None if cache is None else cache[:2],
+                               cache_pos=cache_pos, attn_impl=attn_impl)
+        x = x + self.cross_attn.cross(L.rms_norm(x, self.ln2, self.eps), memory,
+                                      None if cache is None else cache[2:], attn_impl)
+        return x + self.mlp(L.rms_norm(x, self.ln3, self.eps))
 
 
 class XLstmPair(nn.Module):
@@ -220,16 +375,17 @@ class ZambaSuper(nn.Module):
                       attn_impl)
 
 
-_BLOCKS = {"dense": DenseBlock, "zamba_super": ZambaSuper, "xlstm_pair": XLstmPair}
+_BLOCKS = {"dense": DenseBlock, "moe": MoeBlock, "zamba_super": ZambaSuper,
+           "xlstm_pair": XLstmPair, "dec": DecBlock}
 
 
 class Transformer(nn.Module):
-    """The LM: embedding, the stage's blocks (:class:`DenseBlock`,
-    :class:`ZambaSuper` or :class:`XLstmPair`), for ``zamba_super`` the
-    shared attention block ``shared_attn``, final norm and LM head over the
-    padded vocabulary. ``attn_impl`` selects the attention route (see
-    :mod:`repro_torch.models.layers`), ``gla_impl`` the GLA route (see
-    :mod:`repro_torch.models.ssm`)."""
+    """The LM: embedding, the stage's blocks (one of :data:`_BLOCKS`), for
+    ``zamba_super`` the shared attention block ``shared_attn``, with
+    ``encoder_layers`` the :class:`Encoder` ``encoder``, final norm and LM
+    head over the padded vocabulary. ``attn_impl`` selects the attention
+    route (see :mod:`repro_torch.models.layers`), ``gla_impl`` the GLA
+    route (see :mod:`repro_torch.models.ssm`)."""
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "auto", gla_impl: str = "auto"):
         super().__init__()
@@ -245,11 +401,6 @@ class Transformer(nn.Module):
                 f"a program of mixed block types {program} is not ported to PyTorch "
                 "yet (ROADMAP Queue 1 item 12c)"
             )
-        if cfg.n_image_embeds or cfg.encoder_layers:
-            raise NotImplementedError(
-                "image and encoder front ends are not ported to PyTorch yet "
-                "(ROADMAP Queue 1 item 12c)"
-            )
         if attn_impl not in L.ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {L.ATTN_IMPLS}, got {attn_impl!r}")
         if gla_impl not in S.GLA_IMPLS:
@@ -263,6 +414,7 @@ class Transformer(nn.Module):
         n_blocks = sum(count for _, count in program)
         self.blocks = nn.ModuleList(_BLOCKS[self.block_type](cfg) for _ in range(n_blocks))
         self.shared_attn = DenseBlock(cfg) if self.block_type == "zamba_super" else None
+        self.encoder = Encoder(cfg) if cfg.encoder_layers else None
         self.final_norm = nn.Parameter(torch.ones(d, dtype=cfg.dtype))
         self.lm_head = nn.Linear(d, vp, bias=False, dtype=cfg.dtype)
 
@@ -274,9 +426,10 @@ class Transformer(nn.Module):
     def init(self, generator: torch.Generator) -> "Transformer":
         """Fill every parameter from ``generator`` (on the model's device):
         the reference's ``init`` distributions, drawn in its order (embed,
-        LM head, then each layer). The numbers differ from the reference's
-        ``jax.random`` draws; ``convert.params_from_arrays`` carries the
-        reference's own parameters across."""
+        LM head, each layer, the shared block, the encoder). The numbers
+        differ from the reference's ``jax.random`` draws;
+        ``convert.params_from_arrays`` carries the reference's own
+        parameters across."""
         cfg = self.config
         self.embed.weight.copy_(L.embed_init(generator, cfg.padded_vocab, cfg.d_model, cfg.dtype))
         self.final_norm.fill_(1.0)
@@ -286,6 +439,8 @@ class Transformer(nn.Module):
             block.init(generator)
         if self.shared_attn is not None:
             self.shared_attn.init(generator)
+        if self.encoder is not None:
+            self.encoder.init(generator)
         return self
 
     # ---------------- shared machinery ----------------
@@ -296,8 +451,34 @@ class Transformer(nn.Module):
         x = L.rms_norm(x, self.final_norm, self.config.norm_eps)
         return self.lm_head(x).float()
 
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """The reference's ``embed_inputs``: with ``n_image_embeds``, the
+        image embeds ``[B, n, D]`` take the place of the first n token
+        embeddings."""
+        x = self._embed(tokens)
+        n = self.config.n_image_embeds
+        if n:
+            if image_embeds is None:
+                raise ValueError(f"{self.config.name} takes image_embeds [B, {n}, D]")
+            x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], 1)
+        return x
+
+    def _memory(self, encoder_frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The encoder's output over ``encoder_frames``, or None without an
+        encoder."""
+        if self.encoder is None:
+            return None
+        if encoder_frames is None:
+            raise ValueError(f"{self.config.name} takes encoder_frames [B, S, D]")
+        return self.encoder(encoder_frames, self.attn_impl)
+
     def _run(self, x, positions, cache: Optional[Cache] = None,
-             cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0):
+             cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0,
+             memory: Optional[torch.Tensor] = None):
+        """(x after every block, the sum of the MoE layers' aux losses, a
+        f32 scalar)."""
+        aux = torch.zeros((), device=x.device)
         for i, block in enumerate(self.blocks):
             if self.block_type == "zamba_super":
                 x = block(x, positions, self.shared_attn, self._super_cache(cache, i),
@@ -306,9 +487,14 @@ class Transformer(nn.Module):
             layer_cache = None if cache is None else tuple(f[i] for f in cache)
             if self.block_type == "dense":
                 x = block(x, positions, layer_cache, cache_pos, self.attn_impl)
+            elif self.block_type == "moe":
+                x, a = block(x, positions, layer_cache, cache_pos, self.attn_impl)
+                aux = aux + a
+            elif self.block_type == "dec":
+                x = block(x, positions, memory, layer_cache, cache_pos, self.attn_impl)
             else:
                 x = block(x, layer_cache, self.gla_impl)
-        return x
+        return x, aux
 
     def _super_cache(self, cache: Optional[ZambaCache], i: int):
         """Super-block i's slices of a :class:`ZambaCache`: its M Mamba-2
@@ -320,21 +506,30 @@ class Transformer(nn.Module):
         return (*(f[i * m:(i + 1) * m] for f in cache[:3]), cache.k[i], cache.v[i])
 
     # ---------------- paths ----------------
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens ``[B, S]`` -> (logits ``[B, S, V]`` f32, aux loss 0)."""
-        x = self._embed(tokens)
+    def forward(self, tokens: torch.Tensor, image_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens ``[B, S]`` (and the arch's front-end input) -> (logits
+        ``[B, S, V]`` f32, the layers' summed MoE aux loss, f32; 0 without
+        experts)."""
+        x = self._embed_inputs(tokens, image_embeds)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = self._run(x, positions)
-        return self._logits(x), torch.zeros((), device=x.device)
+        x, aux = self._run(x, positions, memory=self._memory(encoder_frames))
+        return self._logits(x), aux
 
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
         """Zeros (the sLSTM's ``m`` at -10, the reference's zero state);
-        ``cache_len`` sizes the KV cache and is not read by recurrent blocks."""
+        ``cache_len`` sizes the KV cache and is not read by recurrent blocks;
+        a ``dec`` cache's cross keys and values span ``encoder_seq``."""
         cfg, dev, n = self.config, self.device, len(self.blocks)
         kv = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.hd)
-        if self.block_type == "dense":
+        if self.block_type in ("dense", "moe"):
             return KVCache(torch.zeros(kv, dtype=cfg.dtype, device=dev),
                            torch.zeros(kv, dtype=cfg.dtype, device=dev))
+        if self.block_type == "dec":
+            cross = (n, batch_size, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+            return EncDecCache(*(torch.zeros(shape, dtype=cfg.dtype, device=dev)
+                                 for shape in (kv, kv, cross, cross)))
         if self.block_type == "zamba_super":
             hs, (cxs, cbcs) = S.mamba2_state_shape(mamba_dims(cfg), batch_size)
             layers = n * cfg.mamba_per_super
@@ -353,14 +548,20 @@ class Transformer(nn.Module):
                           zeros(batch_size, di))
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
+                image_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None):
         """tokens ``[B, S]`` -> (last-position logits ``[B, 1, V]`` f32, a
         new cache holding the prompt: ``cache_len`` (default S) positions of
-        keys and values, or the recurrent state after the prompt)."""
-        x = self._embed(tokens)
+        keys and values, or the recurrent state after the prompt; for
+        ``dec`` also the cross keys and values of the encoder's output over
+        ``encoder_frames`` ``[B, encoder_seq, D]``). ``image_embeds`` ``[B,
+        n_image_embeds, D]`` are the VLM's front-end input."""
+        x = self._embed_inputs(tokens, image_embeds)
         b, s, _ = x.shape
         cache = self.init_cache(b, cache_len or s)
-        x = self._run(x, torch.arange(s, device=x.device), cache, 0)
+        x, _ = self._run(x, torch.arange(s, device=x.device), cache, 0,
+                         self._memory(encoder_frames))
         return self._logits(x[:, -1:]), cache
 
     @torch.no_grad()
@@ -370,7 +571,9 @@ class Transformer(nn.Module):
         offset) -> (logits ``[B, 1, V]`` f32, the same cache, written in
         place). ``pos`` is the batch's one position (an int) or each
         sequence's own (a ``[B]`` int64 tensor on the model's device), which
-        RoPE, the cache write and the attention mask then read per row."""
+        RoPE, the cache write and the attention mask then read per row.
+        Tokens only: the image embeds and the encoder's memory entered at
+        the prefill (the cross keys and values are read from the cache)."""
         x = self._embed(tokens)
         if torch.is_tensor(pos):
             positions = pos[:, None]
@@ -379,7 +582,7 @@ class Transformer(nn.Module):
         else:
             positions = torch.arange(pos, pos + 1, device=x.device)
             pos = int(pos)
-        x = self._run(x, positions, cache, pos)
+        x, _ = self._run(x, positions, cache, pos)
         return self._logits(x), cache
 
     def n_params(self) -> int:

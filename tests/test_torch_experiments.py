@@ -311,7 +311,7 @@ def test_new_modules_import_neither_jax_nor_reference():
         "import sys\n"
         "import repro_torch.experiments, repro_torch.experiments.runner\n"
         "import repro_torch.launch.sim_serve, repro_torch.launch.shapes\n"
-        "import repro_torch.configs.job_profiles, repro_torch.configs.catalog\n"
+        "import repro_torch.configs.job_profiles\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.'))\n"

@@ -1,10 +1,9 @@
-"""The PyTorch port's ``profiles`` workload and its config-only architecture
-numbers, against the JAX reference: ``profile_workload()`` is the
-reference's job for job (default and other arguments), the profiles are the
-reference's, the numbers of all ten architectures are the reference's
-``ArchConfig`` fields, ``get_arch`` still refuses the four whose models are
-not ported (naming ROADMAP item 12c), and ``"profiles"`` resolves in the
-experiment spec and the single-run driver.
+"""The PyTorch port's ``profiles`` workload and its architecture numbers,
+against the JAX reference: ``profile_workload()`` is the reference's job
+for job (default and other arguments), the profiles are the reference's,
+the numbers of all ten architectures are the reference's ``ArchConfig``
+fields, and ``"profiles"`` resolves in the experiment spec and in
+``launch/sim``.
 """
 import dataclasses
 
@@ -13,28 +12,18 @@ import pytest
 from repro.configs import get_arch as ref_arch
 from repro.configs import list_archs as ref_list
 from repro.configs import job_profiles as jprof
-from repro_torch.configs import arch_config, get_arch, list_archs
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs import job_profiles as tprof
 from repro_torch.experiments import resolve_workload
 from repro_torch.launch import sim as tsim
 
-UNPORTED = ("qwen2-moe-a2.7b", "grok-1-314b", "internvl2-26b", "whisper-tiny")
-
-
 def test_ten_archs_are_the_references():
     assert list_archs() == ref_list() and len(list_archs()) == 10
-    assert set(UNPORTED) < set(list_archs())
 
 
 @pytest.mark.parametrize("name", sorted(ref_list()))
 def test_config_numbers_equal_the_reference_fields(name):
-    assert dataclasses.asdict(arch_config(name)) == dataclasses.asdict(ref_arch(name))
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_get_arch_still_refuses_the_unported_models(name):
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        get_arch(name)
+    assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(ref_arch(name))
 
 
 def test_profiles_are_the_references():

@@ -11,6 +11,7 @@ import os
 
 import pytest
 
+from repro.core import engine as jengine
 from repro.launch import sim_serve as jserve
 from repro_torch.core import sweep
 from repro_torch.experiments import Experiment
@@ -64,7 +65,10 @@ def responses(tmp_path_factory):
     _spec("good").save(str(req / "good.json"))
     (req / "broken.json").write_text('{"name": "broken"}')
     (req / "garbled.json").write_text("this is not json")
-    sweep.clear_cache()  # a cold LRU, as a fresh process has
+    # a cold LRU on both sides, as a fresh process has: an earlier test file
+    # in the same worker may have compiled this grid key for the reference
+    sweep.clear_cache()
+    jengine._SWEEP_FNS.clear()
     port = sim_serve.serve(str(req), str(root / "port"), once=True, device=CPU)
     ref = jserve.serve(str(req), str(root / "ref"), once=True)
     return root, port, ref
