@@ -50,7 +50,7 @@ Phases (each prints a line; any failed check exits non-zero):
    PSAS — each held against the port's sequential oracle (schedule exact,
    energy and the DVFS mode energy to rel 1e-5), the grouped runs with one
    occupancy-kernel launch a batch (the 16-node runs on ``LABEL_JOBS`` (30)
-   generated jobs, the grouped ones on the first ``GROUPED_JOBS`` (60)
+   generated jobs, the grouped ones on the first ``PHASE4_GROUPED_JOBS`` (30)
    replayed jobs);
 5. main path, dense: one simulation at CEA-Curie scale (11 200 nodes, the
    ``cea_curie`` workload, 1000 jobs, EASY PSUS, timeout 1800 s) — the
@@ -108,7 +108,8 @@ Phases (each prints a line; any failed check exits non-zero):
    jobs with ``OPTIONS`` (``node_order="pack"``, ``allocation=
    "partition"``, ``merge_bursts``) — one ``event_fuse_occ`` launch an
    iteration; (f) a dense E = 4 grid (the two schedulers x 600 and 1800 s)
-   with ``OPTIONS`` on phase 4's 280-node Curie inputs. Held bit for bit
+   with ``OPTIONS`` on phase 4's 280-node Curie platform and trace (the
+   first ``GROUPED_JOBS``, 60, of its jobs). Held bit for bit
    against single runs of their scenarios on the same jobs (state, schedule
    table, every ``SimMetrics`` field), run in a worker process beside the
    grids: the E = 64 row EASY PSUS 1800 (phase 5's configuration), the E =
@@ -189,6 +190,27 @@ Phases (each prints a line; any failed check exits non-zero):
    (``attn_impl="naive"``, ``gla_impl="plain"``): last-position logits
    within ``LOGITS_REL_TOL``, the same greedy tokens, and for the MoE the
    smallest router margin seen.
+15. LM training (``repro_torch.training.train_step``, on the plain routes):
+   (a) the full-width internlm2-1.8b in bf16 (24 layers, d 2048, remat as
+   configured) through ``make_train_step`` with ``make_optimizer("adamw",
+   cosine_schedule(3e-4, 2, 8))`` for ``TRAIN_STEPS`` (8) steps on
+   ``TokenStream`` batches of 4 x 1024 tokens: losses and gradient norms
+   finite, parameters moved, no flash attention or ``ssd_scan`` launch
+   during the steps; the median ms a step over steps 2-8, tokens/s, peak
+   memory, the ms of stacking the parameters into the reference's leaves
+   and of writing them back, and one more step profiled (host ops, device
+   ms, busy share, device time split into matmuls and the rest); (b) the
+   flash wrapper refuses CUDA inputs that require grad; (c) the reduced
+   internlm2 in f32 from one set of weights and batches: 3 SGD and 3 AdamW
+   steps on the card against the same steps on the CPU (losses within
+   ``TRAIN_REL`` relative, the SGD leaves within ``TRAIN_REL`` of each
+   leaf's largest entry); (d) ``python -m repro_torch.launch.train --arch
+   internlm2-1.8b --reduced --steps 20 --batch 2 --seq 32 --ckpt-every 5``:
+   with ``--fail-at 12``, in a subprocess, it exits 17; the rerun (the
+   launcher's ``main`` in this process, as is the uninterrupted run beside
+   the crashing one) resumes from step 10 and runs 10 steps, and its last
+   loss is within ``TRAIN_REL`` of an uninterrupted run's (the card's
+   embedding backward adds with atomics, in any order).
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -349,8 +371,16 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 # amplify; atol = 1e-3 of the logits' largest magnitude
 LOGITS_REL_TOL = 1e-3
 INF_TIME = 2**30
-# captures of one device_ms window before "the profiler saw nothing" fails
+# captures of one profiled window before "the profiler saw nothing" (or, in
+# device_ms, "recorded less than half") fails
 PROFILE_TRIES = 3
+# phase 15: LM training
+TRAIN_STEPS = 8  # (a): steps of the full-width internlm2-1.8b
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024  # (a): a batch of 4 x 1024 tokens
+TRAIN_REL = 1e-5  # (c)-(d): the card against the CPU, and a resumed run against a straight one
+TRAIN_SGD_LR = 0.5  # (c): SGD's rate (the update is the clipped gradient's, norm <= 1)
+TRAIN_LAUNCH = ["-m", "repro_torch.launch.train", "--arch", ARCH, "--reduced", "--steps", "20",
+                "--batch", "2", "--seq", "32", "--ckpt-every", "5", "--log-every", "100"]
 # rows of 11 199 and 11 201 nodes start off a 16-byte boundary from row 1 on
 # (256, 64): phase 12 (c)'s RL-throughput batch
 EXACT_SHAPES = [(1, 16), (1, 131), (13, 131), (1, 11200), (64, 11200),
@@ -393,8 +423,10 @@ SWEEP_CUT_JOBS = 250
 # phase 11 (e) and (f): the engine options a grid runs with
 OPTIONS = dict(node_order="pack", allocation="partition", merge_bursts=True)
 # and phase 4's 16-node runs take 30 generated jobs, not 100 (50 to PR
-# 22), and its grouped runs the first 60 replayed jobs, not 120
+# 22), and its grouped runs the first 30 replayed jobs, not 120 (60 to PR
+# 23, the cut that pays for phase 15; phase 11 (f) keeps 60)
 LABEL_JOBS = 30
+PHASE4_GROUPED_JOBS = 30
 GROUPED_JOBS = 60
 GROUPED_OPTIONS = [
     ({"node_order": "pack"}, label) for label in ("EASY PSUS", "FCFS PSAS")
@@ -493,10 +525,11 @@ def device_ms(torch, fn, args, calls=200, warmup=20):
     call}, share recorded): the durations of the device operations that
     ``calls`` calls launch, read from ``torch.profiler``, after a warm-up.
     Gaps between them and the host's time are not counted. The profiler may
-    lose a few records of a long capture, so each op name is timed by its
-    mean recorded duration times its launches per call (its recorded count
-    over ``calls``, rounded); the share of the expected records that were
-    seen is returned and must be at least a half."""
+    lose records of a capture, so each op name is timed by its mean recorded
+    duration times its launches per call (its recorded count over ``calls``,
+    rounded). A capture that records less than half of the expected records
+    is taken again, up to ``PROFILE_TRIES`` captures; the share seen in the
+    capture read is returned and must be at least a half."""
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
@@ -506,17 +539,22 @@ def device_ms(torch, fn, args, calls=200, warmup=20):
             fn(*args)
         torch.cuda.synchronize()
 
-    prof, _ = captured(torch, body, fn.__name__)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.device_time_total)
-    check(len(by_name) > 0, f"the profiler saw no device operation of {fn.__name__}")
-    per_call = {k: max(1, round(len(v) / calls)) for k, v in by_name.items()}
-    n_ops = sum(per_call.values())
-    seen = sum(len(v) for v in by_name.values()) / (n_ops * calls)
+    for attempt in range(PROFILE_TRIES):
+        prof, _ = captured(torch, body, fn.__name__)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.device_time_total)
+        check(len(by_name) > 0, f"the profiler saw no device operation of {fn.__name__}")
+        per_call = {k: max(1, round(len(v) / calls)) for k, v in by_name.items()}
+        n_ops = sum(per_call.values())
+        seen = sum(len(v) for v in by_name.values()) / (n_ops * calls)
+        if seen >= 0.5:
+            break
+        print(f"profiler: capture {attempt + 1} of {PROFILE_TRIES} of {fn.__name__} "
+              f"recorded {seen:.2f} of its device operations", flush=True)
     check(seen >= 0.5, f"the profiler recorded {seen:.2f} of the device "
-          f"operations of {fn.__name__}")
+          f"operations of {fn.__name__} in each of {PROFILE_TRIES} captures")
     each = {k: statistics.fmean(v) * per_call[k] / 1e3 for k, v in sorted(by_name.items())}
     return sum(each.values()), n_ops, each, seen
 
@@ -743,10 +781,11 @@ def profile_split(torch, fn, calls):
     """Profile ``calls`` calls of ``fn`` (after one warm-up): ({kind: device
     ms per call}, top-level host ops per call, device ops per call, ssd_scan
     launches per call, share of the device records seen, wall ms per call
-    with the profiler on). As in :func:`device_ms`, each op name is
-    timed by its mean recorded duration times its launches per call (its
-    recorded count over ``calls``, rounded), because the profiler may lose
-    records of a long capture; the share seen must be at least a half."""
+    with the profiler on, {device op name: ms per call}). As in
+    :func:`device_ms`, each op name is timed by its mean recorded duration
+    times its launches per call (its recorded count over ``calls``,
+    rounded), because the profiler may lose records of a long capture; the
+    share seen must be at least a half."""
     fn()
     torch.cuda.synchronize()
 
@@ -767,12 +806,13 @@ def profile_split(torch, fn, calls):
     n_ops = sum(per_call.values())
     seen = sum(len(v) for v in by_name.values()) / (n_ops * calls)
     check(seen >= 0.5, f"the profiler recorded {seen:.2f} of the device operations")
+    each = {k: statistics.fmean(v) * per_call[k] for k, v in by_name.items()}
     by_kind = {"ssd": 0.0, "flash": 0.0, "matmul": 0.0, "other": 0.0}
-    for k, v in by_name.items():
-        by_kind[kernel_kind(k)] += statistics.fmean(v) * per_call[k]
+    for k, ms in each.items():
+        by_kind[kernel_kind(k)] += ms
     ssd_per_call = sum(n for k, n in per_call.items() if kernel_kind(k) == "ssd")
     return (by_kind, top_level_ops(torch, prof) / calls, n_ops, ssd_per_call, seen,
-            1e3 * wall / calls)
+            1e3 * wall / calls, each)
 
 
 def flash_inputs(torch, np, shape, dtype, seed=0):
@@ -1187,7 +1227,8 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
     phase 5's inputs cut to their first ``max_jobs`` jobs and at E = 64 on
     ``cut_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
     ``max_jobs`` with ``OPTIONS`` (pack, partition, burst merging); (f) a
-    dense E = 4 grid with ``OPTIONS`` on phase 4's 280-node Curie inputs.
+    dense E = 4 grid with ``OPTIONS`` on phase 4's 280-node Curie platform
+    and trace (``GROUPED_JOBS`` jobs).
     Each checked row is held bit for bit against a single run of its
     scenario on the same inputs; the single runs go on in a worker process
     while the grids run. Returns the event kernels' launches of the timed
@@ -1218,7 +1259,7 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
     g_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
     e_cfg = EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True,
                          **OPTIONS)
-    # (f): phase 4's grouped inputs, on the dense route
+    # (f): phase 4's grouped platform and trace, on the dense route
     f_plat = curie_platform(280)
     f_wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=GROUPED_JOBS)
     f_cfg = dataclasses.replace(dense_cfg, **OPTIONS)
@@ -2178,7 +2219,7 @@ def phase14(torch, np, dev="cuda"):
               f"tolerance {LOGITS_REL_TOL} of it), greedy tokens {tok_k} == {tok_p} (top-2 "
               f"margin {margin:.3g}){routing}; arch wall {time.perf_counter() - t_arch:.1f} s",
               flush=True)
-        for part, (by_kind, ops, n_dev, _, seen, wall) in prof.items():
+        for part, (by_kind, ops, n_dev, _, seen, wall, _) in prof.items():
             dev_ms = sum(by_kind.values())
             print(f"phase 14 serve: {arch} one bf16 {part} profiled: wall {wall:.2f} ms, "
                   f"{ops:.0f} top-level host ops, {n_dev} device ops, device {dev_ms:.3f} ms "
@@ -2188,6 +2229,220 @@ def phase14(torch, np, dev="cuda"):
     print(f"phase 14 dense, hybrid, MoE, VLM and encoder-decoder archs: wall "
           f"{time.perf_counter() - t14:.1f} s", flush=True)
     return launches
+
+
+def phase15(torch, np, tmp):
+    """Phase 15: LM training on the card (see the module docstring). Returns
+    the flash and ``ssd_scan`` launches of (a)'s steps (none)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import (
+        params_from_arrays, params_to_arrays, reference_leaves,
+    )
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+
+    t15 = time.perf_counter()
+    dev = "cuda"
+    sync = torch.cuda.synchronize
+
+    def kernel_launches():
+        return {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_scan": ssd.LAUNCHES["ssd_scan"]}
+
+    # ---- (a) the full-width model, trained ----
+    cfg = get_arch(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    opt = tts.make_optimizer("adamw", topt.cosine_schedule(3e-4, 2, TRAIN_STEPS))
+    step = tts.make_train_step(model, opt)
+    state = tts.init_opt_state(model, opt)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    # matrices (a bf16 norm gain at 1.0 does not move: its ulp is 2**-7, an
+    # update at these rates about 3e-4)
+    watched = {"embed": model.embed.weight, "blocks.0.attn.wq": model.blocks[0].attn.wq.weight,
+               "blocks.-1.mlp.w_down": model.blocks[-1].mlp.w_down.weight,
+               "lm_head": model.lm_head.weight}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    launches0 = kernel_launches()
+    ms, losses, gnorms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = stream.batch_at(i)
+        sync()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t))
+    check(all(np.isfinite(losses + gnorms)),
+          f"phase 15 (a): losses {losses}, gradient norms {gnorms}")
+    moved = {k: float((v.detach().float() - before[k].float()).abs().max())
+             for k, v in watched.items()}
+    check(all(x > 0 for x in moved.values()), f"phase 15 (a): parameters moved {moved}")
+    check(int(state.step) == TRAIN_STEPS, f"phase 15 (a): optimizer step {int(state.step)}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    median = statistics.median(ms[1:])
+    # the copies the step makes to run the optimizer on the reference's
+    # leaves: the parameters stacked, then written back
+    leaves = reference_leaves(model)
+    sync()
+    t = time.perf_counter()
+    stacked = [leaf.stack() for leaf in leaves]
+    sync()
+    stack_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    for leaf, p in zip(leaves, stacked):
+        leaf.write(p)
+    sync()
+    write_ms = 1e3 * (time.perf_counter() - t)
+    del stacked
+    # one more step (after profile_split's warm-up step), profiled
+    holder = [state]
+    extra = stream.batch_at(TRAIN_STEPS)
+
+    def one_step():
+        holder[0], _ = step(holder[0], extra)
+
+    by_kind, ops, n_dev, _, seen, wall, each = profile_split(torch, one_step, calls=1)
+    dev_ms = sum(by_kind.values())
+    rest = sorted(((ms, k) for k, ms in each.items() if kernel_kind(k) != "matmul"),
+                  reverse=True)[:6]
+    train_launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    check(not any(train_launches.values()),
+          f"phase 15 (a): the training steps launched {train_launches}")
+    n_params = model.n_params()
+    del model, state, step, holder, before
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - t15
+    print(f"phase 15 (a) train: {cfg.name} full width {str(cfg.dtype).split('.')[1]} "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, remat {cfg.remat}; {n_params:,} params), "
+          f"adamw (bf16 moments) on cosine_schedule(3e-4, 2, {TRAIN_STEPS}), "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens on {dev}: losses "
+          f"{[round(x, 4) for x in losses]}, gradient norms {[round(x, 3) for x in gnorms]}; "
+          f"largest moves {moved}; flash/ssd_scan launches during the steps {train_launches}; "
+          f"step ms {[round(x, 2) for x in ms]}, median over steps 2-{TRAIN_STEPS} "
+          f"{median:.2f} ms, {TRAIN_BATCH * TRAIN_SEQ / (median / 1e3):.0f} tokens/s; peak "
+          f"device memory {peak_gib:.2f} GiB; stacking the {len(leaves)} reference leaves "
+          f"{stack_ms:.2f} ms, writing them back {write_ms:.2f} ms; one step profiled: wall "
+          f"{wall:.2f} ms, {ops:.0f} top-level host ops, {n_dev} device ops, device "
+          f"{dev_ms:.3f} ms (busy {100 * dev_ms / wall:.1f} %): matmuls "
+          f"{by_kind['matmul']:.3f} ms, the rest {dev_ms - by_kind['matmul']:.3f} ms (records "
+          f"seen {seen:.3f}), its largest: "
+          + "; ".join(f"{k[:90]} {ms:.3f} ms" for ms, k in rest)
+          + f"; wall {a_s:.1f} s", flush=True)
+
+    # ---- (d), started here: the launcher's run that crashes, a process of
+    # its own (it exits hard); the uninterrupted run and the restart are
+    # calls of the launcher's main in this process, which saves two process
+    # starts (about 25 s each on the card's machine)
+    from repro_torch.launch import train as launcher
+
+    dirs = {name: os.path.join(tmp, f"train_{name}") for name in ("straight", "crashed")}
+
+    def argv(name, *extra):
+        return [*TRAIN_LAUNCH[2:], "--ckpt-dir", dirs[name], *extra]
+
+    def run_main(name):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launcher.main(argv(name))
+        return out.getvalue()
+
+    crash = subprocess.Popen(
+        [sys.executable, *TRAIN_LAUNCH[:2], *argv("crashed", "--fail-at", "12")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+    try:
+        # ---- (b) the guard ----
+        q, k, v = (torch.randn((1, 128, 16, 128), device=dev, dtype=torch.bfloat16,
+                               requires_grad=True) for _ in range(3))
+        n0 = kernel_launches()
+        refused = ""
+        try:
+            fa.flash_attention(q, k, v, causal=True)
+        except RuntimeError as e:
+            refused = str(e)
+        check("no backward" in refused and kernel_launches() == n0,
+              f"phase 15 (b): flash_attention on CUDA inputs that require grad: "
+              f"{refused or 'no error'}")
+        print(f"phase 15 (b) guard: flash_attention on bf16 CUDA inputs that require "
+              f"grad raised, no launch: {refused}", flush=True)
+
+        # ---- (c) the reduced model in f32: the card against the CPU ----
+        t_c = time.perf_counter()
+        rcfg = get_arch(ARCH, reduced=True)
+        tree = params_to_arrays(build_model(rcfg, "cpu").init(torch.Generator().manual_seed(0)))
+        rstream = TokenStream(vocab_size=rcfg.vocab_size, seq_len=64, global_batch=4, seed=1)
+
+        def run(device, make_opt):
+            m = params_from_arrays(rcfg, tree, device)
+            o = make_opt()
+            s = tts.make_train_step(m, o)
+            st = tts.init_opt_state(m, o)
+            out = []
+            for i in range(3):
+                st, met = s(st, rstream.batch_at(i))
+                out.append(float(met["loss"]))
+            return out, [(leaf.name, leaf.stack().cpu().numpy()) for leaf in reference_leaves(m)]
+
+        lines = []
+        for name, make in (("SGD", lambda: topt.sgd(lr=TRAIN_SGD_LR)),
+                           ("AdamW", lambda: tts.make_optimizer("adamw", 1e-3))):
+            (card, card_p), (host, host_p) = run(dev, make), run("cpu", make)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+            check(rel <= TRAIN_REL, f"phase 15 (c) {name}: losses {card} on {dev}, {host} on "
+                  f"the CPU (largest relative difference {rel:.3g})")
+            line = f"{name} losses {card} vs {host} (largest relative difference {rel:.3g})"
+            if name == "SGD":
+                worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                            for (_, a), (_, b) in zip(card_p, host_p))
+                check(worst <= TRAIN_REL,
+                      f"phase 15 (c): SGD leaves {worst:.3g} of a leaf's largest entry apart")
+                line += f", leaves within {worst:.3g} of each leaf's largest entry"
+            lines.append(line)
+        c_s = time.perf_counter() - t_c
+        print(f"phase 15 (c) {dev} vs cpu: reduced {ARCH} in f32, 3 steps each from one set "
+              f"of weights and batches: " + "; ".join(lines)
+              + f"; wall {c_s:.1f} s (the crashing process runs meanwhile)", flush=True)
+
+        # ---- (d) finished: the rerun starts once the crashed run has exited ----
+        t_d = time.perf_counter()
+        out_s = run_main("straight")
+        straight_s = time.perf_counter() - t_d
+        out_c, err_c = crash.communicate(timeout=600)
+        wait_s = time.perf_counter() - t_d - straight_s
+        check(crash.returncode == 17 and "simulated failure at step 12" in out_c,
+              f"phase 15 (d): --fail-at 12 exited {crash.returncode}: {err_c[-2000:]}")
+        out_r = run_main("crashed")
+        d_s = time.perf_counter() - t_d
+    finally:
+        if crash.poll() is None:
+            crash.kill()
+            crash.wait()
+    check("[train] resumed from step 10" in out_r and '"steps_run": 10' in out_r,
+          f"phase 15 (d): the rerun printed {out_r[-2000:]}")
+    done_s = json.loads(out_s.split("[train] done: ")[1])
+    done_r = json.loads(out_r.split("[train] done: ")[1])
+    rel = abs(done_r["last_loss"] - done_s["last_loss"]) / abs(done_s["last_loss"])
+    check(rel <= TRAIN_REL, f"phase 15 (d): last loss {done_r['last_loss']} after the restart, "
+          f"{done_s['last_loss']} uninterrupted")
+    print(f"phase 15 (d) launch: python {' '.join(TRAIN_LAUNCH[1:])}: --fail-at 12 (a "
+          f"process) exited 17, the rerun (main in this process) resumed from step 10 and ran "
+          f"10 steps (last loss {done_r['last_loss']}), the uninterrupted run (main) "
+          f"{done_s['steps_run']} steps (last loss {done_s['last_loss']}; relative difference "
+          f"{rel:.3g}, its steps' wall {done_s['wall_s']} s); after (c): the uninterrupted run "
+          f"{straight_s:.1f} s, then waiting for the crashed process {wait_s:.1f} s, the rerun "
+          f"{d_s - straight_s - wait_s:.1f} s", flush=True)
+    print(f"phase 15 wall: (a) {a_s:.1f} s, (b) and the crashing process's start "
+          f"{t_c - t15 - a_s:.1f} s, (c) {c_s:.1f} s, (d) after (c) {d_s:.1f} s; all "
+          f"{time.perf_counter() - t15:.1f} s", flush=True)
+    return train_launches
 
 
 def main() -> None:
@@ -2633,7 +2888,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     plat = curie_platform(280)
-    wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=GROUPED_JOBS)
+    wl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=PHASE4_GROUPED_JOBS)
     grouped_runs = [({"node_order": "cheap"}, label) for label in LABELS]
     worst = 0.0
     for opts, label in grouped_runs + GROUPED_OPTIONS:
@@ -3173,6 +3428,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm_by_arch = phase14(torch, np)
 
+    # ---- 15. LM training ----
+    torch.cuda.empty_cache()
+    train_launches = phase15(torch, np, tmp)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
@@ -3226,6 +3485,7 @@ def main() -> None:
             "launches_by_path": {
                 f"phase 8 {ARCH}": flash_launches,
                 **{f"phase 14 {a}": got["flash_attention"] for a, got in lm_by_arch.items()},
+                "phase 15 train": train_launches["flash_attention"],
             },
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "
@@ -3251,6 +3511,7 @@ def main() -> None:
             "launches_by_path": {
                 f"phase 9 {XARCH} at {XPAIRS} pairs": ssd_launches,
                 **{f"phase 14 {a}": got["ssd_scan"] for a, got in lm_by_arch.items()},
+                "phase 15 train": train_launches["ssd_scan"],
             },
             "note": "timed at the xLSTM serve prefill shape (B 1, S 1024, H 4, dk "
                     "512, chunk 128; q bf16, k f32, v bf16, zero h0) at dv 512 "

@@ -6,6 +6,9 @@ PyTorch headers, so a build takes seconds. Libraries go to
 ``build/repro_torch/`` at the root of the checkout (gitignored), named by a
 hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing here runs at import time.
+
+:func:`refuse_grad` is the wrappers' shared guard: the kernels compute
+forwards only, so a CUDA input that autograd would record is refused.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -84,3 +89,14 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     _LIBS[name] = lib
     return lib
+
+
+def refuse_grad(name: str, *xs: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would record a kernel's CUDA inputs: the kernels
+    have no backward, so their output would carry no gradient."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "train through the plain route (attn_impl='naive', gla_impl='plain'), "
+            "or call it under torch.no_grad()"
+        )

@@ -27,6 +27,11 @@ Which kernel serves a call is a static table, :data:`VARIANTS`, keyed on
   head dim (TF32 tensor cores would not hold f32's 2e-5) and bf16 at the
   other head dims — in f32 FMAs on the CUDA cores.
 
+The kernels compute the forward only, and the reference defines no VJP:
+on CUDA tensors that autograd would record (grad mode on, an input that
+requires grad) the wrapper raises rather than return an output without a
+gradient. Training takes the plain attention (``attn_impl="naive"``).
+
 ``LAUNCHES["flash_attention"]`` counts every kernel launch, and
 ``LAUNCHES["flash_attention_<variant>"]`` the launches of each variant.
 """
@@ -137,6 +142,7 @@ def _check(q, k, v) -> None:
     if k.device != dev or v.device != dev:
         raise ValueError(f"{NAME}: q, k, v must be on one device")
     if dev.type == "cuda":
+        _build.refuse_grad(NAME, q, k, v)
         for key, x in (("q", q), ("k", k), ("v", v)):
             if not x.is_contiguous():
                 raise ValueError(f"{NAME}: {key} must be contiguous")

@@ -30,6 +30,10 @@ only, a thread per 4 state elements) and an output pass (scores · v plus the
 decayed q · h_in, in parallel again). :func:`launch_plan` gives their grids
 and the f32 scratch the wrapper allocates. ``LAUNCHES["ssd_scan"]`` counts
 wrapper calls that launched them.
+
+The kernels compute the forward only: on CUDA inputs that autograd would
+record, the wrapper raises (``_build.refuse_grad``). Training takes
+the plain scan (``gla_impl="plain"``).
 """
 from __future__ import annotations
 
@@ -228,6 +232,7 @@ def _check(q, k, v, g, h0, chunk: int) -> None:
     if any(x.device != dev for x in (k, v, g)) or (h0 is not None and h0.device != dev):
         raise ValueError(f"{NAME}: q, k, v, g and h0 must be on one device")
     if dev.type == "cuda":
+        _build.refuse_grad(NAME, q, k, v, g, h0)
         for key, x in (("q", q), ("k", k), ("v", v)):
             if x.stride(3) != 1:
                 raise ValueError(f"{NAME}: {key}'s last dimension must be contiguous")

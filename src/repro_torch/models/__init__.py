@@ -6,9 +6,12 @@ the dense family (``internlm2-1.8b``, ``glm4-9b``, ``stablelm-3b``,
 ``whisper-tiny``.
 
 ``build_model(config, device)`` returns a :class:`Transformer`
-(``nn.Module``) with ``init``, ``forward``, ``prefill``, ``decode_step``,
-``init_cache`` and ``n_params``; ``convert.params_from_arrays`` loads the
-reference's parameter pytree into it.
+(``nn.Module``) with ``init``, ``forward``, ``loss``, ``prefill``,
+``decode_step``, ``init_cache`` and ``n_params``;
+``convert.params_from_arrays`` loads the reference's parameter pytree into
+it, ``convert.params_to_arrays`` gives it back, and
+``convert.reference_leaves`` describes the reference's leaves over its
+tensors (what training's optimizer runs on).
 """
 from repro_torch.models.transformer import (
     EncDecCache, KVCache, Transformer, XLstmCache, ZambaCache, build_model,

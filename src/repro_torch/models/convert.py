@@ -1,4 +1,4 @@
-"""Carry the reference's LM parameters into the port.
+"""The reference's LM parameters over the port's tensors.
 
 The reference keeps parameters as a pytree of arrays: ``embed`` ``[Vp, D]``,
 ``final_norm`` ``[D]``, ``lm_head`` ``[D, Vp]`` and ``stages[0]``, the
@@ -19,14 +19,24 @@ holds ``ln1``, ``attn``, ``ln2`` and ``moe.{router, w_gate, w_up, w_down}``
 stage holds ``ln1``, ``self_attn``, ``ln2``, ``cross_attn``, ``ln3`` and
 ``mlp.{w_in, b_in, w_out, b_out}``, and the tree's ``encoder`` holds
 ``stage`` (``enc`` blocks: ``ln1``, ``attn``, ``ln2``, ``mlp``, stacked)
-and ``final_norm``. Here that tree
-comes as nested dicts and tuples of numpy arrays (or anything
-``numpy.asarray`` reads, bf16 included), and goes through f32, which holds
-bf16 and f32 values exactly.
+and ``final_norm``.
+
+The port holds a tensor a layer (``nn.Linear`` weights ``[out, in]``, the
+reference's matrices transposed). :func:`reference_leaves` describes the
+reference's leaves over them, once: each :class:`RefLeaf` has the leaf's
+path, its stacked shape, the port tensors it stacks (in the order of the
+stacked axes) and whether each is transposed. Training runs the
+optimizer, the global-norm clip and compression on those leaves, so each
+per-leaf decision is the reference's own; :func:`params_to_arrays` gives
+the reference's tree as numpy and :func:`params_from_arrays` loads one
+(as nested dicts and tuples of numpy arrays, or anything ``numpy.asarray``
+reads, bf16 included, through f32, which holds bf16 and f32 values
+exactly).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,143 +45,193 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.transformer import Transformer, build_model
 
+Path = Tuple[str, ...]
+# (path below the block, the tensor of each stacked sub-layer, transposed)
+Item = Tuple[Path, List[torch.Tensor], bool]
+
 _ATTN = ("wq", "wk", "wv", "wo")
-_QK_NORM = ("q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
-_GELU = ("w_in", "w_out")
 _EXPERTS = ("router", "w_gate", "w_up", "w_down")
 _MAMBA_LINEAR = ("z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj")
 _MAMBA_ARRAY = ("conv_w_x", "conv_b_x", "conv_w_bc", "conv_b_bc", "A_log", "D", "dt_bias",
                 "norm_g")
 _MLSTM_LINEAR = ("up_proj", "wq", "wk", "wv", "w_if", "down_proj")
-_MLSTM_VECTOR = ("b_if", "norm_g")
+_MLSTM_ARRAY = ("b_if", "norm_g")
 _SLSTM_LINEAR = ("w_in", "out_proj")
 _SLSTM_ARRAY = ("r", "b", "norm_g")
 
 
+@dataclasses.dataclass(frozen=True)
+class RefLeaf:
+    """One leaf of the reference's parameter tree over the port's tensors."""
+
+    path: Path  # e.g. ("stages", "0", "attn", "wq")
+    shape: Tuple[int, ...]  # the reference's (stacked) shape
+    tensors: Tuple[torch.Tensor, ...]  # the port tensors, in stacked order
+    transposed: bool  # each tensor is the reference's slice transposed
+
+    @property
+    def name(self) -> str:
+        return ".".join(self.path)
+
+    def stack(self, of: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> torch.Tensor:
+        """The leaf in the reference's layout, a new tensor: the port
+        tensors themselves, or ``of(tensor)`` of each (their gradients,
+        say), transposed where the leaf says and stacked."""
+        xs = [t.detach() if of is None else of(t) for t in self.tensors]
+        if self.transposed:
+            xs = [x.t() for x in xs]
+        return torch.stack(xs).reshape(self.shape)
+
+    @torch.no_grad()
+    def write(self, value: torch.Tensor) -> None:
+        """Copy ``value``, in the reference's layout, into the port tensors."""
+        if tuple(value.shape) != self.shape:
+            raise ValueError(f"{self.name}: shape {tuple(value.shape)} != {self.shape}")
+        one = tuple(self.tensors[0].shape)
+        per = value.reshape((len(self.tensors),) + (one[::-1] if self.transposed else one))
+        for t, v in zip(self.tensors, per):
+            t.copy_(v.t() if self.transposed else v)
+
+
+def _linears(module, names, prefix: Path = ()) -> List[Item]:
+    return [(prefix + (n,), [getattr(module, n).weight], True) for n in names]
+
+
+def _arrays(module, names, prefix: Path = ()) -> List[Item]:
+    return [(prefix + (n,), [getattr(module, n)], False) for n in names]
+
+
+def _attention_items(attn, prefix: Path) -> List[Item]:
+    items = _linears(attn, _ATTN, prefix)
+    if attn.q_norm is not None:
+        items += _arrays(attn, ("q_norm", "k_norm"), prefix)
+    return items
+
+
+def _mlp_items(mlp, prefix: Path = ("mlp",)) -> List[Item]:
+    """A SwiGLU's three matrices, or a GELU MLP's two and their biases."""
+    if hasattr(mlp, "w_gate"):
+        return _linears(mlp, _MLP, prefix)
+    return _linears(mlp, ("w_in", "w_out"), prefix) + [
+        (prefix + ("b_in",), [mlp.w_in.bias], False),
+        (prefix + ("b_out",), [mlp.w_out.bias], False)]
+
+
+def _dense_items(block) -> List[Item]:
+    """``dense`` and ``enc`` blocks (and zamba2's shared block)."""
+    return (_arrays(block, ("ln1", "ln2")) + _attention_items(block.attn, ("attn",))
+            + _mlp_items(block.mlp))
+
+
+def _moe_items(block) -> List[Item]:
+    moe = block.moe
+    items = (_arrays(block, ("ln1", "ln2")) + _attention_items(block.attn, ("attn",))
+             + _arrays(moe, _EXPERTS, ("moe",)))
+    if moe.shared is not None:
+        items += _linears(moe.shared, _MLP, ("moe", "shared"))
+        items += _arrays(moe, ("shared_gate",), ("moe",))
+    return items
+
+
+def _dec_items(block) -> List[Item]:
+    return (_arrays(block, ("ln1", "ln2", "ln3"))
+            + _attention_items(block.self_attn, ("self_attn",))
+            + _attention_items(block.cross_attn, ("cross_attn",)) + _mlp_items(block.mlp))
+
+
+def _xlstm_items(block) -> List[Item]:
+    m, s = ("mlstm", "mixer"), ("slstm", "mixer")
+    return ([(("mlstm", "ln"), [block.mlstm_ln], False),
+             (("slstm", "ln"), [block.slstm_ln], False)]
+            + _linears(block.mlstm, _MLSTM_LINEAR, m) + _arrays(block.mlstm, _MLSTM_ARRAY, m)
+            + _linears(block.slstm, _SLSTM_LINEAR, s) + _arrays(block.slstm, _SLSTM_ARRAY, s))
+
+
+def _zamba_items(block) -> List[Item]:
+    """One super-block: each item stacks its ``mamba_per_super`` layers."""
+    per_layer = [[(("mamba", "ln"), [layer.ln], False)]
+                 + _linears(layer.mixer, _MAMBA_LINEAR, ("mamba", "mixer"))
+                 + _arrays(layer.mixer, _MAMBA_ARRAY, ("mamba", "mixer"))
+                 for layer in block.mamba]
+    return [(path, [items[i][1][0] for items in per_layer], tr)
+            for i, (path, _, tr) in enumerate(per_layer[0])]
+
+
+_ITEMS = {"dense": _dense_items, "moe": _moe_items, "dec": _dec_items,
+          "xlstm_pair": _xlstm_items, "zamba_super": _zamba_items}
+
+
+def _stage(prefix: Path, blocks, items_of) -> List[RefLeaf]:
+    """The stacked leaves of ``blocks``: layer axis first, then a
+    super-block's axis of Mamba-2 layers."""
+    per_block = [items_of(b) for b in blocks]
+    inner = (len(blocks[0].mamba),) if items_of is _zamba_items else ()
+    leaves = []
+    for i, (path, first, tr) in enumerate(per_block[0]):
+        tensors = tuple(t for items in per_block for t in items[i][1])
+        one = tuple(first[0].shape)
+        shape = (len(blocks),) + inner + (one[::-1] if tr else one)
+        leaves.append(RefLeaf(prefix + path, shape, tensors, tr))
+    return leaves
+
+
+def _single(path: Path, tensor: torch.Tensor, transposed: bool) -> RefLeaf:
+    shape = tuple(tensor.shape)
+    return RefLeaf(path, shape[::-1] if transposed else shape, (tensor,), transposed)
+
+
+def reference_leaves(model: Transformer) -> List[RefLeaf]:
+    """The reference's parameter leaves over ``model``'s tensors, in its
+    pytree order (dict keys sorted, ``stages`` a tuple)."""
+    leaves = [_single(("embed",), model.embed.weight, False),
+              _single(("final_norm",), model.final_norm, False),
+              _single(("lm_head",), model.lm_head.weight, True)]
+    leaves += _stage(("stages", "0"), model.blocks, _ITEMS[model.block_type])
+    if model.shared_attn is not None:
+        leaves += [_single(("shared_attn",) + path, ts[0], tr)
+                   for path, ts, tr in _dense_items(model.shared_attn)]
+    if model.encoder is not None:
+        leaves += _stage(("encoder", "stage"), model.encoder.blocks, _dense_items)
+        leaves.append(_single(("encoder", "final_norm"), model.encoder.final_norm, False))
+    return sorted(leaves, key=lambda leaf: leaf.path)
+
+
+def leaves_to_tree(leaves: Sequence[RefLeaf], values: Sequence[Any]) -> Dict[str, Any]:
+    """The reference's nested tree (dicts, ``stages`` a tuple) holding
+    ``values[i]`` at ``leaves[i]``'s path."""
+    tree: Dict[str, Any] = {}
+    for leaf, value in zip(leaves, values):
+        node = tree
+        for key in leaf.path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf.path[-1]] = value
+    tree["stages"] = tuple(tree["stages"][str(i)] for i in range(len(tree["stages"])))
+    return tree
+
+
+def tree_values(leaves: Sequence[RefLeaf], tree) -> List[Any]:
+    """The value at each leaf's path of a reference tree (``stages`` a
+    tuple or list)."""
+    out = []
+    for leaf in leaves:
+        node = tree
+        for key in leaf.path:
+            node = node[int(key)] if isinstance(node, (list, tuple)) else node[key]
+        out.append(node)
+    return out
+
+
+def params_to_arrays(model: Transformer) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_arrays`: the reference's parameter
+    tree of ``model``, f32 numpy arrays (which hold bf16 values exactly)."""
+    leaves = reference_leaves(model)
+    return leaves_to_tree(leaves, [leaf.stack().float().cpu().numpy() for leaf in leaves])
+
+
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
-
-
-def _load_attention(attn_module, arrays, i) -> None:
-    for n in _ATTN:
-        getattr(attn_module, n).weight.copy_(arrays[n][i].t())
-    if attn_module.q_norm is not None:
-        for n in _QK_NORM:
-            getattr(attn_module, n).copy_(arrays[n][i])
-
-
-def _load_linears(module, arrays, names, i) -> None:
-    for n in names:
-        getattr(module, n).weight.copy_(arrays[n][i].t())
-
-
-def _load_mlp(mlp, arrays, i) -> None:
-    """A SwiGLU's three matrices, or a GELU MLP's two and their biases."""
-    if "b_in" not in arrays:
-        _load_linears(mlp, arrays, _MLP, i)
-        return
-    _load_linears(mlp, arrays, _GELU, i)
-    mlp.w_in.bias.copy_(arrays["b_in"][i])
-    mlp.w_out.bias.copy_(arrays["b_out"][i])
-
-
-def _arrays(tree) -> Dict[str, torch.Tensor]:
-    return {n: _tensor(a) for n, a in tree.items() if not isinstance(a, dict)}
-
-
-def _load_dense(blocks, stage) -> None:
-    """``dense`` blocks, and the encoder's ``enc`` blocks (a GELU MLP)."""
-    ln1, ln2 = _tensor(stage["ln1"]), _tensor(stage["ln2"])
-    attn, mlp = _arrays(stage["attn"]), _arrays(stage["mlp"])
-    for i, block in enumerate(blocks):
-        block.ln1.copy_(ln1[i])
-        block.ln2.copy_(ln2[i])
-        _load_attention(block.attn, attn, i)
-        _load_mlp(block.mlp, mlp, i)
-
-
-def _load_moe(blocks, stage) -> None:
-    ln1, ln2 = _tensor(stage["ln1"]), _tensor(stage["ln2"])
-    attn, moe = _arrays(stage["attn"]), _arrays(stage["moe"])
-    shared = _arrays(stage["moe"]["shared"]) if "shared" in stage["moe"] else None
-    if (shared is None) != (blocks[0].moe.shared is None):
-        raise ValueError("stages[0]'s shared experts do not match the config's "
-                         "n_shared_experts")
-    for i, block in enumerate(blocks):
-        block.ln1.copy_(ln1[i])
-        block.ln2.copy_(ln2[i])
-        _load_attention(block.attn, attn, i)
-        for n in _EXPERTS:
-            getattr(block.moe, n).copy_(moe[n][i])
-        if shared is not None:
-            _load_linears(block.moe.shared, shared, _MLP, i)
-            block.moe.shared_gate.copy_(moe["shared_gate"][i])
-
-
-def _load_dec(blocks, stage) -> None:
-    lns = {n: _tensor(stage[n]) for n in ("ln1", "ln2", "ln3")}
-    self_attn, cross = _arrays(stage["self_attn"]), _arrays(stage["cross_attn"])
-    mlp = _arrays(stage["mlp"])
-    for i, block in enumerate(blocks):
-        for n, ln in lns.items():
-            getattr(block, n).copy_(ln[i])
-        _load_attention(block.self_attn, self_attn, i)
-        _load_attention(block.cross_attn, cross, i)
-        _load_mlp(block.mlp, mlp, i)
-
-
-def _one_layer_stack(tree):
-    """One block's parameter tree with a layer axis of 1 in front of every
-    array, as a stage stacks them."""
-    if isinstance(tree, dict):
-        return {k: _one_layer_stack(v) for k, v in tree.items()}
-    return np.asarray(tree)[None]
-
-
-def _load_zamba(blocks, stage) -> None:
-    mamba = stage["mamba"]
-    ln = _tensor(mamba["ln"])
-    lin = {n: _tensor(mamba["mixer"][n]) for n in _MAMBA_LINEAR}
-    arr = {n: _tensor(mamba["mixer"][n]) for n in _MAMBA_ARRAY}
-    per_super = len(blocks[0].mamba)
-    if ln.shape[1] != per_super:
-        raise ValueError(
-            f"stages[0] holds {ln.shape[1]} Mamba-2 layers a super-block, the config "
-            f"{per_super}"
-        )
-    for i, block in enumerate(blocks):
-        for m, layer in enumerate(block.mamba):
-            layer.ln.copy_(ln[i, m])
-            for n in _MAMBA_LINEAR:
-                getattr(layer.mixer, n).weight.copy_(lin[n][i, m].t())
-            for n in _MAMBA_ARRAY:
-                getattr(layer.mixer, n).copy_(arr[n][i, m])
-
-
-def _load_xlstm(blocks, stage) -> None:
-    m, s = stage["mlstm"], stage["slstm"]
-    m_ln, s_ln = _tensor(m["ln"]), _tensor(s["ln"])
-    mlin = {n: _tensor(m["mixer"][n]) for n in _MLSTM_LINEAR}
-    mvec = {n: _tensor(m["mixer"][n]) for n in _MLSTM_VECTOR}
-    slin = {n: _tensor(s["mixer"][n]) for n in _SLSTM_LINEAR}
-    sarr = {n: _tensor(s["mixer"][n]) for n in _SLSTM_ARRAY}
-    for i, block in enumerate(blocks):
-        block.mlstm_ln.copy_(m_ln[i])
-        block.slstm_ln.copy_(s_ln[i])
-        for n in _MLSTM_LINEAR:
-            getattr(block.mlstm, n).weight.copy_(mlin[n][i].t())
-        for n in _MLSTM_VECTOR:
-            getattr(block.mlstm, n).copy_(mvec[n][i])
-        for n in _SLSTM_LINEAR:
-            getattr(block.slstm, n).weight.copy_(slin[n][i].t())
-        for n in _SLSTM_ARRAY:
-            getattr(block.slstm, n).copy_(sarr[n][i])
-
-
-_LOADERS = {"dense": (_load_dense, ("ln1",)), "moe": (_load_moe, ("ln1",)),
-            "zamba_super": (_load_zamba, ("mamba", "ln")),
-            "xlstm_pair": (_load_xlstm, ("mlstm", "ln")), "dec": (_load_dec, ("ln1",))}
 
 
 def _check_layers(stage, path, n_blocks: int, what: str) -> None:
@@ -182,27 +242,32 @@ def _check_layers(stage, path, n_blocks: int, what: str) -> None:
         raise ValueError(f"{what} holds {np.shape(first)[0]} layers, the config {n_blocks}")
 
 
+_FIRST = {"dense": ("ln1",), "moe": ("ln1",), "dec": ("ln1",),
+          "zamba_super": ("mamba", "ln"), "xlstm_pair": ("mlstm", "ln")}
+
+
 def params_from_arrays(cfg: ArchConfig, tree: Dict[str, Any], device: DeviceLike = None,
                        attn_impl: str = "auto", gla_impl: str = "auto") -> Transformer:
     """A :class:`Transformer` on ``device`` holding the reference's
-    parameters ``tree``: the stacked layer axis is sliced into the blocks
-    (a stage whose count differs from the config's raises ``ValueError``),
-    and matrices are transposed into ``nn.Linear`` weights."""
+    parameters ``tree``: each stacked leaf is sliced into the blocks (a
+    stage whose count differs from the config's raises ``ValueError``), and
+    matrices are transposed into ``nn.Linear`` weights."""
     model = build_model(cfg, device, attn_impl, gla_impl)
     stage = tree["stages"][0]
-    load, path = _LOADERS[model.block_type]
-    _check_layers(stage, path, len(model.blocks), "stages[0]")
+    _check_layers(stage, _FIRST[model.block_type], len(model.blocks), "stages[0]")
+    if model.block_type == "moe" and (("shared" in stage["moe"])
+                                      != (model.blocks[0].moe.shared is not None)):
+        raise ValueError("stages[0]'s shared experts do not match the config's "
+                         "n_shared_experts")
+    if model.block_type == "zamba_super":
+        held, per_super = np.shape(stage["mamba"]["ln"])[1], len(model.blocks[0].mamba)
+        if held != per_super:
+            raise ValueError(f"stages[0] holds {held} Mamba-2 layers a super-block, the "
+                             f"config {per_super}")
     if model.encoder is not None:
         _check_layers(tree["encoder"]["stage"], ("ln1",), len(model.encoder.blocks),
                       "encoder.stage")
-    with torch.no_grad():
-        model.embed.weight.copy_(_tensor(tree["embed"]))
-        model.final_norm.copy_(_tensor(tree["final_norm"]))
-        model.lm_head.weight.copy_(_tensor(tree["lm_head"]).t())
-        load(model.blocks, stage)
-        if model.shared_attn is not None:
-            _load_dense([model.shared_attn], _one_layer_stack(tree["shared_attn"]))
-        if model.encoder is not None:
-            _load_dense(model.encoder.blocks, tree["encoder"]["stage"])
-            model.encoder.final_norm.copy_(_tensor(tree["encoder"]["final_norm"]))
+    leaves = reference_leaves(model)
+    for leaf, value in zip(leaves, tree_values(leaves, tree)):
+        leaf.write(_tensor(value))
     return model

@@ -44,8 +44,17 @@ and ``moe``, a :class:`ZambaCache` (each Mamba-2 layer's state and conv
 tails, each shared-attention application's keys and values) for
 ``zamba_super``, an :class:`XLstmCache` of recurrent states for
 ``xlstm_pair`` and an :class:`EncDecCache` (self and cross keys and values)
-for ``dec``. The port runs inference only: parameters do not require
-gradients (training is ROADMAP Queue 1 item 12c).
+for ``dec``. :meth:`Transformer.loss` is the reference's training loss
+over the forward.
+
+Parameters do not require gradients: inference stays frozen, and
+``training/train_step.py`` makes them trainable (``requires_grad_``). With
+``cfg.remat``, a forward under autograd runs each block, each Mamba-2
+layer and each application of zamba2's shared block, and each encoder
+block, through ``torch.utils.checkpoint`` (non-reentrant), as the
+reference rematerialises each scanned block: the activations inside are
+recomputed in the backward, which changes memory, not numbers. Prefill
+and decode run without autograd and are never rematerialised.
 
 A program that mixes block types and a standalone ``mamba2``, ``mlstm``,
 ``slstm`` or ``enc`` stage raise ``NotImplementedError`` naming ROADMAP
@@ -53,10 +62,11 @@ Queue 1 item 12c; no registered architecture uses one.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -102,6 +112,14 @@ class EncDecCache(NamedTuple):
 
 
 Cache = Union[KVCache, ZambaCache, XLstmCache, EncDecCache]
+
+
+def _remat(enabled: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward when ``enabled`` and
+    autograd records (a training forward)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _attention(cfg: ArchConfig, rope: bool = True, qk_norm: Optional[bool] = None
@@ -206,7 +224,7 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        self.eps = cfg.norm_eps
+        self.eps, self.remat = cfg.norm_eps, cfg.remat
         self.blocks = nn.ModuleList(EncBlock(cfg) for _ in range(cfg.encoder_layers))
         self.final_norm = _norm_gain(cfg)
 
@@ -222,7 +240,7 @@ class Encoder(nn.Module):
         pos = torch.arange(frames.shape[1], device=frames.device)
         x = frames.to(dt) + L.sinusoidal(pos, frames.shape[2]).to(dt)[None]
         for block in self.blocks:
-            x = block(x, pos, attn_impl)
+            x = _remat(self.remat, block, x, pos, attn_impl)
         return L.rms_norm(x, self.final_norm, self.eps)
 
 
@@ -357,6 +375,7 @@ class ZambaSuper(nn.Module):
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.mamba = nn.ModuleList(Mamba2Block(cfg) for _ in range(cfg.mamba_per_super))
 
     @torch.no_grad()
@@ -369,10 +388,13 @@ class ZambaSuper(nn.Module):
                 attn_impl: str = "auto", gla_impl: str = "auto") -> torch.Tensor:
         """``cache``: this super-block's (h, conv_x, conv_bc) ``[M, ...]`` and
         (k, v) slices of a :class:`ZambaCache`, or None."""
+        if cache is None:
+            for block in self.mamba:
+                x = _remat(self.remat, block, x, None, gla_impl)
+            return _remat(self.remat, shared, x, positions, None, 0, attn_impl)
         for m, block in enumerate(self.mamba):
-            x = block(x, None if cache is None else tuple(f[m] for f in cache[:3]), gla_impl)
-        return shared(x, positions, None if cache is None else cache[3:], cache_pos,
-                      attn_impl)
+            x = block(x, tuple(f[m] for f in cache[:3]), gla_impl)
+        return shared(x, positions, cache[3:], cache_pos, attn_impl)
 
 
 _BLOCKS = {"dense": DenseBlock, "moe": MoeBlock, "zamba_super": ZambaSuper,
@@ -479,6 +501,7 @@ class Transformer(nn.Module):
         """(x after every block, the sum of the MoE layers' aux losses, a
         f32 scalar)."""
         aux = torch.zeros((), device=x.device)
+        remat = self.config.remat and cache is None
         for i, block in enumerate(self.blocks):
             if self.block_type == "zamba_super":
                 x = block(x, positions, self.shared_attn, self._super_cache(cache, i),
@@ -486,14 +509,16 @@ class Transformer(nn.Module):
                 continue
             layer_cache = None if cache is None else tuple(f[i] for f in cache)
             if self.block_type == "dense":
-                x = block(x, positions, layer_cache, cache_pos, self.attn_impl)
+                x = _remat(remat, block, x, positions, layer_cache, cache_pos, self.attn_impl)
             elif self.block_type == "moe":
-                x, a = block(x, positions, layer_cache, cache_pos, self.attn_impl)
+                x, a = _remat(remat, block, x, positions, layer_cache, cache_pos,
+                              self.attn_impl)
                 aux = aux + a
             elif self.block_type == "dec":
-                x = block(x, positions, memory, layer_cache, cache_pos, self.attn_impl)
+                x = _remat(remat, block, x, positions, memory, layer_cache, cache_pos,
+                           self.attn_impl)
             else:
-                x = block(x, layer_cache, self.gla_impl)
+                x = _remat(remat, block, x, layer_cache, self.gla_impl)
         return x, aux
 
     def _super_cache(self, cache: Optional[ZambaCache], i: int):
@@ -516,6 +541,32 @@ class Transformer(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run(x, positions, memory=self._memory(encoder_frames))
         return self._logits(x), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's training loss over ``batch`` (``tokens`` ``[B,
+        S]``, and the arch's ``image_embeds`` or ``encoder_frames``): cross
+        entropy of each next token, over targets ``>= 0`` past the first
+        ``n_image_embeds`` positions, plus ``moe_aux_weight`` times the MoE
+        aux loss. Returns (total, {"ce", "aux", "tokens"}), f32 scalars;
+        ``tokens`` is the count of targets, at least 1."""
+        cfg = self.config
+        tokens = batch["tokens"]
+        logits, aux = self(tokens, batch.get("image_embeds"), batch.get("encoder_frames"))
+        targets = tokens[:, 1:]
+        lg = logits[:, :-1]
+        mask = (targets >= 0).float()
+        if cfg.n_image_embeds:
+            pos_mask = torch.arange(targets.shape[1], device=mask.device) >= cfg.n_image_embeds
+            mask = mask * pos_mask[None, :]
+        tgt = targets.clamp(0, cfg.padded_vocab - 1).long()
+        logz = torch.logsumexp(lg, -1)
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = nll.sum() / denom
+        total = ce + cfg.moe_aux_weight * aux
+        return total, {"ce": ce, "aux": aux, "tokens": denom}
 
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
         """Zeros (the sLSTM's ``m`` at -10, the reference's zero state);

@@ -1,3 +1,4 @@
-"""Training utilities of the PyTorch port: the RL learners' optimizer and
-policy checkpoints (``optimizer.py``, ``checkpoint.py``). The LM training
-stack is ROADMAP Queue 1 item 12c."""
+"""Training on PyTorch: the optimizers (``optimizer.py``), checkpoints
+with async writes and the RL policy checkpoints (``checkpoint.py``), the LM
+train and eval steps (``train_step.py``), gradient compression
+(``compression.py``) and the straggler watchdog (``stragglers.py``)."""

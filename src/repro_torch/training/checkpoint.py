@@ -1,5 +1,5 @@
-"""Checkpoints with atomic publish, and versioned RL policy checkpoints —
-the part of the reference's ``training/checkpoint.py`` the RL stack needs.
+"""Checkpoints with async writes and atomic publish, and versioned RL
+policy checkpoints — the reference's ``training/checkpoint.py``.
 
 Layout (one directory per step), the reference's byte for byte in its
 structure::
@@ -11,12 +11,21 @@ structure::
 
 A step is written into ``step_<n>.tmp-<pid>-<thread>``, renamed into place
 (atomic on POSIX), and only then does ``LATEST`` move (a tmp file and a
-rename), so a killed writer never publishes a torn checkpoint. A tree is a
-nest of dicts, lists and tuples of arrays or tensors; its leaf paths are the
-reference's (dict keys in sorted order, list positions, joined by ``.``,
-e.g. ``torso.0.w``), so a checkpoint written by either package restores in
-the other. Leaves are numpy-native dtypes (policy leaves are f32): a
-manifest that names bfloat16 or an fp8 type is refused.
+rename), so a killed writer never publishes a torn checkpoint.
+``save_async`` copies every leaf to the host on the caller and writes on a
+daemon thread; the next save (or ``wait()``) joins it and re-raises the
+writer's error.
+
+A tree is a nest of dicts, NamedTuples, lists and tuples of arrays or
+tensors; ``None`` is an empty subtree. Its leaf paths are the reference's:
+dict keys in sorted order, NamedTuple field names, list and tuple
+positions, joined by ``.`` (``torso.0.w``, ``opt.inner.mu.stages.0.ln1``),
+so a checkpoint written by either package restores in the other. bf16
+leaves are stored as the reference stores them: a ``uint16`` view, with
+``"bfloat16"`` as the manifest's dtype. They restore as bf16 tensors where
+``like``'s leaf is a torch tensor, and are refused by name where it is a
+numpy array (numpy has no bf16); every other leaf restores as a numpy
+array. A manifest that names an fp8 type is refused.
 
 ``save_policy`` / ``load_policy`` stamp and check the reference's typed
 header (``POLICY_CKPT_VERSION = 2``) with its messages, and carry the
@@ -28,7 +37,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,38 +47,66 @@ from repro_torch.device import DeviceLike, resolve_device
 PyTree = Any
 
 _SEP = "."
-_EXOTIC = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+_BF16 = "bfloat16"
+_FP8 = ("float8_e4m3fn", "float8_e5m2")
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(tree) -> List[Tuple[str, Any]]:
+    """(key, subtree) pairs in the reference's order, or [] for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), x) for i, x in enumerate(tree)]
+    return []
 
 
 def _flatten_with_paths(tree: PyTree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in the reference's pytree order."""
-    if isinstance(tree, dict):
+    if tree is None:
+        return []
+    if isinstance(tree, (dict, list, tuple)):
         out = []
-        for k in sorted(tree):
-            out += _flatten_with_paths(tree[k], prefix + (str(k),))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, x in enumerate(tree):
-            out += _flatten_with_paths(x, prefix + (str(i),))
+        for key, sub in _children(tree):
+            out += _flatten_with_paths(sub, prefix + (key,))
         return out
     return [(_SEP.join(prefix) or "ROOT", tree)]
 
 
 def _unflatten(like: PyTree, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    if like is None:
+        return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves, prefix + (str(k),)) for k in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(
-            _unflatten(x, leaves, prefix + (str(i),)) for i, x in enumerate(like)
-        )
+        subs = [_unflatten(x, leaves, prefix + (key,)) for key, x in _children(like)]
+        return type(like)._make(subs) if _is_namedtuple(like) else type(like)(subs)
     return leaves[_SEP.join(prefix) or "ROOT"]
 
 
-def _host(x) -> np.ndarray:
+def _host(x) -> Tuple[np.ndarray, str]:
+    """(a host copy of the leaf as written to disk, the manifest's dtype): a
+    bf16 tensor as its ``uint16`` view, named ``"bfloat16"``. A copy, so
+    that the caller may update its tensors while ``save_async`` writes."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16), _BF16
+        arr = x.numpy()
+    else:
+        arr = np.array(x)
+    return arr, str(arr.dtype)
+
+
+def _from_disk(arr: np.ndarray, dtype: str):
+    if dtype == _BF16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return arr
 
 
 class Checkpointer:
@@ -79,22 +116,49 @@ class Checkpointer:
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def save(self, step: int, tree: PyTree, meta: Optional[Dict] = None) -> None:
-        arrays = [(name, _host(x)) for name, x in _flatten_with_paths(tree)]
+        """Blocking save (the worker of ``save_async`` writes the same way)."""
+        arrays = [(name, *_host(x)) for name, x in _flatten_with_paths(tree)]
         self._write(step, arrays, meta or {})
+
+    def save_async(self, step: int, tree: PyTree, meta: Optional[Dict] = None) -> None:
+        """Host copies on the caller, file I/O on a daemon thread; one write
+        outstanding at a time."""
+        self.wait()
+        arrays = [(name, *_host(x)) for name, x in _flatten_with_paths(tree)]
+        m = dict(meta or {})
+
+        def worker():
+            try:
+                self._write(step, arrays, m)
+            except BaseException as e:  # re-raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the outstanding write and re-raise its error, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
 
     def _write(self, step: int, arrays, meta: Dict) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
         tmp = final + f".tmp-{os.getpid()}-{threading.get_ident()}"
         os.makedirs(tmp, exist_ok=True)
         manifest = {"step": step, "meta": meta, "leaves": []}
-        for name, arr in arrays:
+        for name, arr, dtype in arrays:
             fname = name.replace("/", "_") + ".npy"
             np.save(os.path.join(tmp, fname), arr)
             manifest["leaves"].append(
-                {"path": name, "file": fname, "dtype": str(arr.dtype),
-                 "shape": list(arr.shape)}
+                {"path": name, "file": fname, "dtype": dtype, "shape": list(arr.shape)}
             )
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -126,8 +190,9 @@ class Checkpointer:
         return int(name.split("_")[1])
 
     def restore(self, like: PyTree, step: Optional[int] = None) -> Tuple[int, PyTree]:
-        """Restore into the structure of ``like`` (numpy arrays, shapes
-        verified against ``like``'s leaves)."""
+        """Restore into the structure of ``like``, whose leaves give the
+        shapes (verified): numpy arrays, bf16 leaves as bf16 tensors (where
+        ``like``'s leaf is a tensor)."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -139,17 +204,29 @@ class Checkpointer:
         leaves = {}
         for name, proto in _flatten_with_paths(like):
             e = by_path[name]
-            if e["dtype"] in _EXOTIC:
+            if e["dtype"] in _FP8 or (e["dtype"] == _BF16
+                                      and not isinstance(proto, torch.Tensor)):
                 raise ValueError(
-                    f"{name}: checkpoint leaf of dtype {e['dtype']}; the "
-                    "PyTorch port restores numpy-native dtypes only"
+                    f"{name}: checkpoint leaf of dtype {e['dtype']}; the PyTorch "
+                    "port restores numpy dtypes, and bfloat16 into a leaf that "
+                    "is a torch tensor (numpy has no bfloat16)"
                 )
             arr = np.load(os.path.join(d, e["file"]))
-            want = tuple(np.shape(proto))
+            want = tuple(proto.shape) if hasattr(proto, "shape") else np.shape(proto)
             if tuple(arr.shape) != want:
                 raise ValueError(f"{name}: checkpoint shape {arr.shape} != {want}")
-            leaves[name] = arr
+            leaves[name] = _from_disk(arr, e["dtype"])
         return step, _unflatten(like, leaves)
+
+
+def restore_or_init(ckpt: Checkpointer, init_fn: Callable[[], PyTree]) -> Tuple[int, PyTree]:
+    """Restart from the latest checkpoint, or ``(0, init_fn())`` when there
+    is none: the launcher's crash-recovery entry point. ``init_fn()`` also
+    gives the structure and shapes a restore reads into."""
+    step = ckpt.latest_step()
+    if step is None:
+        return 0, init_fn()
+    return ckpt.restore(init_fn(), step=step)
 
 
 # --------------------------------------------------------------------------
