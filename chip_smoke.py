@@ -149,9 +149,10 @@ Phases (each prints a line; any failed check exits non-zero):
    an iteration and no other kernel, at most two host syncs an iteration, a
    rerun streamed in two 12-scenario chunks with a valid ``metrics.json``
    after each, writing the blocking run's ``metrics.json`` and ``rows.csv``
-   bytes, one row a scheduler equal to its single run bit for
-   bit and four to the oracle (schedule exact, energy rel 1e-5; the oracle
-   runs in the worker processes); (b) ``benchmarks/bench_forecast.py``'s
+   bytes, the four rows the oracle holds equal to their single runs bit for
+   bit and to the oracle (schedule exact, energy rel 1e-5; the oracle runs
+   in the worker processes; the single runs of the other two schedulers
+   are cut for time); (b) ``benchmarks/bench_forecast.py``'s
    grid (EASY PSUS, EASY PSUS+Forecast, EASY RL:groups x timeout 1800 x
    forecasts 0 and 1800 on ``curie_platform(280)``, the first 200 jobs of a
    2000-line synthesized Curie SWF, ``node_order="cheap"``, a random-init
@@ -211,6 +212,26 @@ Phases (each prints a line; any failed check exits non-zero):
    the crashing one) resumes from step 10 and runs 10 steps, and its last
    loss is within ``TRAIN_REL`` of an uninterrupted run's (the card's
    embedding backward adds with atomics, in any order).
+16. mixed block programs and the legacy loop: (a) zamba2-2.7b's width with
+   ``stages=MIXED16`` (6 Mamba-2 layers, then 2 dense ones) served in bf16
+   (seed-0 weights; 6 requests of 1024 tokens on 4 slots, 16 new tokens,
+   cache 1056, per-slot positions) — ``ssd_scan`` once per Mamba-2 layer
+   and the SIMT flash kernel once per dense layer per request (36, 12), the
+   refilled requests 4 and 5 against their own decode at the serve's batch
+   shape (4 rows) — and ``MIXED16_F32`` in f32 on the kernel routes against
+   the plain routes (last-position logits within ``LOGITS_REL_TOL``, the
+   same greedy tokens); (b) xlstm-350m's width with ``stages=RECURRENT16``
+   (two standalone mLSTM stages' blocks, then an sLSTM one; 4 requests of
+   1024 tokens on 4 slots, 8 new tokens) — ``ssd_scan`` twice per mLSTM
+   block per request (16), no flash — and ``RECURRENT16_F32`` the same way
+   in f32; (c) ``fused_events=False``: phase 4's seven labels on the 16-node
+   homogeneous and mixed platforms and on ``curie_platform(280)`` (grouped)
+   rerun on the legacy loop, each equal to its fused run bit for bit (every
+   state field, the schedule table, ``SimMetrics``) and to the oracle; a
+   dense E = 4 grid (``LEGACY_GRID``) on 280 nodes and the grouped B = 2
+   env for 16 steps on ``curie_platform(280)``, legacy equal to fused; no
+   event-kernel launch on any legacy run; the grouped 280-node EASY PSUS
+   run timed on both loops in turns (µs and host syncs a batch).
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -428,6 +449,24 @@ OPTIONS = dict(node_order="pack", allocation="partition", merge_bursts=True)
 LABEL_JOBS = 30
 PHASE4_GROUPED_JOBS = 30
 GROUPED_JOBS = 60
+# phase 16 (a): a mixed block program at zamba2-2.7b's width (6 Mamba-2
+# layers, then 2 dense ones), 6 requests of 1024 tokens on 4 slots (4 and 5
+# refill a freed slot), 16 new tokens, cache 1056; its f32 check program
+MIXED16 = (("mamba2", 6), ("dense", 2))
+MIXED16_F32 = (("mamba2", 1), ("dense", 1))
+MIXED16_ARGS = ["--requests", "6", "--slots", "4", "--prompt-len", "1024", "--max-new", "16",
+                "--cache-len", "1056", "--per-slot-positions"]
+REFILLED16 = (4, 5)
+# (b): standalone mLSTM and sLSTM stages at xlstm-350m's width, 4 requests
+# of 1024 tokens on 4 slots, 8 new tokens; its f32 check program
+RECURRENT16 = (("mlstm", 2), ("slstm", 1))
+RECURRENT16_F32 = (("mlstm", 1), ("slstm", 1))
+RECURRENT16_ARGS = ["--requests", "4", "--slots", "4", "--prompt-len", "1024", "--max-new",
+                    "8", "--cache-len", "1056", "--per-slot-positions"]
+# (c): the legacy loop's dense grid (E = 4) and grouped env (B = 2, 16 steps)
+LEGACY_GRID = [{"scheduler": sc, "timeout": t}
+               for sc in ("EASY PSUS", "FCFS PSAS+IPM") for t in (600, 1800)]
+LEGACY_ENV_STEPS = 16
 GROUPED_OPTIONS = [
     ({"node_order": "pack"}, label) for label in ("EASY PSUS", "FCFS PSAS")
 ] + [
@@ -1890,10 +1929,7 @@ def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
     wl_a = experiments.resolve_workload(exp.workload)
     by_row = {(r["scheduler"], r["timeout"]): r for r in res.rows}
     singles, t0 = {}, time.perf_counter()
-    for label in FIG45_SCHEDULERS:
-        # the oracle rows, and the longest timeout (the fewest batches) for
-        # the two schedulers the oracle rows leave out
-        timeout = dict(FIG45_ORACLE_ROWS).get(label, FIG45_TIMEOUTS[-1])
+    for label, timeout in FIG45_ORACLE_ROWS:  # the rows the oracle holds
         base, pol = from_label(label)
         cfg = dataclasses.replace(exp.engine_config(), base=base, policy=pol,
                                   timeout=timeout)
@@ -1919,8 +1955,9 @@ def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
           f"event_fuse_ledger launches {iters_a}, host syncs {syncs_a} "
           f"({syncs_a / iters_a:.3f} an iteration); the streamed rerun (chunks "
           f"{sizes}, {wall_stream:.2f} s, a valid metrics.json after each) wrote the "
-          f"same bytes; one row a scheduler == its single run ({singles_wall:.2f} s for "
-          f"6), four == the oracle's schedule (energy rel {worst:.2e})", flush=True)
+          f"same bytes; the {len(singles)} oracle rows == their single runs "
+          f"({singles_wall:.2f} s for {len(singles)}) and the oracle's schedule (energy rel "
+          f"{worst:.2e})", flush=True)
 
     # ---- (b) bench_forecast.py's grid, grouped ----
     plat_b = curie_platform(280)
@@ -2445,6 +2482,309 @@ def phase15(torch, np, tmp):
     return train_launches
 
 
+def kernel_vs_plain_f32(torch, np, cfg, stages, want, dev="cuda"):
+    """A program at ``cfg``'s full width in f32 from seed 0: two 1024-token
+    prompts through ``prefill`` on the kernel routes, then on the plain
+    routes. ``want`` is the kernel launches expected ({counter: n}); the
+    plain routes must launch none. Returns (max abs diff of the
+    last-position logits, the largest |logit|, the kernel route's greedy
+    tokens, the plain route's, their top-2 margin)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+
+    cut = cfg.replace(dtype_name="float32", stages=stages)
+    model = build_model(cut, dev).init(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 1024))).to(dev)
+    with torch.inference_mode():
+        fa.reset_launches()
+        ssd.reset_launches()
+        model.attn_impl, model.gla_impl = "auto", "auto"
+        logits_k = model.prefill(prompts)[0][:, -1]
+        torch.cuda.synchronize()
+        got = dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"])
+        check(all(got[k] == n for k, n in want.items()),
+              f"{stages} f32 prefill: launches {got}, expected {want}")
+        model.attn_impl, model.gla_impl = "naive", "plain"
+        logits_p = model.prefill(prompts)[0][:, -1]
+        check(dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"]) == got,
+              f"{stages}: the plain routes launched a kernel")
+    scale = float(logits_p.abs().max())
+    diff = float((logits_k - logits_p).abs().max())
+    tok_k, tok_p = logits_k.argmax(-1).tolist(), logits_p.argmax(-1).tolist()
+    top2 = logits_p.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    del model, logits_k, logits_p
+    torch.cuda.empty_cache()
+    check(diff <= LOGITS_REL_TOL * max(scale, 1.0),
+          f"{stages} f32 logits: kernel routes vs plain routes max abs diff {diff} > "
+          f"{LOGITS_REL_TOL} x {scale}")
+    check(tok_k == tok_p, f"{stages} f32 greedy tokens: kernel {tok_k} vs plain {tok_p}")
+    return diff, scale, tok_k, tok_p, margin
+
+
+def flag(args, name: str) -> int:
+    """The int value of ``name`` in a command line ``args``."""
+    return int(args[args.index(name) + 1])
+
+
+def serve_program(torch, np, cfg, args, want, what, refilled=(), dev="cuda"):
+    """``serve.main`` of ``cfg`` (bf16, seed-0 weights) with ``args`` on
+    ``dev``: its kernel launches must be ``want`` ({counter: n}) and no event
+    kernel, every request served, and each of ``refilled`` held against its
+    own decode at the serve's batch shape (4 rows). Returns (the launches,
+    the result, a text of the check and the times)."""
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    n_req, max_new = flag(args, "--requests"), flag(args, "--max-new")
+    prompt_len, cache_len = flag(args, "--prompt-len"), flag(args, "--cache-len")
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    event_fuse.reset_launches()
+    fa.reset_launches()
+    ssd.reset_launches()
+    result = serve.main(args + ["--device", dev], stats=stats, config=cfg)
+    got = dict(fa.LAUNCHES, ssd_scan=ssd.LAUNCHES["ssd_scan"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(got[k] == n for k, n in want.items()),
+          f"{what} serve: launches {got}, expected {want}")
+    check(not any(event_fuse.LAUNCHES.values()),
+          f"{what} serve launched {dict(event_fuse.LAUNCHES)}")
+    waves = -(-n_req // flag(args, "--slots"))
+    check((result["requests"], result["decode_steps"], result["total_tokens"])
+          == (n_req, waves * (max_new - 1), n_req * max_new), f"{what} serve counts {result}")
+    toks = [t for ts in stats["tokens"].values() for t in ts]
+    check(len(toks) == n_req * max_new and all(0 <= t < cfg.padded_vocab for t in toks),
+          f"{what} serve tokens")
+    pre_ms = [1e3 * x for x in stats["prefill_s"]]
+    dec_ms = [1e3 * x for x in stats["decode_s"]]
+    text = (f"{result}; launches {got}, no event kernel; prefill first {pre_ms[0]:.2f} ms, "
+            f"median of the rest {statistics.median(pre_ms[1:]):.2f} ms; decode median "
+            f"{statistics.median(dec_ms):.3f} ms ({len(dec_ms)} steps); peak device memory "
+            f"{peak_gib:.2f} GiB")
+    if refilled:
+        model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+        rng = np.random.default_rng(0)
+        queue = [rng.integers(0, cfg.vocab_size, size=prompt_len) for _ in range(n_req)]
+        gaps, exact = refill_gaps(torch, model, queue, stats["tokens"], refilled, cache_len,
+                                  dev, rows=4)
+        del model
+        torch.cuda.empty_cache()
+        check(max(gaps) <= REFILL_TOL,
+              f"{what} serve: a refilled request's token is {max(gaps):.4g} of the largest "
+              f"|logit| below its own decode's maximum (tolerance {REFILL_TOL})")
+        text += (f"; refilled requests {refilled} against their own decode at 4 rows: "
+                 f"{exact} of {len(gaps)} tokens the greedy maximum, largest gap "
+                 f"{max(gaps):.4g} (tolerance {REFILL_TOL})")
+    return got, result, text
+
+
+def phase16(torch, np, fused_runs, swf, dev="cuda"):
+    """Phase 16: (a) a block program that mixes Mamba-2 and dense stages at
+    zamba2-2.7b's width and (b) standalone mLSTM and sLSTM stages at
+    xlstm-350m's width, each served in bf16 and checked in f32 on the kernel
+    routes against the plain routes; (c) the legacy event loop
+    (``fused_events=False``) on phase 4's runs (``fused_runs``: (what,
+    platform, workload, config, the fused run's state)), a dense E = 4 grid
+    and a grouped B = 2 env, each bit for bit the fused loop's, with no
+    event-kernel launch. Returns the launches of (a), (b) and (c), by
+    counter."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import engine, metrics, sweep
+    from repro_torch.core.policy import RLController
+    from repro_torch.core.rl import a2c, env
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.workloads.platform import PlatformSpec, curie_platform
+    from repro_torch.workloads.traces import rebase_submit_times, replay_workload
+    from repro_torch.workloads.workload import Workload
+
+    t16 = time.perf_counter()
+    out = {}
+
+    # ---- (a) a mixed program at zamba2-2.7b's width ----
+    t0 = time.perf_counter()
+    cfg = get_arch("zamba2-2.7b").replace(stages=MIXED16)
+    n_req = flag(MIXED16_ARGS, "--requests")
+    route = fa.variant(cfg.dtype, cfg.hd)
+    check(route == "simt", f"phase 16 (a): flash_attention.variant names {route}")
+    want = {"flash_attention": 2 * n_req, "flash_attention_simt": 2 * n_req,
+            "ssd_scan": 6 * n_req}
+    out["mixed"], _, text = serve_program(torch, np, cfg, MIXED16_ARGS, want,
+                                          "phase 16 (a)", REFILLED16, dev)
+    f32 = kernel_vs_plain_f32(torch, np, cfg, MIXED16_F32,
+                              {"flash_attention_simt": 1, "ssd_scan": 1}, dev)
+    print(f"phase 16 (a) mixed program: zamba2-2.7b's width (d {cfg.d_model}, H "
+          f"{cfg.n_heads}, hd {cfg.hd}, Mamba-2 heads "
+          f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim}) with stages {MIXED16}, bf16 "
+          f"on cuda, 6 requests x 1024 tokens, 4 slots, 16 new tokens, cache 1056, per-slot "
+          f"positions: {text}; f32 {MIXED16_F32}, 2 x 1024-token prompts, kernel routes vs "
+          f"plain routes: last-position logits max abs diff {f32[0]:.3g} (largest |logit| "
+          f"{f32[1]:.3g}, tolerance {LOGITS_REL_TOL} of it), greedy tokens {f32[2]} == "
+          f"{f32[3]} (top-2 margin {f32[4]:.3g}); wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- (b) standalone recurrent stages at xlstm-350m's width ----
+    t0 = time.perf_counter()
+    cfg = get_arch(XARCH).replace(stages=RECURRENT16)
+    n_req = flag(RECURRENT16_ARGS, "--requests")
+    # each mLSTM prefill scans twice (the values and the normaliser)
+    want = {"flash_attention": 0, "ssd_scan": 2 * 2 * n_req}
+    out["recurrent"], _, text = serve_program(torch, np, cfg, RECURRENT16_ARGS, want,
+                                              "phase 16 (b)", (), dev)
+    f32 = kernel_vs_plain_f32(torch, np, cfg, RECURRENT16_F32,
+                              {"flash_attention": 0, "ssd_scan": 2}, dev)
+    print(f"phase 16 (b) recurrent stages: xlstm-350m's width (d {cfg.d_model}, H "
+          f"{cfg.n_heads}) with stages {RECURRENT16}, bf16 on cuda, 4 requests x 1024 "
+          f"tokens, 4 slots, 8 new tokens, cache 1056: {text}; f32 {RECURRENT16_F32}, 2 x "
+          f"1024-token prompts, kernel routes vs plain routes: last-position logits max abs "
+          f"diff {f32[0]:.3g} (largest |logit| {f32[1]:.3g}, tolerance {LOGITS_REL_TOL} of "
+          f"it), greedy tokens {f32[2]} == {f32[3]} (top-2 margin {f32[4]:.3g}); wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (c) the legacy event loop ----
+    t0 = time.perf_counter()
+    legacy_launches = {k: 0 for k in event_fuse.LAUNCHES}
+
+    def add_launches():
+        for k, v in event_fuse.LAUNCHES.items():
+            legacy_launches[k] += v
+
+    def same_state(a, b, what):
+        da, db = metrics.np_state(a), metrics.np_state(b)
+        bad = [k for k in da if not (da[k].dtype == db[k].dtype
+                                     and np.array_equal(da[k], db[k]))]
+        check(not bad, f"phase 16 (c) {what}: legacy fields {bad} != the fused run's")
+
+    worst = 0.0
+    for what, plat, wl, cfg, fused in fused_runs:
+        legacy = dataclasses.replace(cfg, fused_events=False)
+        event_fuse.reset_launches()
+        s = engine.simulate(plat, wl, legacy, device=dev)
+        add_launches()
+        same_state(s, fused, what)
+        check(metrics.metrics_from_state(s, plat).row()
+              == metrics.metrics_from_state(fused, plat).row(),
+              f"phase 16 (c) {what}: legacy SimMetrics != the fused run's")
+        same, rel, _ = held_against_oracle(metrics, np, plat, wl, legacy, s)
+        check(same and rel <= 1e-5,
+              f"phase 16 (c) {what}: legacy vs the oracle: schedule {same}, energy rel {rel}")
+        worst = max(worst, rel)
+    runs_wall = time.perf_counter() - t0
+
+    # a dense E = 4 grid on 280 nodes (one group: the fused grid launches
+    # event_fuse_ledger once an iteration)
+    t1 = time.perf_counter()
+    trace = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=PHASE4_GROUPED_JOBS)
+    plat = PlatformSpec(nb_nodes=280)
+    grid_cfg = EngineConfig(timeout=1800)
+    event_fuse.reset_launches()
+    fused_b = sweep.sweep(plat, trace, LEGACY_GRID, grid_cfg, device=dev)
+    grid_fused_launches = event_fuse.LAUNCHES["event_fuse_ledger"]
+    event_fuse.reset_launches()
+    legacy_b = sweep.sweep(plat, trace, LEGACY_GRID,
+                           dataclasses.replace(grid_cfg, fused_events=False), device=dev)
+    add_launches()
+    for i, sc in enumerate(LEGACY_GRID):
+        same_state(legacy_b.state_at(i), fused_b.state_at(i), f"grid row {sc}")
+        check(legacy_b[i].row() == fused_b[i].row(), f"phase 16 (c) grid row {sc}: metrics")
+    check(grid_fused_launches > 0, "phase 16 (c): the fused grid launched no ledger kernel")
+    grid_wall = time.perf_counter() - t1
+
+    # the grouped B = 2 env on curie_platform(280), 16 steps, both loops
+    t1 = time.perf_counter()
+    cplat = curie_platform(280)
+    half = PHASE4_GROUPED_JOBS // 2
+    ctrace = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=2 * half)
+    wls = [rebase_submit_times(Workload(280, ctrace.jobs[i * half:(i + 1) * half]))
+           for i in range(2)]
+    steps = {}
+    for fused_loop in (True, False):
+        ecfg = EngineConfig(policy=RLController(grouped=True), rl_decision_interval=600,
+                            grouped_tables=True, fused_events=fused_loop)
+        ecfg = engine.trim_window(ecfg, half)
+        ecfg_env = env.EnvConfig(engine=ecfg, feature="compact_groups",
+                                 action="group_target_fraction", reward="group_waste_wait",
+                                 n_groups=cplat.n_groups(), max_steps=512)
+        const = engine.make_const(cplat, ecfg, device=dev)
+        grid = env.make_env_grid(const, 2)
+        event_fuse.reset_launches()
+        st, obs = env.batched_reset(ecfg_env, grid, a2c.make_batched_sims(
+            cplat, wls, ecfg_env, device=dev))
+        seen = [obs]
+        for k in range(LEGACY_ENV_STEPS):
+            acts = torch.tensor([(3 * k + b) % ecfg_env.n_actions for b in range(2)],
+                                dtype=torch.int32, device=dev)
+            st, obs, r, d, _ = env.batched_step(ecfg_env, grid, st, acts)
+            seen += [obs, r, d]
+        if not fused_loop:
+            add_launches()
+        else:
+            env_fused_launches = event_fuse.LAUNCHES["event_fuse_occ"]
+        steps[fused_loop] = (seen, st.sim)
+    check(all(torch.equal(a, b) for a, b in zip(steps[True][0], steps[False][0])),
+          "phase 16 (c): the legacy env's observations, rewards or done != the fused env's")
+    same_state(steps[False][1], steps[True][1], "the grouped env")
+    check(env_fused_launches == LEGACY_ENV_STEPS,
+          f"phase 16 (c): the fused env launched {env_fused_launches} event_fuse_occ")
+    env_wall = time.perf_counter() - t1
+    check(not any(legacy_launches.values()),
+          f"phase 16 (c): the legacy runs launched {legacy_launches}")
+
+    # the grouped 280-node run on both loops, timed in turns
+    gplat = curie_platform(280)
+    gwl = replay_workload(swf, nb_nodes=280, oversize="clamp", max_jobs=GROUPED_JOBS)
+    gcfg = EngineConfig(timeout=1800, node_order="cheap", grouped_tables=True)
+    turns = []
+    for fused_loop in (True, False, False, True):
+        cfg = dataclasses.replace(gcfg, fused_events=fused_loop)
+        engine.HOST_SYNCS = 0
+        event_fuse.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s = engine.simulate(gplat, gwl, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if not fused_loop:
+            add_launches()
+        turns.append((fused_loop, int(s.n_batches), wall, engine.HOST_SYNCS, s))
+    check(not any(legacy_launches.values()),
+          f"phase 16 (c): the legacy runs launched {legacy_launches}")
+    same_state(turns[1][4], turns[0][4], "the timed grouped run")
+    nb = turns[0][1]
+    by = {f: [t for t in turns if t[0] == f] for f in (True, False)}
+    us = {f: [1e6 * t[2] / t[1] for t in ts] for f, ts in by.items()}
+    sync = {f: ts[0][3] / ts[0][1] for f, ts in by.items()}
+    check(sync[False] <= 2.0 and by[False][0][3] >= by[True][0][3],
+          f"phase 16 (c): host syncs a batch legacy {sync[False]}, fused {sync[True]}")
+    out["legacy"] = dict(legacy_launches)
+    print(f"phase 16 (c) legacy loop (fused_events=False): {len(fused_runs)} of phase 4's "
+          f"label runs (the 16-node homogeneous and mixed platforms, curie_platform(280) "
+          f"grouped) == the fused runs bit for bit (every state field, the schedule table, "
+          f"every SimMetrics field) and the oracle (schedule exact, energy rel <= "
+          f"{worst:.2e}) in {runs_wall:.1f} s; a dense E = 4 grid {LEGACY_GRID} on 280 nodes "
+          f"({len(trace)} replayed jobs) == the fused grid row for row ({grid_fused_launches} "
+          f"event_fuse_ledger launches fused) in {grid_wall:.1f} s; the grouped B = 2 env on "
+          f"curie_platform(280) for {LEGACY_ENV_STEPS} steps == the fused env "
+          f"({env_fused_launches} event_fuse_occ launches fused) in {env_wall:.1f} s; event "
+          f"kernel launches on every legacy run {legacy_launches}; the grouped EASY PSUS run "
+          f"on curie_platform(280), {len(gwl)} jobs, {nb} batches, in turns (fused, legacy, "
+          f"legacy, fused): us a batch fused {us[True][0]:.1f} and {us[True][1]:.1f}, legacy "
+          f"{us[False][0]:.1f} and {us[False][1]:.1f}; host syncs a batch fused "
+          f"{sync[True]:.3f}, legacy {sync[False]:.3f}; wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"phase 16 mixed programs and the legacy loop: wall "
+          f"{time.perf_counter() - t16:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2844,6 +3184,7 @@ def main() -> None:
     # ---- 4. the paper's schedulers on the card ----
     t0 = time.perf_counter()
     n_label_runs = 0
+    label_runs = []  # (what, platform, workload, config, state): phase 16 (c) reruns them
     for plat, order in ((PlatformSpec(nb_nodes=16), "id"),
                         (mixed_platform_example(16), "cheap")):
         wl = generate_workload(
@@ -2858,6 +3199,8 @@ def main() -> None:
             check(same, f"{label} on {order}-ordered platform: schedule")
             check(rel <= 1e-5, f"{label}: energy rel err {rel}")
             n_label_runs += 1
+            label_runs.append((f"{label} on {plat.nb_nodes} {order}-ordered nodes", plat, wl,
+                               cfg, s))
     print(f"phase 4 labels: {n_label_runs} runs on cuda == oracle "
           f"(schedule exact, energy rel <= 1e-5) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2903,6 +3246,8 @@ def main() -> None:
         check(same, f"grouped {label} {opts}: schedule")
         check(rel <= 1e-5, f"grouped {label} {opts}: energy rel err {rel}")
         worst = max(worst, rel)
+        if (opts, label) in grouped_runs:
+            label_runs.append((f"grouped {label} on curie_platform(280)", plat, wl, cfg, s))
     print(f"phase 4 grouped: {len(grouped_runs)} labels and "
           f"{len(GROUPED_OPTIONS)} pack/partition/merge_bursts runs on "
           f"curie_platform(280), {len(wl)} replayed jobs, on cuda == oracle "
@@ -3432,6 +3777,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_launches = phase15(torch, np, tmp)
 
+    # ---- 16. mixed block programs, standalone stages, the legacy loop ----
+    torch.cuda.empty_cache()
+    p16 = phase16(torch, np, label_runs, swf)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
@@ -3458,6 +3807,7 @@ def main() -> None:
             "phase 11 (f) options dense": sweep_f.get(kname, 0),
             **{f"phase 12 {part}": got[kname] for part, got in rl_by_part.items()},
             **{f"phase 13 {part}": got[kname] for part, got in exp_by_part.items()},
+            "phase 16 legacy": p16["legacy"][kname],
         }
         if note:
             row["note"] = note
@@ -3486,6 +3836,8 @@ def main() -> None:
                 f"phase 8 {ARCH}": flash_launches,
                 **{f"phase 14 {a}": got["flash_attention"] for a, got in lm_by_arch.items()},
                 "phase 15 train": train_launches["flash_attention"],
+                "phase 16 mixed": p16["mixed"]["flash_attention"],
+                "phase 16 recurrent stages": p16["recurrent"]["flash_attention"],
             },
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "
@@ -3512,6 +3864,8 @@ def main() -> None:
                 f"phase 9 {XARCH} at {XPAIRS} pairs": ssd_launches,
                 **{f"phase 14 {a}": got["ssd_scan"] for a, got in lm_by_arch.items()},
                 "phase 15 train": train_launches["ssd_scan"],
+                "phase 16 mixed": p16["mixed"]["ssd_scan"],
+                "phase 16 recurrent stages": p16["recurrent"]["ssd_scan"],
             },
             "note": "timed at the xLSTM serve prefill shape (B 1, S 1024, H 4, dk "
                     "512, chunk 128; q bf16, k f32, v bf16, zero h0) at dv 512 "

@@ -16,10 +16,13 @@ and both ``allocation`` scopes ("any", "partition"), with or without
 ``merge_bursts``, on the dense per-node tables or the grouped tables
 (``grouped_tables``, :mod:`repro_torch.core.tables`), and power rules 6-10
 (PSUS, PSAS, PSAS+IPM, AlwaysOn; RL power commands, set by an in-graph
-controller or left pending; DVFS; Forecast). Sharded sweeps (``devices``)
-and the legacy loop (``fused_events=False``) raise ``NotImplementedError``
-naming the ROADMAP item that ports them (:func:`check_supported`). The
-batched sweep over a scenario axis is ``core/sweep.py``.
+controller or left pending; DVFS; Forecast), on the fused loop or the
+legacy one (``fused_events=False``: ``next_time`` decides each batch and
+:func:`accrue_energy` re-gathers the draw, with no quiet batches and no
+event kernel, the reference's baseline loop). Sharded sweeps
+(``devices``) raise ``NotImplementedError`` naming ROADMAP item 8b
+(:func:`check_supported`). The batched sweep over a scenario axis is
+``core/sweep.py``.
 
 Loop structure and host syncs. The reference runs the whole simulation
 inside one ``lax.while_loop`` on the device. Eager PyTorch needs a host read
@@ -30,7 +33,8 @@ batch (counted in :data:`HOST_SYNCS`):
 * once per batch, :func:`run_sim` reads ``(next time, all done, quiet,
   n_batches)`` together, from the fused event pass, to decide whether to
   stop and which batch body to run — the reference's ``while_loop`` cond and
-  its quiet-batch ``lax.cond``;
+  its quiet-batch ``lax.cond`` (the legacy loop reads the same values but
+  ``quiet``, from :func:`next_time`; every batch of it is full);
 * once per scheduler pass, :func:`_scheduler_pass` reads the queue window
   (at most ``W`` job indices), the node counts those jobs ask for and the
   number of unreserved nodes. From these the host decides the head phase
@@ -209,17 +213,12 @@ class GanttLog(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def check_supported(config: EngineConfig) -> None:
-    """Raise NotImplementedError for a configuration the port does not run
-    yet, naming the ROADMAP item (Queue 1) that ports it."""
-    later = []
+    """Raise NotImplementedError for a configuration the port does not run:
+    ``devices`` (sharded sweeps), naming ROADMAP Queue 1 item 8b."""
     if config.devices is not None:
-        later.append("devices / sharded sweeps (item 8b)")
-    if not config.fused_events:
-        later.append("the legacy loop, fused_events=False (item 3)")
-    if later:
         raise NotImplementedError(
-            f"{config.label()!r}: {', '.join(later)} not ported to the "
-            "PyTorch engine yet (ROADMAP Queue 1)"
+            f"{config.label()!r}: devices / sharded sweeps (item 8b) not ported "
+            "to the PyTorch engine yet (ROADMAP Queue 1)"
         )
 
 
@@ -884,6 +883,19 @@ def next_time(
     return _earliest(s, arr, fin, tr, policy_cands)
 
 
+def horizon(
+    s: SimState, const: EngineConst, cfg: EngineConfig, fused: Optional[bool] = None
+) -> Tuple[torch.Tensor, Optional["EventAux"]]:
+    """The next event time and what the accrual reuses: the fused event
+    pass (:func:`event_horizon`) under ``fused`` (default
+    ``cfg.fused_events``), else the legacy loop's :func:`next_time` and no
+    byproducts, so :func:`accrue_energy` gathers the draw itself and no
+    event kernel runs (the reference's ``run_sim`` and env step branch so)."""
+    if cfg.fused_events if fused is None else fused:
+        return event_horizon(s, const, cfg)
+    return next_time(s, const, cfg), None
+
+
 def _node_power_draw(s: SimState, const: EngineConst) -> torch.Tensor:
     """f32[N] instantaneous per-node draw; under rule 9 an ACTIVE node draws
     its group's current-mode watts."""
@@ -1035,8 +1047,10 @@ def accrue_energy(
     ``[s.t, t_next)``.
 
     On the grouped path the draw is the contraction of the occupancy
-    histogram (from the event pass, or computed here by the gantt loop,
-    which runs without one) and the histogram is stored in ``SimState.occ``.
+    histogram (from the event pass, or computed here by the legacy loop,
+    which runs without one: the reference's ``_occupancy`` +
+    ``_group_draw``) and the histogram is stored in ``SimState.occ``; on
+    the dense path without ``aux`` the draw is gathered per node.
 
     Under rule 9 each group adds ``dt`` to ``mode_time[g, mode[g]]`` and its
     ACTIVE energy ``draw[g, ACTIVE] * dt`` to ``mode_energy[g, mode[g]]``, on
@@ -1103,6 +1117,43 @@ def trim_window(config: EngineConfig, n_jobs: int) -> EngineConfig:
     return dataclasses.replace(config, window=W)
 
 
+def _loop(
+    s: SimState,
+    const: EngineConst,
+    cfg: EngineConfig,
+    cap: int,
+    fused: bool,
+    record=None,
+) -> SimState:
+    """The host loop of :func:`run_sim` and :func:`run_sim_gantt`: the
+    first batch, then one host read per iteration and one batch, until
+    every job is done, no event is left or ``cap`` batches ran.
+
+    ``fused``: the next-event time and draw of each iteration come from
+    :func:`event_horizon` and quiet batches run :func:`_quiet_batch`; else
+    the legacy loop (:func:`horizon`). ``record(s, t_next)`` sees each
+    batch's state before its accrual."""
+    quiet_on = fused and _quiet_enabled(const, cfg)
+    s = process_batch(s, const, cfg)
+    nt, aux = horizon(s, const, cfg, fused)
+    while True:
+        nt_h, done, *quiet, n_batches = _read(
+            nt, all_done(s), *((aux.quiet,) if quiet_on else ()), s.n_batches)
+        if done or nt_h >= INF or n_batches >= cap:
+            break
+        if record is not None:
+            record(s, nt)
+        s = accrue_energy(s, nt, const, aux=aux)
+        s = s._replace(t=nt)
+        if quiet_on and quiet[0]:
+            s = _quiet_batch(s, const, cfg)
+        else:
+            s = process_batch(s, const, cfg)
+        nt, aux = horizon(s, const, cfg, fused)
+    truncated = (not done) and nt_h < INF
+    return s._replace(truncated=torch.full_like(s.truncated, truncated))
+
+
 def run_sim(
     s: SimState,
     const: EngineConst,
@@ -1113,7 +1164,10 @@ def run_sim(
 
     Each iteration runs ONE fused event pass (:func:`event_horizon`), whose
     next-event time and draw carry into the next iteration; quiet batches
-    run the stripped :func:`_quiet_batch`. ``truncated`` is set on the
+    run the stripped :func:`_quiet_batch`. Under ``fused_events=False`` the
+    legacy loop runs instead: :func:`next_time` and the accrual's own
+    gather of the draw, every batch full, no event kernel (bit-exact with
+    the fused loop, as in the reference). ``truncated`` is set on the
     returned state when the batch cap stopped the run with future events
     still pending. One host read per iteration decides the loop (module
     docstring).
@@ -1122,24 +1176,7 @@ def run_sim(
     cap = max_batches or cfg.max_batches or default_batch_cap(
         int(s.job_status.shape[0])
     )
-    quiet_on = _quiet_enabled(const, cfg)
-    s = process_batch(s, const, cfg)
-    nt, aux = event_horizon(s, const, cfg)
-    while True:
-        nt_h, done, quiet, n_batches = _read(
-            nt, all_done(s), aux.quiet, s.n_batches
-        )
-        if done or nt_h >= INF or n_batches >= cap:
-            break
-        s = accrue_energy(s, nt, const, aux=aux)
-        s = s._replace(t=nt)
-        if quiet_on and quiet:
-            s = _quiet_batch(s, const, cfg)
-        else:
-            s = process_batch(s, const, cfg)
-        nt, aux = event_horizon(s, const, cfg)
-    truncated = (not done) and nt_h < INF
-    return s._replace(truncated=torch.full_like(s.truncated, truncated))
+    return _loop(s, const, cfg, cap, cfg.fused_events)
 
 
 def run_sim_gantt(
@@ -1150,30 +1187,24 @@ def run_sim_gantt(
 ) -> Tuple[SimState, GanttLog]:
     """Like run_sim but records per-batch node-state snapshots for Gantt.
 
-    The reference's loop shape: ``next_time`` then the per-node accrual, no
-    quiet batches. ``max_batches`` also bounds the log; a cap-stopped run
-    comes back with ``state.truncated`` set (the log is then a prefix).
+    The reference's loop shape: the legacy loop (``next_time`` then the
+    accrual's own draw, no quiet batches) whatever ``fused_events`` says.
+    ``max_batches`` also bounds the log; a cap-stopped run comes back with
+    ``state.truncated`` set (the log is then a prefix).
     """
     check_supported(cfg)
     t0: List[torch.Tensor] = []
     t1: List[torch.Tensor] = []
     states: List[torch.Tensor] = []
     jobs: List[torch.Tensor] = []
-    s = process_batch(s, const, cfg)
-    while True:
-        nt = next_time(s, const, cfg)
-        nt_h, done, n_batches = _read(nt, all_done(s), s.n_batches)
-        if done or nt_h >= INF or n_batches >= max_batches:
-            break
+
+    def record(s: SimState, nt: torch.Tensor) -> None:
         t0.append(s.t)
         t1.append(nt)
         states.append(s.node_state)
         jobs.append(torch.where(s.node_state == ACTIVE, s.node_job, -1))
-        s = accrue_energy(s, nt, const)
-        s = s._replace(t=nt)
-        s = process_batch(s, const, cfg)
-    truncated = (not done) and nt_h < INF
-    s = s._replace(truncated=torch.full_like(s.truncated, truncated))
+
+    s = _loop(s, const, cfg, max_batches, False, record)
     N = s.node_state.shape[0]
 
     def stack(rows, shape):

@@ -16,7 +16,9 @@ agent acts at every simulation event, plus the periodic decision tick of
 ``rl_decision_interval``.
 
 A step applies the agent's commands (rule 8, and rule 9's mode commands
-under ``RLController(dvfs=True)``), runs the fused event pass, accrues
+under ``RLController(dvfs=True)``), runs the fused event pass (under
+``fused_events=False`` the legacy ``next_time`` alone, as the reference's
+env does, and the accrual gathers its own draw), accrues
 energy up to the next event and runs ONE full event batch there (never the
 quiet body). A row that cannot advance runs the batch at its own time. A
 row that is done is frozen: every field keeps its value
@@ -27,9 +29,9 @@ of the ``[B]`` head outcomes after each step of the pass at which some row
 attempts a head, and under ``merge_bursts`` one read a repeat (the repeat
 condition with the next windows): each read batched over the rows, at
 most as many in a pass as the row that reads most would make alone. It
-launches one event kernel for the batch on a CUDA device:
-``event_fuse_occ`` under grouped tables, ``event_fuse_ledger`` on a dense
-single-group platform without DVFS.
+launches one event kernel for the batch on a CUDA device on the fused
+loop: ``event_fuse_occ`` under grouped tables, ``event_fuse_ledger`` on a
+dense single-group platform without DVFS.
 
 :class:`HPCGymEnv` is a host wrapper with the classic ``reset()`` /
 ``step(action)`` protocol for one environment.
@@ -171,7 +173,7 @@ def env_step(
     if cfg.engine.policy.dvfs:  # rule 9: apply the agent's mode commands now
         sim = apply_dvfs(sim, const, terminate_overrun=cfg.engine.terminate_overrun,
                          rl=True)
-    nt, aux = engine.event_horizon(sim, const, cfg.engine)
+    nt, aux = engine.horizon(sim, const, cfg.engine)
     can_advance = (nt < INF) & ~engine.all_done(sim)
     t_next = torch.where(can_advance, nt, sim.t)
     adv = engine.accrue_energy(sim, t_next, const, aux=aux)._replace(t=t_next)
@@ -217,7 +219,7 @@ def batched_step(cfg: EnvConfig, grid: sweep.Grid, states: EnvState, actions):
     sim = apply_rl_commands_rows(sim, const, pol.grouped, True)
     if pol.dvfs:
         sim = apply_dvfs_rows(sim, const, True, True, cfg.engine.terminate_overrun)
-    nt, aux = sweep.event_horizon(sim, grid, cfg.engine)
+    nt, aux = sweep.horizon(sim, grid, cfg.engine)
     can_advance = (nt < INF) & ~sweep.all_done(sim)
     t_next = torch.where(can_advance, nt, sim.t)
     adv = sweep.accrue_energy(sim, t_next, grid, aux)._replace(t=t_next)

@@ -19,10 +19,11 @@ commands; Forecast, with a horizon per row; every ``+DVFS`` and
 never), a platform per row (same node, group and DVFS-mode counts), dense
 and grouped tables, every ``node_order`` ("id", "cheap", "idle-watts" and
 the per-pass "pack" key), ``allocation`` "any" and "partition",
-``merge_bursts`` and the batch cap, with truncation per row. A grid over
-more than one device raises ``NotImplementedError`` naming ROADMAP item
-8b, and the legacy loop (``fused_events=False``) naming item 3
-(:func:`check_supported`).
+``merge_bursts`` and the batch cap, with truncation per row, on the fused
+loop or the legacy one (``fused_events=False``: :func:`next_time` over the
+rows, the accrual's own gather of the draw, no quiet batches and no event
+kernel). A grid over more than one device raises ``NotImplementedError``
+naming ROADMAP item 8b (:func:`check_supported`).
 
 The in-graph controller (``RLController.controller``) runs once per full
 batch for every row, before rule 8, as ``engine._power_step`` runs it for
@@ -58,7 +59,7 @@ per *iteration*, whatever E is. Each iteration of :func:`run_sim` makes
 * one event-kernel launch for the whole grid (:func:`event_horizon`:
   ``event_fuse_occ`` on ``[E, N]`` on the grouped path, ``event_fuse_ledger``
   on the dense single-group path when no row runs DVFS, each on a CUDA
-  device unless ``fused_kernel`` says otherwise).
+  device unless ``fused_kernel`` says otherwise); none on the legacy loop.
 
 A row stops where its single run stops: it is *frozen* once it is no longer
 live, every field kept by ``torch.where(live, new, old)`` (a Kahan add of a
@@ -172,8 +173,7 @@ def _resolve_devices(devices, config: EngineConfig, dev: torch.device) -> Option
 def check_supported(config: EngineConfig, devices: Optional[int] = None) -> None:
     """Raise NotImplementedError for a grid structure the sweep does not run
     yet: more than one device, naming ROADMAP item 8b (``devices`` is the
-    resolved count); the single run's refusals (the legacy loop, item 3)
-    apply too."""
+    resolved count); the single run's refusal applies too."""
     if devices is not None and devices > 1:
         raise _later(f"sweep({config.label()!r}): devices={devices} (sharded sweeps)")
     engine.check_supported(dataclasses.replace(config, devices=None))
@@ -1113,39 +1113,12 @@ def _ledger(s: SimState, g: Grid, node_power: torch.Tensor) -> torch.Tensor:
     )
 
 
-def event_horizon(
-    s: SimState, g: Grid, cfg: EngineConfig
-) -> Tuple[torch.Tensor, EventAux]:
-    """``engine.event_horizon`` for every row: next-event times ``[E]``, the
-    draw for the coming interval and the quiet classification ``[E]``, with
-    ONE event-kernel call for the grid: ``event_fuse_occ`` on the grouped
-    path, ``event_fuse_ledger`` on the dense path of a single-group platform
-    when no row runs DVFS (the kernel knows only the base watts: the single
-    run's gate), else the per-node route. The RL rows add their decision
-    tick, the Forecast rows their review tick; a row under rule 8, 9 or 10
-    is never quiet."""
-    G = s.energy.shape[1]
-    aux_occ = aux_power = aux_draw = None
+def _next_times(s: SimState, g: Grid, tr: torch.Tensor):
+    """(the next arrival, the next finish, the next event time), each
+    ``[E]``: ``engine.next_time`` of every row over the next transition
+    ``tr``; the RL rows add their decision tick, the Forecast rows their
+    review tick."""
     t = s.t
-    kernel = _fused_kernel_on(cfg, t.device)
-    if cfg.grouped_tables:
-        if kernel:
-            occ8, tr = event_fuse.event_fuse_occ(
-                s.node_state, s.node_until, t, g.group_id, G
-            )
-            aux_occ = occ8[:, :, :N_STATES].to(I32)  # exact integer counts
-        else:
-            aux_occ = _occupancy(s, g)
-            tr = _next_transition(s)
-        aux_draw = _group_draw(s, g, aux_occ)
-    elif G == 1 and kernel and g.gate("dvfs_enabled") is False:
-        draw8, tr = event_fuse.event_fuse_ledger(
-            s.node_state, s.node_until, t, g.ledger_power
-        )
-        aux_draw = draw8[:, None, :N_STATES]
-    else:
-        aux_power = _node_power_draw(s, g)
-        tr = _next_transition(s)
     t2 = t[:, None]
     waiting_future = (s.job_status == WAITING) & (s.job_subtime > t2)
     arr = torch.where(waiting_future, s.job_subtime, INF).amin(dim=-1)
@@ -1172,25 +1145,88 @@ def event_horizon(
         if fc is not True:
             c = torch.where(fc, c, INF)
         nt = torch.minimum(nt, torch.where(c > t, c, INF))
+    return arr, fin, nt
+
+
+def next_time(s: SimState, g: Grid) -> torch.Tensor:
+    """``engine.next_time`` of every row ``[E]``: the legacy loop's time
+    advance, no event kernel."""
+    return _next_times(s, g, _next_transition(s))[2]
+
+
+def event_horizon(
+    s: SimState, g: Grid, cfg: EngineConfig
+) -> Tuple[torch.Tensor, EventAux]:
+    """``engine.event_horizon`` for every row: next-event times ``[E]``, the
+    draw for the coming interval and the quiet classification ``[E]``, with
+    ONE event-kernel call for the grid: ``event_fuse_occ`` on the grouped
+    path, ``event_fuse_ledger`` on the dense path of a single-group platform
+    when no row runs DVFS (the kernel knows only the base watts: the single
+    run's gate), else the per-node route. The RL rows add their decision
+    tick, the Forecast rows their review tick (:func:`_next_times`); a row
+    under rule 8, 9 or 10 is never quiet."""
+    G = s.energy.shape[1]
+    aux_occ = aux_power = aux_draw = None
+    t = s.t
+    kernel = _fused_kernel_on(cfg, t.device)
+    if cfg.grouped_tables:
+        if kernel:
+            occ8, tr = event_fuse.event_fuse_occ(
+                s.node_state, s.node_until, t, g.group_id, G
+            )
+            aux_occ = occ8[:, :, :N_STATES].to(I32)  # exact integer counts
+        else:
+            aux_occ = _occupancy(s, g)
+            tr = _next_transition(s)
+        aux_draw = _group_draw(s, g, aux_occ)
+    elif G == 1 and kernel and g.gate("dvfs_enabled") is False:
+        draw8, tr = event_fuse.event_fuse_ledger(
+            s.node_state, s.node_until, t, g.ledger_power
+        )
+        aux_draw = draw8[:, None, :N_STATES]
+    else:
+        aux_power = _node_power_draw(s, g)
+        tr = _next_transition(s)
+    arr, fin, nt = _next_times(s, g, tr)
+    t2 = t[:, None]
     busy = (
         ((s.job_status == WAITING) & (s.job_subtime <= t2))
         | (s.job_status == ALLOCATED)
     ).any(dim=-1)
     quiet = (arr > nt) & (fin > nt) & ~busy
-    if rl is not False or fc is not False or g.gate("dvfs_enabled") is not False:
+    if any(g.gate(f) is not False for f in ("rl_enabled", "forecast_enabled",
+                                             "dvfs_enabled")):
         pp = g.const.policy
         quiet = quiet & ~(pp.rl_enabled | pp.dvfs_enabled | pp.forecast_enabled)
     return nt, EventAux(node_power=aux_power, draw=aux_draw, occ=aux_occ, quiet=quiet)
 
 
-def accrue_energy(s: SimState, t_next: torch.Tensor, g: Grid, aux: EventAux) -> SimState:
+def horizon(s: SimState, g: Grid, cfg: EngineConfig
+            ) -> Tuple[torch.Tensor, Optional[EventAux]]:
+    """``engine.horizon`` of every row: :func:`event_horizon` under
+    ``fused_events``, else :func:`next_time` and no byproducts."""
+    if cfg.fused_events:
+        return event_horizon(s, g, cfg)
+    return next_time(s, g), None
+
+
+def accrue_energy(s: SimState, t_next: torch.Tensor, g: Grid,
+                  aux: Optional[EventAux]) -> SimState:
     """``engine.accrue_energy`` for every row over ``[s.t, t_next)``, from
-    the event pass's draw (on the grouped path the occupancy is stored in
-    ``occ``). A row that is no longer live is restored by the loop's
-    freeze, so each row's fields are its own single run's."""
+    the event pass's draw, or without ``aux`` (the legacy loop) from the
+    state: the occupancy and its contraction on the grouped path, the
+    per-node ledger on the dense one. On the grouped path the occupancy is
+    stored in ``occ``. A row that is no longer live is restored by the
+    loop's freeze, so each row's fields are its own single run's."""
     dt = torch.clamp(t_next - s.t, min=0).to(F32)
     occ = s.occ
-    if aux.occ is not None:
+    if aux is None:
+        if g.const.tables is not None:
+            occ = _occupancy(s, g)
+            draw = _group_draw(s, g, occ)
+        else:
+            draw = _ledger(s, g, _node_power_draw(s, g))
+    elif aux.occ is not None:
         occ, draw = aux.occ, aux.draw
     elif aux.draw is not None:
         draw = aux.draw
@@ -1237,16 +1273,18 @@ def freeze(live: torch.Tensor, new: SimState, old: SimState) -> SimState:
 def run_sim(s: SimState, g: Grid, cfg: EngineConfig, max_batches: int) -> SimState:
     """Run every row to its own end on the device that holds ``s`` and
     ``g``: the single run's loop (``engine.run_sim``) over ``[E]`` rows, one
-    host read per iteration for all of them (module docstring)."""
+    host read per iteration for all of them (module docstring); under
+    ``fused_events=False`` the legacy loop, every batch full."""
+    fused = cfg.fused_events
     s = process_batch(s, g, cfg, [True] * s.t.shape[0], None)
-    nt, aux = event_horizon(s, g, cfg)
+    nt, aux = horizon(s, g, cfg)
     E = s.t.shape[0]
     while True:
         done = all_done(s)
-        host = engine._read(nt, done, aux.quiet, s.n_batches)
+        host = engine._read(nt, done, *((aux.quiet,) if fused else ()), s.n_batches)
         live = [
             not d and x < INF and b < max_batches
-            for x, d, b in zip(host[:E], host[E:2 * E], host[3 * E:])
+            for x, d, b in zip(host[:E], host[E:2 * E], host[-E:])
         ]
         if not any(live):
             break
@@ -1256,13 +1294,13 @@ def run_sim(s: SimState, g: Grid, cfg: EngineConfig, max_batches: int) -> SimSta
         old = s
         s = accrue_energy(s, nt, g, aux)
         s = s._replace(t=nt)
-        if all(q for q, l in zip(host[2 * E:3 * E], live) if l):
+        if fused and all(q for q, l in zip(host[2 * E:3 * E], live) if l):
             s = _quiet_batch(s, g)
         else:
             s = process_batch(s, g, cfg, live, live_d)
         if live_d is not None:
             s = freeze(live_d, s, old)
-        nt, aux = event_horizon(s, g, cfg)
+        nt, aux = horizon(s, g, cfg)
     return s._replace(truncated=~done & (nt < INF))
 
 

@@ -50,7 +50,8 @@ Two differences, both deliberate. The slot's cache insert writes **every
 layer** of every field of the stacked cache (the ``[L, B, S, KH, hd]`` keys
 and values, zamba2's Mamba-2 states and shared-attention keys and values,
 the xLSTM's recurrent states, or whisper's self and cross keys and
-values); the reference writes only
+values), of every stage of a mixed block program (``main(config=...)``
+serves a config whose ``stages`` mix block types); the reference writes only
 layer 0 (its insert updates index ``slot`` of axis 1 with ``s[0]``, which is
 layer 0's slice of each field; see ROADMAP Queue 3), so its later layers
 keep zeros or the slot's previous request. And the cache is preallocated
@@ -92,9 +93,13 @@ def front_end_inputs(cfg: ArchConfig, batch: int, device) -> Dict[str, torch.Ten
 
 def insert_cache(big: Cache, small: Cache, slot: int) -> None:
     """Write a single-sequence cache into batch slot ``slot``: every field
-    (``[L, B, ...]``), every layer."""
-    for dst, src in zip(big, small):
-        dst[:, slot].copy_(src[:, 0])
+    (``[L, B, ...]``), every layer, of every stage's cache (a program of
+    more than one stage has a tuple of them; an ``enc`` stage's is None)."""
+    if torch.is_tensor(big):
+        big[:, slot].copy_(small[:, 0])
+    elif big is not None:
+        for dst, src in zip(big, small):
+            insert_cache(dst, src, slot)
 
 
 def main(argv=None, stats: Optional[Dict[str, Any]] = None,

@@ -5,6 +5,8 @@ the dense family (``internlm2-1.8b``, ``glm4-9b``, ``stablelm-3b``,
 (``zamba2-2.7b``), xLSTM (``xlstm-350m``) and the encoder-decoder
 ``whisper-tiny``.
 
+Block programs that mix block types (``ArchConfig.stages``) and
+standalone ``mamba2``, ``mlstm``, ``slstm`` and ``enc`` stages run too.
 ``build_model(config, device)`` returns a :class:`Transformer`
 (``nn.Module``) with ``init``, ``forward``, ``loss``, ``prefill``,
 ``decode_step``, ``init_cache`` and ``n_params``;
@@ -14,8 +16,9 @@ it, ``convert.params_to_arrays`` gives it back, and
 tensors (what training's optimizer runs on).
 """
 from repro_torch.models.transformer import (
-    EncDecCache, KVCache, Transformer, XLstmCache, ZambaCache, build_model,
+    EncDecCache, KVCache, Mamba2Cache, MLstmCache, SLstmCache, Transformer, XLstmCache,
+    ZambaCache, build_model,
 )
 
-__all__ = ["EncDecCache", "KVCache", "Transformer", "XLstmCache", "ZambaCache",
-           "build_model"]
+__all__ = ["EncDecCache", "KVCache", "Mamba2Cache", "MLstmCache", "SLstmCache", "Transformer",
+           "XLstmCache", "ZambaCache", "build_model"]

@@ -1,9 +1,10 @@
 """The reference's LM parameters over the port's tensors.
 
 The reference keeps parameters as a pytree of arrays: ``embed`` ``[Vp, D]``,
-``final_norm`` ``[D]``, ``lm_head`` ``[D, Vp]`` and ``stages[0]``, the
-stage's per-layer parameters stacked on a leading axis; matrices are
-``[in, out]``. A ``dense`` stage holds ``ln1``, ``attn.{wq,wk,wv,wo}``
+``final_norm`` ``[D]``, ``lm_head`` ``[D, Vp]`` and ``stages``, a tuple with
+each stage's per-layer parameters stacked on a leading axis, one entry per
+stage of the block program; matrices are ``[in, out]``. A ``dense`` stage
+holds ``ln1``, ``attn.{wq,wk,wv,wo}``
 (and ``attn.{q_norm,k_norm}`` under qk-norm), ``ln2`` and
 ``mlp.{w_gate,w_up,w_down}``; a ``zamba_super`` stage holds
 ``mamba.{ln, mixer.{z_proj, x_proj, bc_proj, dt_proj, conv_w_x, conv_b_x,
@@ -19,7 +20,9 @@ holds ``ln1``, ``attn``, ``ln2`` and ``moe.{router, w_gate, w_up, w_down}``
 stage holds ``ln1``, ``self_attn``, ``ln2``, ``cross_attn``, ``ln3`` and
 ``mlp.{w_in, b_in, w_out, b_out}``, and the tree's ``encoder`` holds
 ``stage`` (``enc`` blocks: ``ln1``, ``attn``, ``ln2``, ``mlp``, stacked)
-and ``final_norm``.
+and ``final_norm``; an ``enc`` stage of the decoder holds the same as an
+encoder block, and a standalone ``mamba2``, ``mlstm`` or ``slstm`` stage
+``ln`` and ``mixer`` (the mixer's leaves above).
 
 The port holds a tensor a layer (``nn.Linear`` weights ``[out, in]``, the
 reference's matrices transposed). :func:`reference_leaves` describes the
@@ -149,18 +152,27 @@ def _xlstm_items(block) -> List[Item]:
             + _linears(block.slstm, _SLSTM_LINEAR, s) + _arrays(block.slstm, _SLSTM_ARRAY, s))
 
 
+def _mixer_items(block, linear, array, prefix: Path = ()) -> List[Item]:
+    """A one-mixer block (``mamba2``, ``mlstm``, ``slstm``): ``ln`` and the
+    mixer's matrices ``linear`` and arrays ``array``."""
+    return ([(prefix + ("ln",), [block.ln], False)]
+            + _linears(block.mixer, linear, prefix + ("mixer",))
+            + _arrays(block.mixer, array, prefix + ("mixer",)))
+
+
 def _zamba_items(block) -> List[Item]:
     """One super-block: each item stacks its ``mamba_per_super`` layers."""
-    per_layer = [[(("mamba", "ln"), [layer.ln], False)]
-                 + _linears(layer.mixer, _MAMBA_LINEAR, ("mamba", "mixer"))
-                 + _arrays(layer.mixer, _MAMBA_ARRAY, ("mamba", "mixer"))
+    per_layer = [_mixer_items(layer, _MAMBA_LINEAR, _MAMBA_ARRAY, ("mamba",))
                  for layer in block.mamba]
     return [(path, [items[i][1][0] for items in per_layer], tr)
             for i, (path, _, tr) in enumerate(per_layer[0])]
 
 
-_ITEMS = {"dense": _dense_items, "moe": _moe_items, "dec": _dec_items,
-          "xlstm_pair": _xlstm_items, "zamba_super": _zamba_items}
+_ITEMS = {"dense": _dense_items, "moe": _moe_items, "dec": _dec_items, "enc": _dense_items,
+          "xlstm_pair": _xlstm_items, "zamba_super": _zamba_items,
+          "mamba2": lambda b: _mixer_items(b, _MAMBA_LINEAR, _MAMBA_ARRAY),
+          "mlstm": lambda b: _mixer_items(b, _MLSTM_LINEAR, _MLSTM_ARRAY),
+          "slstm": lambda b: _mixer_items(b, _SLSTM_LINEAR, _SLSTM_ARRAY)}
 
 
 def _stage(prefix: Path, blocks, items_of) -> List[RefLeaf]:
@@ -182,20 +194,27 @@ def _single(path: Path, tensor: torch.Tensor, transposed: bool) -> RefLeaf:
     return RefLeaf(path, shape[::-1] if transposed else shape, (tensor,), transposed)
 
 
+def _pytree_order(leaf: RefLeaf):
+    """The reference's pytree order: dict keys sorted, a tuple's entries
+    (``stages``) by index."""
+    return tuple(int(k) if k.isdigit() else k for k in leaf.path)
+
+
 def reference_leaves(model: Transformer) -> List[RefLeaf]:
     """The reference's parameter leaves over ``model``'s tensors, in its
     pytree order (dict keys sorted, ``stages`` a tuple)."""
     leaves = [_single(("embed",), model.embed.weight, False),
               _single(("final_norm",), model.final_norm, False),
               _single(("lm_head",), model.lm_head.weight, True)]
-    leaves += _stage(("stages", "0"), model.blocks, _ITEMS[model.block_type])
+    for i, (btype, blocks) in enumerate(model.stages):
+        leaves += _stage(("stages", str(i)), blocks, _ITEMS[btype])
     if model.shared_attn is not None:
         leaves += [_single(("shared_attn",) + path, ts[0], tr)
                    for path, ts, tr in _dense_items(model.shared_attn)]
     if model.encoder is not None:
         leaves += _stage(("encoder", "stage"), model.encoder.blocks, _dense_items)
         leaves.append(_single(("encoder", "final_norm"), model.encoder.final_norm, False))
-    return sorted(leaves, key=lambda leaf: leaf.path)
+    return sorted(leaves, key=_pytree_order)
 
 
 def leaves_to_tree(leaves: Sequence[RefLeaf], values: Sequence[Any]) -> Dict[str, Any]:
@@ -242,28 +261,50 @@ def _check_layers(stage, path, n_blocks: int, what: str) -> None:
         raise ValueError(f"{what} holds {np.shape(first)[0]} layers, the config {n_blocks}")
 
 
-_FIRST = {"dense": ("ln1",), "moe": ("ln1",), "dec": ("ln1",),
-          "zamba_super": ("mamba", "ln"), "xlstm_pair": ("mlstm", "ln")}
+# the path of a leaf each stage type holds, and of one it holds alone
+_FIRST = {"dense": ("ln1",), "moe": ("ln1",), "dec": ("ln1",), "enc": ("ln1",),
+          "zamba_super": ("mamba", "ln"), "xlstm_pair": ("mlstm", "ln"), "mamba2": ("ln",),
+          "mlstm": ("ln",), "slstm": ("ln",)}
+_OWN = {"dense": ("mlp", "w_gate"), "moe": ("moe", "router"), "dec": ("cross_attn", "wq"),
+        "enc": ("mlp", "w_in"), "zamba_super": ("mamba", "mixer", "A_log"),
+        "xlstm_pair": ("slstm", "mixer", "r"), "mamba2": ("mixer", "A_log"),
+        "mlstm": ("mixer", "w_if"), "slstm": ("mixer", "r")}
+
+
+def _holds(stage, path) -> bool:
+    for key in path:
+        if not isinstance(stage, dict) or key not in stage:
+            return False
+        stage = stage[key]
+    return True
 
 
 def params_from_arrays(cfg: ArchConfig, tree: Dict[str, Any], device: DeviceLike = None,
                        attn_impl: str = "auto", gla_impl: str = "auto") -> Transformer:
     """A :class:`Transformer` on ``device`` holding the reference's
-    parameters ``tree``: each stacked leaf is sliced into the blocks (a
-    stage whose count differs from the config's raises ``ValueError``), and
-    matrices are transposed into ``nn.Linear`` weights."""
+    parameters ``tree``: each stage's stacked leaves are sliced into its
+    blocks (a tree whose stages differ from the config's program in number,
+    block type or layer count raises ``ValueError``), and matrices are
+    transposed into ``nn.Linear`` weights."""
     model = build_model(cfg, device, attn_impl, gla_impl)
-    stage = tree["stages"][0]
-    _check_layers(stage, _FIRST[model.block_type], len(model.blocks), "stages[0]")
-    if model.block_type == "moe" and (("shared" in stage["moe"])
-                                      != (model.blocks[0].moe.shared is not None)):
-        raise ValueError("stages[0]'s shared experts do not match the config's "
-                         "n_shared_experts")
-    if model.block_type == "zamba_super":
-        held, per_super = np.shape(stage["mamba"]["ln"])[1], len(model.blocks[0].mamba)
-        if held != per_super:
-            raise ValueError(f"stages[0] holds {held} Mamba-2 layers a super-block, the "
-                             f"config {per_super}")
+    if len(tree["stages"]) != len(model.program):
+        raise ValueError(f"the tree holds {len(tree['stages'])} stages, the config's "
+                         f"program {len(model.program)}: {model.program}")
+    for i, ((btype, blocks), stage) in enumerate(zip(model.stages, tree["stages"])):
+        what = f"stages[{i}]"
+        if not (_holds(stage, _FIRST[btype]) and _holds(stage, _OWN[btype])):
+            raise ValueError(f"{what} is not a {btype!r} stage, the config's program "
+                             f"{model.program}")
+        _check_layers(stage, _FIRST[btype], len(blocks), what)
+        if btype == "moe" and (("shared" in stage["moe"])
+                               != (blocks[0].moe.shared is not None)):
+            raise ValueError(f"{what}'s shared experts do not match the config's "
+                             "n_shared_experts")
+        if btype == "zamba_super":
+            held, per_super = np.shape(stage["mamba"]["ln"])[1], len(blocks[0].mamba)
+            if held != per_super:
+                raise ValueError(f"{what} holds {held} Mamba-2 layers a super-block, the "
+                                 f"config {per_super}")
     if model.encoder is not None:
         _check_layers(tree["encoder"]["stage"], ("ln1",), len(model.encoder.blocks),
                       "encoder.stage")

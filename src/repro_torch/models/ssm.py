@@ -8,7 +8,11 @@ through the gated norm and ``out_proj``; the mLSTM's k is promoted to f32
 by its input gate, its normaliser ``q·n_t`` is rounded to v's dtype before
 ``max(|·|, 1)``; the sLSTM's gates run in f32. Mamba-2 is the mixer of the
 ``zamba_super`` block (``zamba2-2.7b``), the mLSTM and the sLSTM those of
-``xlstm_pair`` (``xlstm-350m``).
+``xlstm_pair`` (``xlstm-350m``); each is also a block of its own, a
+``mamba2``, ``mlstm`` or ``slstm`` stage of a block program. Every mixer
+takes an initial state (None: zeros, :func:`slstm_zero_state` for the
+sLSTM, whose ``m`` starts at -10), so a prefill continues a state and
+``decode`` steps it one token.
 
 GLA routes (``gla_impl``):
 

@@ -19,7 +19,12 @@ The block types of the reference's block-programmed stack
 * ``dec`` — causal self-attention with RoPE, cross attention over the
   encoder memory, then a GELU MLP (``whisper-tiny``'s decoder), beside the
   :class:`Encoder`, a stack of ``enc`` blocks (unmasked attention without
-  RoPE, then a GELU MLP) over frame embeddings plus sinusoidal positions.
+  RoPE, then a GELU MLP) over frame embeddings plus sinusoidal positions;
+* ``mamba2``, ``mlstm``, ``slstm`` — one recurrent mixer, ``x +
+  mixer(norm(x))``, as a stage of its own (the halves of ``zamba_super``
+  and ``xlstm_pair``), and ``enc`` as a decoder stage: uncached, so a
+  decode step's ``enc`` block sees the new token only, as the reference's
+  does.
 
 Two front ends: ``image_embeds`` take the place of the first
 ``n_image_embeds`` token embeddings (``internvl2-26b``; the length is
@@ -27,11 +32,14 @@ unchanged), and ``encoder_frames`` go through the encoder, whose output is
 the decoder's cross-attention memory (``whisper-tiny``). Both enter at the
 forward and prefill; decode embeds tokens only.
 
-The reference stacks each stage's per-layer params on a leading axis for
-``lax.scan``; here a :class:`Transformer` holds an ``nn.ModuleList`` of
-blocks, and ``models/convert.py`` slices the reference's stacked arrays into
-it. A model runs one stage (one block type), as every architecture the
-reference registers does.
+An architecture is a block program, ``cfg.block_program()``: stages of
+(block type, count), run in order. The reference stacks each stage's
+per-layer params on a leading axis for ``lax.scan``; here a
+:class:`Transformer` holds its blocks in one ``nn.ModuleList``, stage after
+stage (``blocks``; :attr:`Transformer.stages` gives each stage's blocks as
+a ``ModuleList`` of one type), and ``models/convert.py`` slices the
+reference's stacked arrays into it. Every architecture the reference
+registers runs one stage; ``ArchConfig.stages`` may mix them.
 
 Three execution paths, as in the reference's ``Model``: :meth:`forward`
 (no cache; it returns the layers' summed MoE aux loss beside the logits),
@@ -43,9 +51,13 @@ buffer donation: a :class:`KVCache` ``[L, B, S_max, KH, hd]`` for ``dense``
 and ``moe``, a :class:`ZambaCache` (each Mamba-2 layer's state and conv
 tails, each shared-attention application's keys and values) for
 ``zamba_super``, an :class:`XLstmCache` of recurrent states for
-``xlstm_pair`` and an :class:`EncDecCache` (self and cross keys and values)
-for ``dec``. :meth:`Transformer.loss` is the reference's training loss
-over the forward.
+``xlstm_pair``, an :class:`EncDecCache` (self and cross keys and values)
+for ``dec``, a :class:`Mamba2Cache`, :class:`MLstmCache` or
+:class:`SLstmCache` for a standalone recurrent stage and None for ``enc``.
+A one-stage program's cache is that stage's; a program of more than one
+stage has a tuple of them, parallel to the program, as the reference's
+``caches``. :meth:`Transformer.loss` is the reference's training loss over
+the forward; the MoE aux loss sums over every stage.
 
 Parameters do not require gradients: inference stays frozen, and
 ``training/train_step.py`` makes them trainable (``requires_grad_``). With
@@ -56,9 +68,8 @@ reference rematerialises each scanned block: the activations inside are
 recomputed in the backward, which changes memory, not numbers. Prefill
 and decode run without autograd and are never rematerialised.
 
-A program that mixes block types and a standalone ``mamba2``, ``mlstm``,
-``slstm`` or ``enc`` stage raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 12c; no registered architecture uses one.
+An unknown block type raises ``ValueError``, as the reference's
+``block_init`` does.
 """
 from __future__ import annotations
 
@@ -111,7 +122,32 @@ class EncDecCache(NamedTuple):
     cross_v: torch.Tensor  # [L, B, encoder_seq, KH, hd]
 
 
-Cache = Union[KVCache, ZambaCache, XLstmCache, EncDecCache]
+class Mamba2Cache(NamedTuple):
+    """A standalone ``mamba2`` stage's state, layer axis first, f32."""
+    h: torch.Tensor  # [L, B, H, N, hd]
+    conv_x: torch.Tensor  # [L, B, K-1, d_inner]
+    conv_bc: torch.Tensor  # [L, B, K-1, 2N]
+
+
+class MLstmCache(NamedTuple):
+    """A standalone ``mlstm`` stage's state, layer axis first, f32."""
+    h: torch.Tensor  # [L, B, H, hd, hd]
+    n: torch.Tensor  # [L, B, H, hd, 1]
+
+
+class SLstmCache(NamedTuple):
+    """A standalone ``slstm`` stage's state, layer axis first, f32."""
+    c: torch.Tensor  # [L, B, di]
+    n: torch.Tensor  # [L, B, di]
+    m: torch.Tensor  # [L, B, di]
+    h: torch.Tensor  # [L, B, di]
+
+
+StageCache = Union[KVCache, ZambaCache, XLstmCache, EncDecCache, Mamba2Cache, MLstmCache,
+                   SLstmCache]
+# one stage's cache, or a tuple parallel to a program of more than one (None
+# for an ``enc`` stage)
+Cache = Union[StageCache, Tuple[Optional[StageCache], ...]]
 
 
 def _remat(enabled: bool, fn, *args):
@@ -281,6 +317,33 @@ class DecBlock(nn.Module):
         return x + self.mlp(L.rms_norm(x, self.ln3, self.eps))
 
 
+def _copy_state(cache, new) -> None:
+    """Overwrite a cache's slices (views) with a block's new state."""
+    for dst, src in zip(cache, new):
+        dst.copy_(src)
+
+
+def _recurrent(mixer, ln, x, state, eps: float, *scan_args):
+    """``x + mixer(norm(x))`` and the mixer's new state (an mLSTM's (h, n),
+    an sLSTM's :class:`~.ssm.SLstmState`): the recurrent decode step for a
+    one-token ``x`` with a state, else the scan from ``state`` (None:
+    zeros), ``mixer(inner, state, *scan_args)``."""
+    inner = L.rms_norm(x, ln, eps)
+    if state is not None and x.shape[1] == 1:
+        y, new = mixer.decode(inner[:, 0], state, eps)
+        return x + y[:, None], new
+    y, new = mixer(inner, state, *scan_args)
+    return x + y, new
+
+
+def _mlstm_dims(cfg: ArchConfig) -> S.MLstmDims:
+    return S.MLstmDims.make(cfg.d_model, cfg.n_heads, cfg.ssm_expand)
+
+
+def _slstm_dims(cfg: ArchConfig) -> S.SLstmDims:
+    return S.SLstmDims.make(cfg.d_model, cfg.n_heads)
+
+
 class XLstmPair(nn.Module):
     """``x + mlstm(norm(x))``, then ``x + slstm(norm(x))`` (the reference's
     ``mlstm``, ``slstm`` and ``xlstm_pair`` branches of ``block_apply``)."""
@@ -289,10 +352,9 @@ class XLstmPair(nn.Module):
         super().__init__()
         self.eps, self.chunk = cfg.norm_eps, cfg.gla_chunk
         self.mlstm_ln = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
-        self.mlstm = S.MLstm(S.MLstmDims.make(cfg.d_model, cfg.n_heads, cfg.ssm_expand),
-                             cfg.dtype)
+        self.mlstm = S.MLstm(_mlstm_dims(cfg), cfg.dtype)
         self.slstm_ln = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
-        self.slstm = S.SLstm(S.SLstmDims.make(cfg.d_model, cfg.n_heads), cfg.dtype)
+        self.slstm = S.SLstm(_slstm_dims(cfg), cfg.dtype)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -306,27 +368,65 @@ class XLstmPair(nn.Module):
         """``cache``: this pair's six :class:`XLstmCache` slices, read as the
         state and overwritten with the new one; None runs from zeros.
         A one-token ``x`` with a cache takes the recurrent decode step."""
-        eps = self.eps
-        decode = cache is not None and x.shape[1] == 1
         m_state = None if cache is None else cache[:2]
         s_state = None if cache is None else S.SLstmState(*cache[2:])
-        inner = L.rms_norm(x, self.mlstm_ln, eps)
-        if decode:
-            y, m_new = self.mlstm.decode(inner[:, 0], m_state, eps)
-            y = y[:, None]
-        else:
-            y, m_new = self.mlstm(inner, m_state, self.chunk, eps, gla_impl)
-        x = x + y
-        inner = L.rms_norm(x, self.slstm_ln, eps)
-        if decode:
-            y, s_new = self.slstm.decode(inner[:, 0], s_state, eps)
-            y = y[:, None]
-        else:
-            y, s_new = self.slstm(inner, s_state, eps)
+        x, m_new = _recurrent(self.mlstm, self.mlstm_ln, x, m_state, self.eps,
+                              self.chunk, self.eps, gla_impl)
+        x, s_new = _recurrent(self.slstm, self.slstm_ln, x, s_state, self.eps, self.eps)
         if cache is not None:
-            for dst, src in zip(cache, (*m_new, *s_new)):
-                dst.copy_(src)
-        return x + y
+            _copy_state(cache, (*m_new, *s_new))
+        return x
+
+
+class MLstmBlock(nn.Module):
+    """``x + mlstm(norm(x))`` (the reference's standalone ``mlstm`` block;
+    the first half of :class:`XLstmPair`)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps, self.chunk = cfg.norm_eps, cfg.gla_chunk
+        self.ln = _norm_gain(cfg)
+        self.mixer = S.MLstm(_mlstm_dims(cfg), cfg.dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln.fill_(1.0)
+        self.mixer.init(generator)
+
+    def forward(self, x, cache=None, gla_impl: str = "auto") -> torch.Tensor:
+        """``cache``: this layer's (h, n) slices of an :class:`MLstmCache`,
+        read and overwritten; None runs from zeros."""
+        x, new = _recurrent(self.mixer, self.ln, x, cache, self.eps, self.chunk, self.eps,
+                            gla_impl)
+        if cache is not None:
+            _copy_state(cache, new)
+        return x
+
+
+class SLstmBlock(nn.Module):
+    """``x + slstm(norm(x))`` (the reference's standalone ``slstm`` block;
+    the second half of :class:`XLstmPair`)."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.eps = cfg.norm_eps
+        self.ln = _norm_gain(cfg)
+        self.mixer = S.SLstm(_slstm_dims(cfg), cfg.dtype)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        self.ln.fill_(1.0)
+        self.mixer.init(generator)
+
+    def forward(self, x, cache=None, gla_impl: str = "auto") -> torch.Tensor:
+        """``cache``: this layer's (c, n, m, h) slices of an
+        :class:`SLstmCache`, read and overwritten; None runs from the zero
+        state. ``gla_impl`` is unused (no GLA scan)."""
+        x, new = _recurrent(self.mixer, self.ln, x,
+                            None if cache is None else S.SLstmState(*cache), self.eps, self.eps)
+        if cache is not None:
+            _copy_state(cache, new)
+        return x
 
 
 def mamba_dims(cfg: ArchConfig) -> S.Mamba2Dims:
@@ -339,7 +439,7 @@ class Mamba2Block(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.eps, self.chunk = cfg.norm_eps, cfg.gla_chunk
-        self.ln = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.dtype))
+        self.ln = _norm_gain(cfg)
         self.mixer = S.Mamba2(mamba_dims(cfg), cfg.dtype)
 
     @torch.no_grad()
@@ -349,9 +449,9 @@ class Mamba2Block(nn.Module):
 
     def forward(self, x, cache=None, gla_impl: str = "auto") -> torch.Tensor:
         """``cache``: this layer's (h, conv_x, conv_bc) slices of a
-        :class:`ZambaCache`, read as the state and overwritten with the new
-        one; None runs from zeros. A one-token ``x`` with a cache takes the
-        recurrent decode step."""
+        :class:`ZambaCache` or :class:`Mamba2Cache`, read as the state and
+        overwritten with the new one; None runs from zeros. A one-token
+        ``x`` with a cache takes the recurrent decode step."""
         inner = L.rms_norm(x, self.ln, self.eps)
         if cache is None:
             return x + self.mixer(inner, chunk=self.chunk, eps=self.eps, gla_impl=gla_impl)[0]
@@ -363,8 +463,7 @@ class Mamba2Block(nn.Module):
         else:
             y, (h_new, (cx_new, cbc_new)) = self.mixer(inner, h, (cx, cbc), self.chunk,
                                                        self.eps, gla_impl)
-        for dst, src in zip(cache, (h_new, cx_new, cbc_new)):
-            dst.copy_(src)
+        _copy_state(cache, (h_new, cx_new, cbc_new))
         return x + y
 
 
@@ -398,44 +497,42 @@ class ZambaSuper(nn.Module):
 
 
 _BLOCKS = {"dense": DenseBlock, "moe": MoeBlock, "zamba_super": ZambaSuper,
-           "xlstm_pair": XLstmPair, "dec": DecBlock}
+           "xlstm_pair": XLstmPair, "dec": DecBlock, "enc": EncBlock, "mamba2": Mamba2Block,
+           "mlstm": MLstmBlock, "slstm": SLstmBlock}
+# the stages whose blocks attend over a KV cache (a [B] decode position
+# becomes each row's indices and mask over it)
+_CACHED_ATTENTION = ("dense", "moe", "dec", "zamba_super")
 
 
 class Transformer(nn.Module):
-    """The LM: embedding, the stage's blocks (one of :data:`_BLOCKS`), for
-    ``zamba_super`` the shared attention block ``shared_attn``, with
-    ``encoder_layers`` the :class:`Encoder` ``encoder``, final norm and LM
-    head over the padded vocabulary. ``attn_impl`` selects the attention
-    route (see :mod:`repro_torch.models.layers`), ``gla_impl`` the GLA
-    route (see :mod:`repro_torch.models.ssm`)."""
+    """The LM: embedding, the program's blocks (each of :data:`_BLOCKS`),
+    stage after stage, for a ``zamba_super`` stage the shared attention
+    block ``shared_attn``, with ``encoder_layers`` the :class:`Encoder`
+    ``encoder``, final norm and LM head over the padded vocabulary.
+    ``attn_impl`` selects the attention route (see
+    :mod:`repro_torch.models.layers`), ``gla_impl`` the GLA route (see
+    :mod:`repro_torch.models.ssm`)."""
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "auto", gla_impl: str = "auto"):
         super().__init__()
-        program = cfg.block_program()
+        program = tuple(cfg.block_program())
         for btype, _ in program:
             if btype not in _BLOCKS:
-                raise NotImplementedError(
-                    f"block type {btype!r} is not ported to PyTorch yet "
-                    "(ROADMAP Queue 1 item 12c)"
-                )
-        if len({btype for btype, _ in program}) != 1:
-            raise NotImplementedError(
-                f"a program of mixed block types {program} is not ported to PyTorch "
-                "yet (ROADMAP Queue 1 item 12c)"
-            )
+                raise ValueError(f"unknown block type {btype}")
         if attn_impl not in L.ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {L.ATTN_IMPLS}, got {attn_impl!r}")
         if gla_impl not in S.GLA_IMPLS:
             raise ValueError(f"gla_impl must be one of {S.GLA_IMPLS}, got {gla_impl!r}")
         self.config = cfg
-        self.block_type = program[0][0]
+        self.program = program
         self.attn_impl = attn_impl
         self.gla_impl = gla_impl
         vp, d = cfg.padded_vocab, cfg.d_model
         self.embed = nn.Embedding(vp, d, dtype=cfg.dtype)
-        n_blocks = sum(count for _, count in program)
-        self.blocks = nn.ModuleList(_BLOCKS[self.block_type](cfg) for _ in range(n_blocks))
-        self.shared_attn = DenseBlock(cfg) if self.block_type == "zamba_super" else None
+        self.blocks = nn.ModuleList(_BLOCKS[btype](cfg) for btype, count in program
+                                    for _ in range(count))
+        shared = any(btype == "zamba_super" for btype, _ in program)
+        self.shared_attn = DenseBlock(cfg) if shared else None
         self.encoder = Encoder(cfg) if cfg.encoder_layers else None
         self.final_norm = nn.Parameter(torch.ones(d, dtype=cfg.dtype))
         self.lm_head = nn.Linear(d, vp, bias=False, dtype=cfg.dtype)
@@ -443,6 +540,16 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
+
+    @property
+    def stages(self) -> Tuple[Tuple[str, nn.ModuleList], ...]:
+        """Each stage of the program: its block type and its blocks, a
+        ``ModuleList`` over :attr:`blocks`' slice."""
+        out, start = [], 0
+        for btype, count in self.program:
+            out.append((btype, self.blocks[start:start + count]))
+            start += count
+        return tuple(out)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
@@ -496,30 +603,43 @@ class Transformer(nn.Module):
         return self.encoder(encoder_frames, self.attn_impl)
 
     def _run(self, x, positions, cache: Optional[Cache] = None,
-             cache_pos: Union[int, torch.Tensor, L.RowOffsets] = 0,
+             cache_pos: Union[int, torch.Tensor] = 0,
              memory: Optional[torch.Tensor] = None):
-        """(x after every block, the sum of the MoE layers' aux losses, a
-        f32 scalar)."""
+        """(x after every stage, the sum of the MoE layers' aux losses, a
+        f32 scalar). A ``[B]`` ``cache_pos`` becomes each attention stage's
+        row indices and mask over its cache, once a stage."""
         aux = torch.zeros((), device=x.device)
         remat = self.config.remat and cache is None
-        for i, block in enumerate(self.blocks):
-            if self.block_type == "zamba_super":
-                x = block(x, positions, self.shared_attn, self._super_cache(cache, i),
-                          cache_pos, self.attn_impl, self.gla_impl)
-                continue
-            layer_cache = None if cache is None else tuple(f[i] for f in cache)
-            if self.block_type == "dense":
-                x = _remat(remat, block, x, positions, layer_cache, cache_pos, self.attn_impl)
-            elif self.block_type == "moe":
-                x, a = _remat(remat, block, x, positions, layer_cache, cache_pos,
-                              self.attn_impl)
-                aux = aux + a
-            elif self.block_type == "dec":
-                x = _remat(remat, block, x, positions, memory, layer_cache, cache_pos,
-                           self.attn_impl)
-            else:
-                x = _remat(remat, block, x, layer_cache, self.gla_impl)
+        caches = (None,) * len(self.program) if cache is None else self.stage_caches(cache)
+        for (btype, blocks), c in zip(self.stages, caches):
+            pos = cache_pos
+            if torch.is_tensor(pos) and btype in _CACHED_ATTENTION:
+                pos = L.row_offsets(pos, x.shape[1], c.k.shape[2])
+            for i, block in enumerate(blocks):
+                if btype == "zamba_super":
+                    x = block(x, positions, self.shared_attn, self._super_cache(c, i), pos,
+                              self.attn_impl, self.gla_impl)
+                    continue
+                layer_cache = None if c is None else tuple(f[i] for f in c)
+                if btype == "dense":
+                    x = _remat(remat, block, x, positions, layer_cache, pos, self.attn_impl)
+                elif btype == "moe":
+                    x, a = _remat(remat, block, x, positions, layer_cache, pos,
+                                  self.attn_impl)
+                    aux = aux + a
+                elif btype == "dec":
+                    x = _remat(remat, block, x, positions, memory, layer_cache, pos,
+                               self.attn_impl)
+                elif btype == "enc":
+                    x = _remat(remat, block, x, positions, self.attn_impl)
+                else:
+                    x = _remat(remat, block, x, layer_cache, self.gla_impl)
         return x, aux
+
+    def stage_caches(self, cache: Cache) -> Tuple[Optional[StageCache], ...]:
+        """``cache`` as a tuple parallel to the program: a one-stage
+        program's cache is its stage's."""
+        return (cache,) if len(self.program) == 1 else tuple(cache)
 
     def _super_cache(self, cache: Optional[ZambaCache], i: int):
         """Super-block i's slices of a :class:`ZambaCache`: its M Mamba-2
@@ -571,32 +691,46 @@ class Transformer(nn.Module):
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
         """Zeros (the sLSTM's ``m`` at -10, the reference's zero state);
         ``cache_len`` sizes the KV cache and is not read by recurrent blocks;
-        a ``dec`` cache's cross keys and values span ``encoder_seq``."""
-        cfg, dev, n = self.config, self.device, len(self.blocks)
+        a ``dec`` cache's cross keys and values span ``encoder_seq``. One
+        stage's cache, or a tuple of them parallel to the program."""
+        caches = tuple(self._stage_cache(btype, count, batch_size, cache_len)
+                       for btype, count in self.program)
+        return caches[0] if len(caches) == 1 else caches
+
+    def _stage_cache(self, btype: str, n: int, batch_size: int, cache_len: int
+                     ) -> Optional[StageCache]:
+        """The zero cache of a stage of ``n`` blocks of ``btype`` (the
+        reference's ``block_cache`` stacked ``n`` times)."""
+        cfg, dev = self.config, self.device
         kv = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.hd)
-        if self.block_type in ("dense", "moe"):
-            return KVCache(torch.zeros(kv, dtype=cfg.dtype, device=dev),
-                           torch.zeros(kv, dtype=cfg.dtype, device=dev))
-        if self.block_type == "dec":
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        if btype in ("dense", "moe"):
+            return KVCache(zeros(*kv, dtype=cfg.dtype), zeros(*kv, dtype=cfg.dtype))
+        if btype == "dec":
             cross = (n, batch_size, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
-            return EncDecCache(*(torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            return EncDecCache(*(zeros(*shape, dtype=cfg.dtype)
                                  for shape in (kv, kv, cross, cross)))
-        if self.block_type == "zamba_super":
+        if btype in ("zamba_super", "mamba2"):
             hs, (cxs, cbcs) = S.mamba2_state_shape(mamba_dims(cfg), batch_size)
+            if btype == "mamba2":
+                return Mamba2Cache(*(zeros(n, *shape) for shape in (hs, cxs, cbcs)))
             layers = n * cfg.mamba_per_super
-            return ZambaCache(*(torch.zeros((layers, *shape), dtype=torch.float32, device=dev)
-                                for shape in (hs, cxs, cbcs)),
-                              torch.zeros(kv, dtype=cfg.dtype, device=dev),
-                              torch.zeros(kv, dtype=cfg.dtype, device=dev))
-        hs, ns = S.mlstm_state_shape(self.blocks[0].mlstm.dims, batch_size)
-        di = self.blocks[0].slstm.dims.d_inner
-
-        def zeros(*shape):
-            return torch.zeros((n, *shape), dtype=torch.float32, device=dev)
-
-        return XLstmCache(zeros(*hs), zeros(*ns), zeros(batch_size, di),
-                          zeros(batch_size, di), zeros(batch_size, di) - 10.0,
-                          zeros(batch_size, di))
+            return ZambaCache(*(zeros(layers, *shape) for shape in (hs, cxs, cbcs)),
+                              zeros(*kv, dtype=cfg.dtype), zeros(*kv, dtype=cfg.dtype))
+        if btype == "enc":
+            return None
+        hs, ns = S.mlstm_state_shape(_mlstm_dims(cfg), batch_size)
+        di = _slstm_dims(cfg).d_inner
+        slstm = (zeros(n, batch_size, di), zeros(n, batch_size, di),
+                 zeros(n, batch_size, di) - 10.0, zeros(n, batch_size, di))
+        if btype == "mlstm":
+            return MLstmCache(zeros(n, *hs), zeros(n, *ns))
+        if btype == "slstm":
+            return SLstmCache(*slstm)
+        return XLstmCache(zeros(n, *hs), zeros(n, *ns), *slstm)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
@@ -626,10 +760,8 @@ class Transformer(nn.Module):
         Tokens only: the image embeds and the encoder's memory entered at
         the prefill (the cross keys and values are read from the cache)."""
         x = self._embed(tokens)
-        if torch.is_tensor(pos):
+        if torch.is_tensor(pos):  # each attention stage's indices and mask (_run)
             positions = pos[:, None]
-            if self.block_type != "xlstm_pair":  # every attention's indices and mask
-                pos = L.row_offsets(pos, 1, cache.k.shape[2])
         else:
             positions = torch.arange(pos, pos + 1, device=x.device)
             pos = int(pos)

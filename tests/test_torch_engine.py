@@ -214,20 +214,17 @@ def test_convert_rejects_incomplete_or_mistyped_arrays():
     "label,kw",
     [
         ("EASY RL:groups", {"grouped_tables": True, "devices": 2}),
-        ("EASY PSUS+DVFS", {"grouped_tables": True, "fused_events": False}),
         ("FCFS PSAS+IPM+Forecast", {"node_order": "pack", "devices": "all"}),
         ("EASY PSUS", {"devices": 1}),
         ("EASY PSUS", {"devices": 2}),
-        ("EASY PSUS", {"fused_events": False}),
         ("EASY RL", {"devices": 1}),
-        ("EASY DVFS", {"fused_events": False}),
         ("EASY PSUS+Forecast", {"devices": 4}),
     ],
 )
 def test_unported_configs_raise(label, kw):
-    """Sharded sweeps (``devices``) and the legacy loop are not ported; rules
-    8-10 are (each label here runs without its option,
-    ``test_torch_rules.py``)."""
+    """Sharded sweeps (``devices``) are not ported; rules 8-10 are (each
+    label here runs without its option, ``test_torch_rules.py``), and so is
+    the legacy loop (``test_torch_legacy_loop.py``)."""
     tp = tplat.PlatformSpec(nb_nodes=8)
     tw = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=5, nb_res=8))
     _, tc = _configs(label, **kw)

@@ -472,8 +472,6 @@ def test_devices_argument_beyond_one_names_item_8b_and_all_is_one_here():
     wl = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=8, nb_res=8, seed=0))
     with pytest.raises(NotImplementedError, match="devices=3 .*item 8b"):
         sweep.sweep(plat, wl, [60], EngineConfig(), devices=3, device=CPU)
-    with pytest.raises(NotImplementedError, match="fused_events=False"):
-        sweep.sweep(plat, wl, [60], EngineConfig(fused_events=False), device=CPU)
     assert sweep.sweep(plat, wl, [60], EngineConfig(), devices="all",
                        device=CPU).devices == 1
 
