@@ -9,7 +9,7 @@ Phases (each prints a line; any failed check exits non-zero):
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), with the build seconds and
    the ptxas register, shared-memory and spill lines of every kernel
-   variant (each event kernel, the 16 SIMT and 2 wgmma flash kernels, the
+   variant (each event kernel, the 16 SIMT and 3 wgmma flash kernels, the
    6 ``ssd_scan`` pass kernels);
 3. kernels: each event kernel against its plain PyTorch version on the
    card, bit for bit, at the engine's shapes and more (rows that start off a
@@ -24,14 +24,16 @@ Phases (each prints a line; any failed check exits non-zero):
    ``flash_attention``
    against its plain version at the serve path's prefill shape in bf16 and
    f32 and at MQA, Sq > Sk, a ragged KV tail, non-causal Sk > Sq, a ragged
-   Sq and head dims 64 and 16 (f32 atol and rtol 2e-5, bf16 3e-2), each
-   call on the variant that ``flash_attention.variant`` names (bf16 hd 64
-   and 128 on the wgmma kernel, the rest on the SIMT kernel); the device
-   time of each (``torch.profiler``: the kernels' own durations), the host
-   time per call and the card's bound for the same work; for flash
-   attention at the prefill shape in bf16, in turns in one call, the SIMT
-   kernel, the wgmma kernel, the wgmma kernel and the SIMT kernel on the
-   same inputs, then the plain version and
+   Sq and head dims 64 and 16, and at hd 80 at a ragged Sq with GQA, a KV
+   tail that is not a multiple of 64, non-causal Sk > Sq and GQA 4:1 (f32
+   atol and rtol 2e-5, bf16 3e-2), each call on the variant that
+   ``flash_attention.variant`` names (bf16 hd 64, 80 and 128 on the wgmma
+   kernel, the rest on the SIMT kernel); the device time of each
+   (``torch.profiler``: the kernels' own durations), the host time per call
+   and the card's bound for the same work; for flash attention at the
+   prefill shape and at hd 80 (stablelm-3b's) in bf16, in turns in one call,
+   the SIMT kernel, the wgmma kernel, the wgmma kernel and the SIMT kernel
+   on the same inputs, then the plain version and
    ``scaled_dot_product_attention``; flash attention held and timed the
    same way (the variant the table names, the plain version, SDPA, the
    bound and the host time) at phase 14's prefill shapes (``FLASH_NEW``:
@@ -79,16 +81,16 @@ Phases (each prints a line; any failed check exits non-zero):
    go through ``prefill`` by the kernel route and by the plain route, whose
    last-position logits must agree;
 9. xLSTM serve: the same loop and flags serve the full-width xlstm-350m in
-   bf16 at ``XPAIRS`` (6) of its 12 pairs — ``ssd_scan`` must have been
-   called twice per ``xlstm_pair`` per request (192, each call three
+   bf16 at ``XPAIRS`` (4) of its 12 pairs — ``ssd_scan`` must have been
+   called twice per ``xlstm_pair`` per request (128, each call three
    launches) and no other kernel; one
    ``xlstm_pair`` block at S 1024
    is timed, its mLSTM and its sLSTM are profiled, and so is one decode
-   step; then, in f32 at the same 6 pairs,
+   step; then, in f32 at the same 4 pairs,
    two 1024-token prompts go through ``prefill`` by the kernel route and
    by the plain route, whose last-position logits must agree;
 10. power rules at Curie scale, grouped: EASY PSUS+Forecast (horizon
-   1800 s) on the first ``FORECAST_JOBS`` (500) of phase 6's jobs (against
+   1800 s) on the first ``FORECAST_JOBS`` (250) of phase 6's jobs (against
    phase 6's configuration on them), and EASY PSUS+DVFS on the DVFS
    platform at 11 200 nodes with phase 5's workload cut to ``DVFS_JOBS``
    (125) jobs (timeout 900 s, ``node_order=
@@ -104,7 +106,7 @@ Phases (each prints a line; any failed check exits non-zero):
    ``SWEEP_JOBS`` (500) jobs and at E = 64 on ``SWEEP_CUT_JOBS`` (250) — one
    ``event_fuse_ledger`` launch per loop iteration for the grid, at most
    two host syncs an iteration; (e) the
-   grouped E = 8 grid (timeouts 600-2400) on the first 500 of phase 6's
+   grouped E = 8 grid (timeouts 600-2400) on the first 250 of phase 6's
    jobs with ``OPTIONS`` (``node_order="pack"``, ``allocation=
    "partition"``, ``merge_bursts``) — one ``event_fuse_occ`` launch an
    iteration; (f) a dense E = 4 grid (the two schedulers x 600 and 1800 s)
@@ -146,13 +148,12 @@ Phases (each prints a line; any failed check exits non-zero):
    Figs. 4/5 grid (the ``nasa_ipsc`` preset at 400 jobs on its 128 nodes,
    the six timeout schedulers x 300/900/1800/3600 s, E = 24) through
    ``experiments.run`` with ``out`` set — one ``event_fuse_ledger`` launch
-   an iteration and no other kernel, at most two host syncs an iteration, a
-   rerun streamed in two 12-scenario chunks with a valid ``metrics.json``
-   after each, writing the blocking run's ``metrics.json`` and ``rows.csv``
-   bytes, the four rows the oracle holds equal to their single runs bit for
-   bit and to the oracle (schedule exact, energy rel 1e-5; the oracle runs
-   in the worker processes; the single runs of the other two schedulers
-   are cut for time); (b) ``benchmarks/bench_forecast.py``'s
+   an iteration and no other kernel, at most two host syncs an iteration,
+   the four rows the oracle holds equal to their single runs bit for bit
+   and to the oracle (schedule exact, energy rel 1e-5; the oracle runs in
+   the worker processes; the single runs of the other two schedulers and
+   a streamed rerun are cut for time: (c) streams chunks through the
+   service); (b) ``benchmarks/bench_forecast.py``'s
    grid (EASY PSUS, EASY PSUS+Forecast, EASY RL:groups x timeout 1800 x
    forecasts 0 and 1800 on ``curie_platform(280)``, the first 200 jobs of a
    2000-line synthesized Curie SWF, ``node_order="cheap"``, a random-init
@@ -174,8 +175,8 @@ Phases (each prints a line; any failed check exits non-zero):
    0; 8 requests of 1024 tokens, 4 slots, 32 new tokens, cache 1280; zero
    image embeds and encoder frames, as the reference's loop), one model at
    a time — each must launch flash attention once per attention per
-   request, all on the variant ``ARCHS14`` names (320 wgmma, 256 SIMT, 320
-   wgmma, 72 SIMT: 9 shared-attention applications, 192 wgmma, 192 wgmma,
+   request, all on the variant ``ARCHS14`` names (320 wgmma, 256 wgmma, 320
+   wgmma, 72 wgmma: 9 shared-attention applications, 192 wgmma, 192 wgmma,
    96 wgmma: 4 encoder, 4 self and 4 cross attentions), zamba2 ``ssd_scan``
    once per Mamba-2 layer per request (432), the others none, no event
    kernel; the refilled requests 4 and 7 are held against their own decode
@@ -216,7 +217,7 @@ Phases (each prints a line; any failed check exits non-zero):
    ``stages=MIXED16`` (6 Mamba-2 layers, then 2 dense ones) served in bf16
    (seed-0 weights; 6 requests of 1024 tokens on 4 slots, 16 new tokens,
    cache 1056, per-slot positions) — ``ssd_scan`` once per Mamba-2 layer
-   and the SIMT flash kernel once per dense layer per request (36, 12), the
+   and the wgmma flash kernel once per dense layer per request (36, 12), the
    refilled requests 4 and 5 against their own decode at the serve's batch
    shape (4 rows) — and ``MIXED16_F32`` in f32 on the kernel routes against
    the plain routes (last-position logits within ``LOGITS_REL_TOL``, the
@@ -283,10 +284,10 @@ ARCH = "internlm2-1.8b"
 FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
 # phase 14's prefill shapes: glm4-9b's GQA 16:1 and qwen3-14b's 5:1 (wgmma
 # in bf16), head dim 80 (stablelm-3b, and zamba2-2.7b's shared attention;
-# the SIMT kernel), qwen2-moe-a2.7b's MHA and internvl2-26b's 6:1 (wgmma),
-# and whisper-tiny's causal decoder self attention, unmasked encoder
-# (Sq = Sk = 1500) and cross attention (Sq 1024 over the 1500 frames) at
-# hd 64 (wgmma; 1500 = 23 x 64 + 28)
+# wgmma in bf16, SIMT in f32), qwen2-moe-a2.7b's MHA and internvl2-26b's
+# 6:1 (wgmma), and whisper-tiny's causal decoder self attention, unmasked
+# encoder (Sq = Sk = 1500) and cross attention (Sq 1024 over the 1500
+# frames) at hd 64 (wgmma; 1500 = 23 x 64 + 28)
 FLASH_NEW = {
     "glm4-9b": (1, 1024, 1024, 32, 2, 128, True),
     "qwen3-14b": (1, 1024, 1024, 40, 8, 128, True),
@@ -307,15 +308,21 @@ FLASH_SHAPES = [
     (1, 100, 100, 2, 2, 64, True),     # ragged Sq
     (1, 64, 64, 4, 2, 16, True),       # hd 16
     (2, 256, 256, 4, 2, 64, True),
+    (1, 100, 100, 4, 2, 80, True),     # hd 80: ragged Sq, GQA
+    (1, 128, 200, 4, 4, 80, True),     # hd 80: KV tail not a tile multiple
+    (2, 96, 320, 4, 4, 80, False),     # hd 80: non-causal, Sk > Sq
+    (1, 256, 256, 8, 2, 80, True),     # hd 80: GQA 4:1
 ]
+FLASH_HD80 = FLASH_NEW["hd 80"]  # timed in turns on both kernels, as FLASH_MAIN
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # atol and rtol, as the tests
 SERVE_ARGS = ["--arch", ARCH, "--requests", "16", "--slots", "4",
               "--prompt-len", "1024", "--max-new", "32", "--cache-len", "1280",
               "--device", "cuda", "--per-slot-positions"]
 XARCH = "xlstm-350m"
 XSERVE_ARGS = ["--arch", XARCH] + SERVE_ARGS[2:]
-# phase 9 serves and checks the xLSTM at full width and 6 of its 12 pairs
-XPAIRS = 6
+# phase 9 serves and checks the xLSTM at full width and 4 of its 12 pairs
+# (a cut for time)
+XPAIRS = 4
 # phase 14: the dense, hybrid, MoE, VLM and encoder-decoder archs at full
 # width, 8 requests of 1024 tokens on 4 slots (requests 4-7 each refill a
 # freed slot); per arch the flash launches of the serve (one per attention
@@ -327,9 +334,9 @@ XPAIRS = 6
 INTERNVL_LAYERS = 24  # a cut for time: internvl2-26b serves 24 of its 48 layers
 ARCHS14 = {
     "glm4-9b": (320, "wgmma", 0, 2, None),
-    "stablelm-3b": (256, "simt", 0, 2, None),
+    "stablelm-3b": (256, "wgmma", 0, 2, None),
     "qwen3-14b": (320, "wgmma", 0, 2, None),
-    "zamba2-2.7b": (72, "simt", 432, 6, None),
+    "zamba2-2.7b": (72, "wgmma", 432, 6, None),
     "qwen2-moe-a2.7b": (192, "wgmma", 0, 2, None),
     "internvl2-26b": (192, "wgmma", 0, 2, INTERNVL_LAYERS),
     "whisper-tiny": (96, "wgmma", 0, 2, None),
@@ -433,13 +440,13 @@ LABELS = [
     for psm in ("PSUS", "PSAS", "PSAS+IPM")
 ] + ["EASY AlwaysOn"]
 # depth cuts that keep the script inside its time: phase 10's Forecast run
-# and phase 11's grids replay the first 500 jobs, not 1000, and phase 10's
-# DVFS run takes phase 5's workload cut to 125 jobs
-FORECAST_JOBS = 500
+# replays the first 250 jobs, not 1000, phase 11's grids the first 500, and
+# phase 10's DVFS run takes phase 5's workload cut to 125 jobs
+FORECAST_JOBS = 250
 SWEEP_JOBS = 500
 DVFS_JOBS = 125
-# phase 11's dense E = 64 grid replays the first 250 jobs, not 500, and its
-# plain grouped E = 8 grid is dropped, so that (e) and (f) fit
+# phase 11's dense E = 64 grid and (e) replay the first 250 jobs, not 500,
+# and its plain grouped E = 8 grid is dropped, so that (e) and (f) fit
 SWEEP_CUT_JOBS = 250
 # phase 11 (e) and (f): the engine options a grid runs with
 OPTIONS = dict(node_order="pack", allocation="partition", merge_bursts=True)
@@ -1265,7 +1272,7 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
     """Phase 11: the batched sweep at Curie scale. Dense grids at E = 8 on
     phase 5's inputs cut to their first ``max_jobs`` jobs and at E = 64 on
     ``cut_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
-    ``max_jobs`` with ``OPTIONS`` (pack, partition, burst merging); (f) a
+    ``cut_jobs`` with ``OPTIONS`` (pack, partition, burst merging); (f) a
     dense E = 4 grid with ``OPTIONS`` on phase 4's 280-node Curie platform
     and trace (``GROUPED_JOBS`` jobs).
     Each checked row is held bit for bit against a single run of its
@@ -1295,7 +1302,7 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
     base, pol = from_label("EASY PSUS")
     dense_cfg = EngineConfig(base=base, policy=pol, timeout=1800)
     g_plat = curie_platform(nodes)
-    g_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=max_jobs)
+    g_wl = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=cut_jobs)
     e_cfg = EngineConfig(base=base, policy=pol, timeout=1800, grouped_tables=True,
                          **OPTIONS)
     # (f): phase 4's grouped platform and trace, on the dense route
@@ -1848,8 +1855,8 @@ def sweep_iterations():
 
 def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
     """Phase 13: the experiment layer and the service on ``dev``. (a) the
-    Figs. 4/5 grid through ``experiments.run`` (blocking, then a streamed
-    rerun), rows held against single runs and the oracle; (b)
+    Figs. 4/5 grid through ``experiments.run``, rows held against single
+    runs and the oracle; (b)
     ``bench_forecast.py``'s grid on grouped tables with a checkpointed
     RL:groups controller, every row against its single run; (c) five
     requests to one ``SimService``, the Curie grid's rows against phase 11's
@@ -1897,34 +1904,14 @@ def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
               f"phase 13 {part}: {engine.HOST_SYNCS} host syncs for {n} iterations")
         return out, wall, n, engine.HOST_SYNCS
 
-    def files(out):
-        return {n: open(os.path.join(out, n), "rb").read()
-                for n in ("metrics.json", "rows.csv")}
-
     # ---- (a) the Figs. 4/5 grid ----
     out_a = os.path.join(tmp, "fig45")
     exp = fig45_experiment(out=out_a)
     res, wall_a, iters_a, syncs_a = counted(
         "a", lambda: experiments.run(exp, device=dev), "event_fuse_ledger")
-    golden = files(out_a)
     check(len(res.rows) == 24 and res.n_compiles is None
           and not any(r.get("truncated") for r in res.rows),
           f"phase 13 (a): {len(res.rows)} rows")
-    # the rerun of the spec is streamed: its final files must be the
-    # blocking run's bytes
-    t0 = time.perf_counter()
-    sr = experiments.run(exp, stream=True, chunk_scenarios=12, device=dev)
-    seen, sizes = [], []
-    for rows in sr:
-        seen.extend(rows)
-        sizes.append(len(rows))
-        with open(os.path.join(out_a, "metrics.json")) as f:
-            check(json.load(f)["rows"] == seen,
-                  f"phase 13 (a): metrics.json after chunk {len(sizes)} != the rows so far")
-    wall_stream = time.perf_counter() - t0
-    check(sizes == [12, 12] and tuple(seen) == res.rows
-          and tuple(sr.result.rows) == res.rows and files(out_a) == golden,
-          f"phase 13 (a): the streamed rerun's chunks {sizes} or its final bytes differ")
     plat_a = experiments.resolve_platform(exp.platform)
     wl_a = experiments.resolve_workload(exp.workload)
     by_row = {(r["scheduler"], r["timeout"]): r for r in res.rows}
@@ -1953,9 +1940,8 @@ def phase13(torch, np, tmp, fig45_oracles, e8_rows, dev="cuda"):
           f"{wall_a:.2f} s, {wall_a / 24:.3f} s a scenario; "
           f"iterations {iters_a}, {1e6 * wall_a / iters_a:.1f} us an iteration; "
           f"event_fuse_ledger launches {iters_a}, host syncs {syncs_a} "
-          f"({syncs_a / iters_a:.3f} an iteration); the streamed rerun (chunks "
-          f"{sizes}, {wall_stream:.2f} s, a valid metrics.json after each) wrote the "
-          f"same bytes; the {len(singles)} oracle rows == their single runs "
+          f"({syncs_a / iters_a:.3f} an iteration); the {len(singles)} oracle rows == "
+          f"their single runs "
           f"({singles_wall:.2f} s for {len(singles)}) and the oracle's schedule (energy rel "
           f"{worst:.2e})", flush=True)
 
@@ -2614,9 +2600,9 @@ def phase16(torch, np, fused_runs, swf, dev="cuda"):
     cfg = get_arch("zamba2-2.7b").replace(stages=MIXED16)
     n_req = flag(MIXED16_ARGS, "--requests")
     route = fa.variant(cfg.dtype, cfg.hd)
-    check(route == "simt", f"phase 16 (a): flash_attention.variant names {route}")
-    want = {"flash_attention": 2 * n_req, "flash_attention_simt": 2 * n_req,
-            "ssd_scan": 6 * n_req}
+    check(route == "wgmma", f"phase 16 (a): flash_attention.variant names {route}")
+    want = {"flash_attention": 2 * n_req, "flash_attention_wgmma": 2 * n_req,
+            "flash_attention_simt": 0, "ssd_scan": 6 * n_req}
     out["mixed"], _, text = serve_program(torch, np, cfg, MIXED16_ARGS, want,
                                           "phase 16 (a)", REFILLED16, dev)
     f32 = kernel_vs_plain_f32(torch, np, cfg, MIXED16_F32,
@@ -2863,8 +2849,8 @@ def main() -> None:
         for line in report[kname]:
             print(f"  ptxas {kname}: {line}")
     flash_report = instance_ptxas(_build.build_log("flash_attention"), flash_label)
-    check(len(flash_report) == 18 and all(flash_report.values()),
-          f"ptxas reported {sorted(flash_report)} for flash_attention (16 SIMT and 2 "
+    check(len(flash_report) == 19 and all(flash_report.values()),
+          f"ptxas reported {sorted(flash_report)} for flash_attention (16 SIMT and 3 "
           "wgmma instantiations expected)")
     for inst, lines in sorted(flash_report.items()):
         print(f"  ptxas flash_attention {inst}: {'; '.join(lines)}")
@@ -2990,9 +2976,6 @@ def main() -> None:
     def flash_kernel(q, k, v):
         return fa.flash_attention(q, k, v, causal=True)
 
-    def flash_simt(q, k, v):  # the SIMT kernel, whatever the table routes
-        return fa.launch_variant("simt", q, k, v, causal=True)
-
     def flash_plain(q, k, v):
         return fa.flash_attention_plain(q, k, v, causal=True)
 
@@ -3008,16 +2991,31 @@ def main() -> None:
               f"{fn.__name__} ran {ops} device ops a call: {list(names)}")
         return ms, seen
 
+    def in_turns(args, causal=True):
+        """Device ms of the wgmma kernel (the route the table names) and the
+        SIMT kernel on the same bf16 inputs, in turns: SIMT, wgmma, wgmma,
+        SIMT. Returns (wgmma ms, SIMT ms, the turns)."""
+        def flash_wgmma(q, k, v):
+            return fa.flash_attention(q, k, v, causal=causal)
+
+        def flash_simt(q, k, v):  # the SIMT kernel, whatever the table routes
+            return fa.launch_variant("simt", q, k, v, causal=causal)
+
+        check(fa.variant(args[0].dtype, args[0].shape[3]) == "wgmma",
+              f"flash_attention: the table does not name wgmma at {tuple(args[0].shape)}")
+        turns = [(route, one_kernel(fn, args, kname)) for route, fn, kname in (
+            ("simt", flash_simt, "flash_attention_kernel"),
+            ("wgmma", flash_wgmma, "flash_attention_wgmma_kernel"),
+            ("wgmma", flash_wgmma, "flash_attention_wgmma_kernel"),
+            ("simt", flash_simt, "flash_attention_kernel"))]
+        return (statistics.fmean(t[0] for r, t in turns if r == "wgmma"),
+                statistics.fmean(t[0] for r, t in turns if r == "simt"), turns)
+
     # bf16 at the prefill shape, in turns: SIMT, wgmma, wgmma, SIMT
     args = flash_inputs(torch, np, FLASH_MAIN, torch.bfloat16)
-    turns = [(route, one_kernel(fn, args, kname)) for route, fn, kname in (
-        ("simt", flash_simt, "flash_attention_kernel"),
-        ("wgmma", flash_kernel, "flash_attention_wgmma_kernel"),
-        ("wgmma", flash_kernel, "flash_attention_wgmma_kernel"),
-        ("simt", flash_simt, "flash_attention_kernel"))]
-    w_ms = statistics.fmean(t[0] for r, t in turns if r == "wgmma")
-    s_ms = statistics.fmean(t[0] for r, t in turns if r == "simt")
-    simt_err = float((flash_simt(*args).float() - flash_plain(*args).float()).abs().max())
+    w_ms, s_ms, turns = in_turns(args)
+    simt_err = float((fa.launch_variant("simt", *args, causal=True).float()
+                      - flash_plain(*args).float()).abs().max())
     p_ms, p_ops, _, p_seen = device_ms(torch, flash_plain, args, calls=50)
     l_ms, l_ops, l_names, l_seen = device_ms(torch, sdpa, args, calls=100)
     l_err = float((sdpa(*args).float() - flash_plain(*args).float()).abs().max())
@@ -3075,7 +3073,24 @@ def main() -> None:
             route = fa.variant(args[0].dtype, shape[5])
             kname = ("flash_attention_wgmma_kernel" if route == "wgmma"
                      else "flash_attention_kernel")
-            k_ms, k_seen = one_kernel(new_kernel, args, kname)
+            turns_text, extra = "", {}
+            if shape == FLASH_HD80 and dname == "bfloat16":  # both kernels, in turns
+                k_ms, s_ms, turns = in_turns(args, causal)
+                k_seen = min(t[1] for _, t in turns)
+                simt_out = fa.launch_variant("simt", *args, causal=causal).float()
+                plain_out = new_plain(*args).float()
+                s_err = float((simt_out - plain_out).abs().max())
+                check(torch.allclose(simt_out, plain_out, atol=FLASH_TOL[dname],
+                                     rtol=FLASH_TOL[dname]),
+                      f"flash_attention SIMT == plain at {shape} {dname}: max abs err {s_err}")
+                extra = {"simt_ms": s_ms, "turns_ms": [[r, t[0]] for r, t in turns],
+                         "simt_max_abs_err": s_err}
+                turns_text = (" (in turns: " + ", ".join(
+                    f"{r} {1e3 * t[0]:.3f} us" for r, t in turns)
+                    + f"; SIMT / wgmma {s_ms / k_ms:.1f}x; SIMT on these inputs == plain "
+                    f"to {s_err:.3g})")
+            else:
+                k_ms, k_seen = one_kernel(new_kernel, args, kname)
             p_ms, p_ops, _, p_seen = device_ms(torch, new_plain, args, calls=20)
             l_ms, l_ops, _, l_seen = device_ms(torch, new_sdpa, args, calls=100)
             k_host = host_ms(torch, new_kernel, args)
@@ -3083,10 +3098,10 @@ def main() -> None:
             flash_new[f"{label} {dname}"] = {
                 "shape": list(shape[:6]), "causal": causal, "variant": route, "ms": k_ms,
                 "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "host_ms": k_host}
+                "host_ms": k_host, **extra}
             print(f"phase 3 kernels: flash_attention {label} {dname} (B, Sq, Sk, H, KH, hd) "
                   f"{shape[:6]} {'causal' if causal else 'unmasked'}: device time {route} "
-                  f"kernel {1e3 * k_ms:.3f} us, plain "
+                  f"kernel {1e3 * k_ms:.3f} us{turns_text}, plain "
                   f"{1e3 * p_ms:.3f} us ({p_ops} device ops), scaled_dot_product_attention "
                   f"{1e3 * l_ms:.3f} us ({l_ops} device ops; kernel / SDPA "
                   f"{k_ms / l_ms:.2f}); bound {1e3 * b_ms:.3f} us ({b_by}), kernel at "
@@ -3839,11 +3854,21 @@ def main() -> None:
                 "phase 16 mixed": p16["mixed"]["flash_attention"],
                 "phase 16 recurrent stages": p16["recurrent"]["flash_attention"],
             },
+            "launches_by_path_variant": {
+                path: {r: got[f"flash_attention_{r}"] for r in ("wgmma", "simt")}
+                for path, got in (
+                    (f"phase 8 {ARCH}", flash_routes),
+                    *((f"phase 14 {a}", got) for a, got in lm_by_arch.items()),
+                    ("phase 16 mixed", p16["mixed"]),
+                    ("phase 16 recurrent stages", p16["recurrent"]))
+            },
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "
                     "launch), simt_ms the SIMT kernel on the same inputs, ms_f32 the "
                     "SIMT kernel in f32; by_shape: phase 14's prefill shapes on the "
-                    "variant the table names (whisper's unmasked); library: "
+                    "variant the table names (whisper's unmasked; hd 80 bf16 also on "
+                    "the SIMT kernel in turns, simt_ms); launches_by_path_variant: "
+                    "each path's launches by kernel (phase 15 launches none); library: "
                     "scaled_dot_product_attention(is_causal as the shape's mask, "
                     "enable_gqa)",
         },

@@ -19,10 +19,10 @@ and both ``allocation`` scopes ("any", "partition"), with or without
 controller or left pending; DVFS; Forecast), on the fused loop or the
 legacy one (``fused_events=False``: ``next_time`` decides each batch and
 :func:`accrue_energy` re-gathers the draw, with no quiet batches and no
-event kernel, the reference's baseline loop). Sharded sweeps
-(``devices``) raise ``NotImplementedError`` naming ROADMAP item 8b
-(:func:`check_supported`). The batched sweep over a scenario axis is
-``core/sweep.py``.
+event kernel, the reference's baseline loop). ``devices`` is ignored, as
+the reference's single run ignores it; the batched sweep over a scenario
+axis is ``core/sweep.py``, and it refuses more than one device (ROADMAP
+item 8b).
 
 Loop structure and host syncs. The reference runs the whole simulation
 inside one ``lax.while_loop`` on the device. Eager PyTorch needs a host read
@@ -213,13 +213,13 @@ class GanttLog(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def check_supported(config: EngineConfig) -> None:
-    """Raise NotImplementedError for a configuration the port does not run:
-    ``devices`` (sharded sweeps), naming ROADMAP Queue 1 item 8b."""
-    if config.devices is not None:
-        raise NotImplementedError(
-            f"{config.label()!r}: devices / sharded sweeps (item 8b) not ported "
-            "to the PyTorch engine yet (ROADMAP Queue 1)"
-        )
+    """The single run takes every configuration: this check refuses none.
+
+    ``devices`` places a sweep's scenario axis and is ignored here, as the
+    reference's ``simulate`` ignores it (the field enters only its jit key).
+    The sweep, the batched RL env, the runner and the service refuse D > 1
+    themselves (``sweep.check_supported``, ROADMAP Queue 1 item 8b)."""
+    del config
 
 
 # ---------------------------------------------------------------------------

@@ -173,10 +173,10 @@ def _resolve_devices(devices, config: EngineConfig, dev: torch.device) -> Option
 def check_supported(config: EngineConfig, devices: Optional[int] = None) -> None:
     """Raise NotImplementedError for a grid structure the sweep does not run
     yet: more than one device, naming ROADMAP item 8b (``devices`` is the
-    resolved count); the single run's refusal applies too."""
+    resolved count); the single run's check applies too."""
     if devices is not None and devices > 1:
         raise _later(f"sweep({config.label()!r}): devices={devices} (sharded sweeps)")
-    engine.check_supported(dataclasses.replace(config, devices=None))
+    engine.check_supported(config)
 
 
 # ---------------------------------------------------------------------------

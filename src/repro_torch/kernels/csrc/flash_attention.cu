@@ -12,31 +12,38 @@
 // to the input type. Two kernels compute it; the wrapper's static table
 // (kernels/flash_attention.py, VARIANTS) picks one by (dtype, hd):
 //
-// flash_attention_wgmma_kernel: bf16 at hd 64 and 128 (the serve path's
-// prefill is bf16, hd 128). Bound: at that prefill (B 1, Sq = Sk = 1024,
+// flash_attention_wgmma_kernel: bf16 at hd 64, 80 and 128 (every serve
+// path's prefill: internlm2's is bf16, hd 128; stablelm-3b's and zamba2-2.7b's
+// shared attention hd 80). Bound: at internlm2's prefill (B 1, Sq = Sk = 1024,
 // H 16, KH 8, hd 128) the causal products are 4.3 GFLOP against 12.6 MB of
 // q + k + v + o, so the H100's bf16 tensor-core peak bounds the work (4.35
 // us), and the card reaches that peak only through wgmma. Design: one
 // warpgroup (128 threads) per (64 query rows, head, batch); the grid puts
 // heads first and the longest causal q tiles first, 256 blocks at the serve
-// shape, two resident per SM. The Q tile is loaded once and K/V tiles of 64
-// keys stream through a 2-stage ring, all by cp.async (16 bytes a thread,
-// issued by the warpgroup itself, zero-filled past Sq or Sk) into the
-// 128-byte-swizzled layout wgmma reads: each tile is hd / 64 slabs of
-// [64 rows][64 columns], a row 128 bytes, its 16-byte chunks XORed with the
-// row's index mod 8. S = Q K^T is 4 or 8 wgmma m64n64k16 (both operands
+// shape, two resident per SM (four at hd 80). The Q tile is loaded once and
+// K/V tiles of 64 keys stream through a 2-stage ring, all by cp.async (16
+// bytes a thread, issued by the warpgroup itself, zero-filled past Sq or Sk)
+// into the swizzled layout wgmma reads (struct Layout): at hd 64 and 128 each
+// tile is hd / 64 slabs of [64 rows][64 columns], a row 128 bytes, its
+// 16-byte chunks XORed with the row's index mod 8 (the 128-byte swizzle); at
+// hd 80, which is one 64-column slab and 16 columns over, five slabs of [64
+// rows][16 columns], a row 32 bytes, its two chunks XORed with (row / 4) mod
+// 2 (the 32-byte swizzle, whose 8 x 32-byte atom is 16 columns wide: no
+// column is padded). S = Q K^T is hd / 16 wgmma m64n64k16 (both operands
 // K-major in shared memory); the softmax runs on the f32 accumulator
 // fragment (a thread holds two rows, whose max and sum are shuffles within
 // its quad), masking only diagonal and tail tiles; tiles wholly above the
 // diagonal are never loaded. P is cast to bf16 in registers, where the
 // accumulator's layout is wgmma's A-operand layout, and O += P V is 4
 // wgmma m64n{hd}k16 with V read transposed (MN-major) from the same ring.
-// The f32 O accumulator stays in registers; the epilogue divides by l and
-// stores bf16 rows below Sq. Shared memory: 5 tiles of 64 x hd bf16 plus
-// 1 KB of alignment (81 KB at hd 128), opted into at launch.
+// The f32 O accumulator stays in registers (hd / 2 a thread); the epilogue
+// divides by l and stores bf16 rows below Sq. Shared memory: 5 tiles of 64
+// x hd bf16 plus 1 KB of alignment (81 KB at hd 128, 51 KB at hd 80), opted
+// into at launch.
 //
 // flash_attention_kernel (SIMT): f32 at every head dim, and bf16 at head
-// dims the wgmma kernel does not take (16..256 in multiples of 16). f32 stays
+// dims the wgmma kernel does not take (the other multiples of 16 up to 256;
+// a benchmark may still name it for bf16 at any of them). f32 stays
 // here because TF32 tensor cores would not hold f32's 2e-5. It does its
 // products in f32 FMAs on the CUDA cores, out of shared memory, so it is
 // bound by shared-memory loads and FMA issue (f32 bound at the prefill shape:
@@ -276,6 +283,43 @@ constexpr int kStages = 2;     // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;
 
+// The shared-memory layout of a 64-row bf16 tile at head dim HD, as wgmma
+// reads it: HD / kSlabCols slabs of [64 rows][kRowBytes], each row's 16-byte
+// chunks XORed with address bits 7.. (the hardware's swizzle, on the
+// absolute address: slabs are 1024-byte aligned).
+//   hd 64, 128: 128-byte swizzle (descriptor layout 1), slabs of 64 columns,
+//     chunk index XOR (r mod 8);
+//   hd 80: 32-byte swizzle (layout 3), atoms of 8 rows x 32 bytes, slabs of
+//     16 columns (16 divides 80; a 64-column slab would leave 16 columns in
+//     a second, mostly empty one), chunk index XOR ((r / 4) mod 2).
+// One layout serves both operand orders: Q and K are read K-major (a k16
+// step is 32 bytes of a row), V MN-major (a k16 step is 16 rows, and the
+// slabs kSlabBytes apart are the leading byte offset).
+template <int HD>
+struct Layout {
+  static constexpr int kRowBytes = HD % 64 == 0 ? 128 : 32;
+  static constexpr int kSlabCols = kRowBytes / 2;
+  static constexpr int kSlabBytes = kTile * kRowBytes;
+  static constexpr int kChunkMask = kRowBytes / 16 - 1;
+  static constexpr uint64_t kMode = kRowBytes == 128 ? 1 : 3;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;  // an 8-row group
+  static_assert(HD % kSlabCols == 0, "head dim is not a whole number of slabs");
+  static_assert(kSlabBytes % 1024 == 0, "slabs keep the swizzle's alignment");
+
+  // Byte offset of the 16-byte chunk holding (row r, columns c..c+7).
+  __device__ static __forceinline__ uint32_t offset(int r, int c) {
+    const uint32_t row = static_cast<uint32_t>(r) * kRowBytes;
+    return (c / kSlabCols) * kSlabBytes + row +
+           ((((c >> 3) & kChunkMask) ^ ((row >> 7) & kChunkMask)) << 4);
+  }
+  // Byte offset of Q K^T's k16 step kk (columns 16 kk ..) in a K-major tile.
+  __host__ __device__ static constexpr uint32_t qk_step(int kk) {
+    return (16 * kk / kSlabCols) * kSlabBytes + (16 * kk % kSlabCols) * 2;
+  }
+  // Byte offset of P V's k16 step kk (rows 16 kk ..) in an MN-major tile.
+  __host__ __device__ static constexpr uint32_t pv_step(int kk) { return 16 * kk * kRowBytes; }
+};
+
 // Shared-memory offsets (bytes from a 1024-aligned base) of the Q tile and
 // the K and V rings; each tile is 64 rows x HD bf16.
 template <int HD>
@@ -285,14 +329,8 @@ struct Smem {
   static constexpr int kK = kTileBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBytes = kV + kStages * kTileBytes + 1024;  // + alignment slack
+  static_assert(kTileBytes % 1024 == 0, "tiles keep the swizzle's alignment");
 };
-
-// Byte offset of the 16-byte chunk holding (row r, columns c..c+7) of a
-// 64-row tile: slabs of 64 columns, 128-byte rows, chunk index XOR (r mod 8)
-// (the SWIZZLE_128B layout).
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return (c >> 6) * (kTile * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4);
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -321,16 +359,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
     const int idx = tid + i * kThreads;
     const int r = idx / kChunks, c = (idx % kChunks) * 8;
     const bool ok = r < n_valid;
-    cp_async16(dst + swizzled(r, c), src + (ok ? r * row_stride + c : 0), ok);
+    cp_async16(dst + Layout<HD>::offset(r, c), src + (ok ? r * row_stride + c : 0), ok);
   }
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, each in 16-byte units.
+// wgmma shared-memory descriptor in HD's layout: start address, leading and
+// stride byte offsets, each in 16-byte units, and the swizzle mode.
+template <int HD>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (Layout<HD>::kMode << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -381,6 +420,25 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D[64 x 80] (+)= A[64 x 16] B[16 x 80], A in registers, B MN-major (read transposed)
+// in shared memory.
+__device__ __forceinline__ void mma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers, B MN-major (read transposed)
 // in shared memory.
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
@@ -412,6 +470,10 @@ __device__ __forceinline__ void mma_pv<64>(float (&o)[32], const uint32_t (&a)[4
   mma_rs_n64(o, a, db, 1);
 }
 template <>
+__device__ __forceinline__ void mma_pv<80>(float (&o)[40], const uint32_t (&a)[4], uint64_t db) {
+  mma_rs_n80(o, a, db, 1);
+}
+template <>
 __device__ __forceinline__ void mma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
   mma_rs_n128(o, a, db, 1);
 }
@@ -421,11 +483,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// Resident blocks an SM is asked for: 2 at hd 64/128 (81 KB of shared memory
+// at 128); 4 at hd 80, whose 51 KB and 40-register accumulator leave room.
+template <int HD>
+constexpr int kMinBlocks = HD == 80 ? 4 : 2;
+
 // Accumulator fragment of a 64 x N wgmma tile: thread (warp w, lane l) holds
 // rows r = 16 w + l / 4 and r + 8; element 4 j + e is row r + 8 (e / 2),
 // column 8 j + 2 (l % 4) + e % 2.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
 flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -437,6 +504,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t s_k = base + Smem<HD>::kK;
   const uint32_t s_v = base + Smem<HD>::kV;
   constexpr uint32_t kTileBytes = Smem<HD>::kTileBytes;
+  using L = Layout<HD>;
 
   const int head = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // the longest causal rows first
@@ -483,8 +551,9 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     fence_proxy_async();
     __syncthreads();
 
-    // S = Q K^T: hd / 16 steps of k16; a step advances 32 bytes inside a
-    // 128-byte row, and a slab (64 rows x 128 bytes) every 4 steps
+    // S = Q K^T: hd / 16 steps of k16; a step advances 32 bytes along a
+    // row, into the next slab where a slab's row ends (every 4 steps in the
+    // 128-byte layout, every step in the 32-byte one)
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -492,8 +561,9 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * (kTile * 128) + (kk & 3) * 32;
-      mma_ss_n64(s, desc(s_q + off, 16, 1024), desc(s_k + stage + off, 16, 1024), kk > 0);
+      const uint32_t off = L::qk_step(kk);
+      mma_ss_n64(s, desc<HD>(s_q + off, 16, L::kSbo), desc<HD>(s_k + stage + off, 16, L::kSbo),
+                 kk > 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -542,8 +612,8 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // O += P V: P's accumulator fragment is wgmma's A fragment for k16 step
-    // kk (keys 16 kk ..); V's 16 keys of a step are 2048 bytes on, its
-    // 64-column slabs 64 x 128 bytes apart (the leading byte offset)
+    // kk (keys 16 kk ..); V's 16 keys of a step are 16 rows on, its slabs
+    // kSlabBytes apart (the leading byte offset)
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -556,7 +626,7 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_pv<HD>(acc, pa[kk], desc(s_v + stage + kk * 16 * 128, kTile * 128, 1024));
+      mma_pv<HD>(acc, pa[kk], desc<HD>(s_v + stage + L::pv_step(kk), L::kSlabBytes, L::kSbo));
     wgmma_commit();
     wgmma_wait();
     pin(acc);
@@ -617,8 +687,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16 q, k, v, o contiguous and 16-byte aligned on the current device, hd 64
-// or 128. Returns the cudaError of the launch; shapes the kernel does not
+// bf16 q, k, v, o contiguous and 16-byte aligned on the current device, hd 64,
+// 80 or 128. Returns the cudaError of the launch; shapes the kernel does not
 // take are refused with cudaErrorInvalidValue before anything is launched.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                             void* o, int b, int sq, int sk, int h, int kh,
@@ -629,6 +699,8 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k, const 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return static_cast<int>(wg::launch<64>(q, k, v, o, b, sq, sk, h, kh, scale, causal, st));
+  if (hd == 80)
+    return static_cast<int>(wg::launch<80>(q, k, v, o, b, sq, sk, h, kh, scale, causal, st));
   if (hd == 128)
     return static_cast<int>(wg::launch<128>(q, k, v, o, b, sq, sk, h, kh, scale, causal, st));
   return static_cast<int>(cudaErrorInvalidValue);

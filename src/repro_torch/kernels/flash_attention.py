@@ -18,11 +18,13 @@ oracle for a ragged ``Sq`` is not carried over: both kernels mask any ``Sq``.
 Which kernel serves a call is a static table, :data:`VARIANTS`, keyed on
 (dtype, head dim), never a reaction to a failure:
 
-- ``"wgmma"`` (``flash_attention_wgmma_kernel``): bf16 at hd 64 and 128, the
-  serve path's prefill among them. The work is bound by bf16 tensor-core
+- ``"wgmma"`` (``flash_attention_wgmma_kernel``): bf16 at hd 64, 80 and
+  128, every serve path's prefill among them (hd 80: stablelm-3b and
+  zamba2-2.7b's shared attention). The work is bound by bf16 tensor-core
   operations (4.35 us at the internlm2-1.8b prefill shape on an H100), so
   Q·Kᵀ and P·V run as ``wgmma`` on tiles that ``cp.async`` streams into
-  swizzled shared memory, with the online softmax in registers.
+  swizzled shared memory (the 128-byte swizzle at hd 64 and 128, the
+  32-byte one at hd 80), with the online softmax in registers.
 - ``"simt"`` (``flash_attention_kernel``): everything else — f32 at every
   head dim (TF32 tensor cores would not hold f32's 2e-5) and bf16 at the
   other head dims — in f32 FMAs on the CUDA cores.
@@ -52,6 +54,7 @@ HEAD_DIMS = range(16, 257, 16)
 # (dtype, head dim) -> kernel variant; every other pair takes "simt"
 VARIANTS: Dict[Tuple[torch.dtype, int], str] = {
     (torch.bfloat16, 64): "wgmma",
+    (torch.bfloat16, 80): "wgmma",
     (torch.bfloat16, 128): "wgmma",
 }
 
@@ -191,7 +194,7 @@ def launch_variant(
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     if route == "wgmma" and (q.dtype, hd) not in VARIANTS:
-        raise ValueError(f"{NAME}: the wgmma kernel takes bf16 at hd 64 and 128, not "
+        raise ValueError(f"{NAME}: the wgmma kernel takes bf16 at hd 64, 80 and 128, not "
                          f"{q.dtype} at hd {hd}")
     scale = 1.0 / math.sqrt(hd) if sm_scale is None else float(sm_scale)
     if route == "wgmma":  # 16-byte cp.async reads: a view at an odd offset is copied

@@ -32,7 +32,7 @@ from repro_torch.models.convert import params_from_arrays
 
 ARCHS = ("glm4-9b", "stablelm-3b", "qwen3-14b")
 # the kernel that serves each full config's prefill on the card
-VARIANT = {"glm4-9b": "wgmma", "stablelm-3b": "simt", "qwen3-14b": "wgmma"}
+VARIANT = {"glm4-9b": "wgmma", "stablelm-3b": "wgmma", "qwen3-14b": "wgmma"}
 N_DECODE = 8
 PROMPT, CACHE = 24, 40
 TOL = dict(atol=1e-4, rtol=1e-4)

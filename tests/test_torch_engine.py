@@ -1,8 +1,8 @@
 """The PyTorch port's engine modules against the JAX reference, field by
 field: the copied workload/platform/policy layers, ``make_const`` and
 ``init_state``, one event batch continued from a mid-run JAX state through
-``core/convert.py``, the configurations the port still refuses, the device rule,
-and the package's isolation from ``jax`` and ``repro``.
+``core/convert.py``, the device rule, and the package's isolation from
+``jax`` and ``repro``.
 """
 import dataclasses
 import os
@@ -207,30 +207,8 @@ def test_convert_rejects_incomplete_or_mistyped_arrays():
 
 
 # --------------------------------------------------------------------------
-# what this slice refuses, and the device rule
+# the device rule
 # --------------------------------------------------------------------------
-
-@pytest.mark.parametrize(
-    "label,kw",
-    [
-        ("EASY RL:groups", {"grouped_tables": True, "devices": 2}),
-        ("FCFS PSAS+IPM+Forecast", {"node_order": "pack", "devices": "all"}),
-        ("EASY PSUS", {"devices": 1}),
-        ("EASY PSUS", {"devices": 2}),
-        ("EASY RL", {"devices": 1}),
-        ("EASY PSUS+Forecast", {"devices": 4}),
-    ],
-)
-def test_unported_configs_raise(label, kw):
-    """Sharded sweeps (``devices``) are not ported; rules 8-10 are (each
-    label here runs without its option, ``test_torch_rules.py``), and so is
-    the legacy loop (``test_torch_legacy_loop.py``)."""
-    tp = tplat.PlatformSpec(nb_nodes=8)
-    tw = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=5, nb_res=8))
-    _, tc = _configs(label, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        teng.simulate(tp, tw, tc, device="cpu")
-
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():

@@ -49,8 +49,8 @@ def _np(x) -> np.ndarray:
 @pytest.mark.parametrize("hd", list(fa.HEAD_DIMS))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_variant_table(dtype, hd):
-    """bf16 at hd 64 and 128 takes the wgmma kernel; everything else the SIMT one."""
-    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
+    """bf16 at hd 64, 80 and 128 takes the wgmma kernel; everything else the SIMT one."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128) else "simt"
     assert fa.variant(dtype, hd) == want
 
 
