@@ -16,11 +16,13 @@ Phases (each prints a line; any failed check exits non-zero):
    16-byte boundary, arrays at different alignments, G = 64 and
    ``MAX_GROUPS``, dead lanes, one table a row: ``[E, 5]`` watts and ``[E,
    N]`` group ids), with the allocator's free memory poisoned so an
-   unwritten output cannot pass; the ledger and occupancy kernels timed at
-   E = 1, 8 and 64, their cluster size at each timed shape, their ptxas lines, and the device time of a
-   1-element fill (the card's practical launch floor) beside theirs, and
-   each wrapper's host time in turns with the fill's (fill, wrapper,
-   wrapper, fill);
+   unwritten output cannot pass, and the cluster size of every held case;
+   the ledger and occupancy kernels timed at E = 1, 8 and 64, the scalar
+   draw at E = 1 and in turns with the ledger kernel (ledger, draw, draw,
+   ledger), their cluster size at each timed shape, their ptxas lines, and
+   the device time of a 1-element fill (the card's practical launch floor)
+   beside theirs, and each wrapper's host time in turns with the fill's
+   (fill, wrapper, wrapper, fill);
    ``flash_attention``
    against its plain version at the serve path's prefill shape in bf16 and
    f32 and at MQA, Sq > Sk, a ragged KV tail, non-causal Sk > Sq, a ragged
@@ -999,37 +1001,48 @@ def shifted(torch, x, k):
 
 
 def hold_kernel(torch, name, fn, plain, cases, zero_out):
-    """Each case's kernel output == its plain version's, bit for bit, with
-    one launch per non-empty call; zero sizes give ``zero_out(args)``.
-    Returns the max abs difference seen (0.0 when all are equal)."""
+    """Each case's kernel output == its plain version's, bit for bit (f32
+    outputs compared as their int32 bits), with one launch per non-empty
+    call at the cluster size the wrapper records; zero sizes give
+    ``zero_out(args)``. Prints the cluster size of each non-empty case and
+    returns the max abs difference seen (0.0 when all are equal)."""
     from repro_torch.kernels import event_fuse
 
-    max_err = 0.0
+    max_err, sizes = 0.0, []
     for label, args, empty in cases:
         poison(torch)
         before = event_fuse.LAUNCHES[name]
+        event_fuse.CLUSTER.pop(name, None)
         got = fn(*args)
         torch.cuda.synchronize()
         want = zero_out(args) if empty else plain(*args)
         check(event_fuse.LAUNCHES[name] == before + (0 if empty else 1),
               f"{name} launch count at {label}")
+        if not empty:
+            check(event_fuse.CLUSTER.get(name, 0) >= 1,
+                  f"{name} recorded no cluster size at {label}")
+            sizes.append(f"{label}: {event_fuse.CLUSTER[name]}")
         for a, b in zip(got, want):
             check(a.shape == b.shape and a.dtype == b.dtype,
                   f"{name} output shape/dtype at {label}")
-            check(torch.equal(a, b), f"{name} == plain at {label}")
+            same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    if a.dtype == torch.float32 else torch.equal(a, b))
+            check(same, f"{name} == plain bit for bit at {label}")
             if a.numel():
                 max_err = max(max_err, float((a.double() - b.double()).abs().max()))
+    print(f"phase 3 kernels: {name} held bit for bit at {len(cases)} cases; cluster "
+          f"size by case: {'; '.join(sizes)}", flush=True)
     return max_err
 
 
 def time_kernel(torch, name, fn, plain, args, bound, shape, floor_ms, fill):
     """(kernel device ms, plain device ms, kernel wrapper host ms, fill host
     ms) at ``args``, printed with the plain version's device ops and host
-    time, the bound, the cluster size of a cluster kernel and the launch
-    floor ``floor_ms``. The wrapper's host time is taken in turns with that
-    of ``fill`` (a function and its arguments: the 1-element fill), fill,
-    wrapper, wrapper, fill, so each is read against the host's speed of the
-    same moment; each figure is the mean of its two turns."""
+    time, the bound, the cluster size and the launch floor ``floor_ms``.
+    The wrapper's host time is taken in turns with that of ``fill`` (a
+    function and its arguments: the 1-element fill), fill, wrapper, wrapper,
+    fill, so each is read against the host's speed of the same moment; each
+    figure is the mean of its two turns."""
     from repro_torch.kernels import event_fuse
 
     k_ms, k_ops, k_names, k_seen = device_ms(torch, fn, args)
@@ -1041,9 +1054,8 @@ def time_kernel(torch, name, fn, plain, args, bound, shape, floor_ms, fill):
     fill_host = (turns[0] + turns[3]) / 2
     p_host = time_ms(torch, plain, args)
     b_ms, b_by = bound
-    cluster = (f"cluster of {event_fuse.CLUSTER[name]} CTAs a row"
-               if name in event_fuse.CLUSTER else "one block a row")
-    print(f"phase 3 kernels: {name} {shape} ({cluster}): "
+    print(f"phase 3 kernels: {name} {shape} (cluster of {event_fuse.CLUSTER[name]} "
+          f"CTAs a row): "
           f"device time kernel {1e3 * k_ms:.3f} us (launch floor "
           f"{1e3 * floor_ms:.3f} us), plain {1e3 * p_ms:.3f} us "
           f"({p_ops} device ops; profiler records seen: kernel "
@@ -2904,7 +2916,8 @@ def main() -> None:
     err["event_fuse"] = hold_kernel(
         torch, "event_fuse", event_fuse.event_fuse, event_fuse.event_fuse_plain,
         [((e, n), kernel_inputs(torch, np, e, n), not (e and n))
-         for e, n in EXACT_SHAPES + ZERO_SHAPES],
+         for e, n in EXACT_SHAPES + ZERO_SHAPES]
+        + [((e_sh, n_sh, "shifted", SHIFTS[:2]), ledger_shifted, False)],
         empty_pair(lambda args: ()),
     )
 
@@ -2929,15 +2942,30 @@ def main() -> None:
             event_fuse.event_fuse_occ_plain, occ_inputs(torch, np, e, n, g),
             occ_bound(e, n, g), f"E={e} N={n} G={g}", floor_ms, fill)
         clusters["event_fuse_occ", e] = event_fuse.CLUSTER["event_fuse_occ"]
+    main_in = kernel_inputs(torch, np, *MAIN_SHAPE)
     timing["event_fuse", 1] = time_kernel(
         torch, "event_fuse", event_fuse.event_fuse, event_fuse.event_fuse_plain,
-        kernel_inputs(torch, np, *MAIN_SHAPE), draw_bound(*MAIN_SHAPE),
-        "E={} N={}".format(*MAIN_SHAPE), floor_ms, fill)
-    for kname in ("event_fuse_ledger", "event_fuse_occ"):
+        main_in, draw_bound(*MAIN_SHAPE), "E={} N={}".format(*MAIN_SHAPE), floor_ms, fill)
+    clusters["event_fuse", 1] = event_fuse.CLUSTER["event_fuse"]
+    # the scalar draw beside the ledger, whose reduction it shares: device
+    # time in turns ledger, draw, draw, ledger on the same inputs
+    turns = [device_ms(torch, fn, main_in)[0] for fn in (
+        event_fuse.event_fuse_ledger, event_fuse.event_fuse,
+        event_fuse.event_fuse, event_fuse.event_fuse_ledger)]
+    draw_turns = {"event_fuse": (turns[1] + turns[2]) / 2,
+                  "event_fuse_ledger": (turns[0] + turns[3]) / 2}
+    print(f"phase 3 kernels: event_fuse beside event_fuse_ledger at E={MAIN_SHAPE[0]} "
+          f"N={MAIN_SHAPE[1]}, in turns ledger, draw, draw, ledger: draw "
+          f"{1e3 * draw_turns['event_fuse']:.3f} us ({1e3 * turns[1]:.3f}, "
+          f"{1e3 * turns[2]:.3f}), ledger {1e3 * draw_turns['event_fuse_ledger']:.3f} us "
+          f"({1e3 * turns[0]:.3f}, {1e3 * turns[3]:.3f}), both clusters of "
+          f"{clusters['event_fuse', 1]} and {event_fuse.CLUSTER['event_fuse_ledger']} "
+          f"CTAs; card: {nvidia_smi()}", flush=True)
+    for kname in event_fuse.KERNELS:
         max_c, sms = event_fuse.cluster_setup(kname, 0)
-        print(f"phase 3 kernels: {kname} runs clusters of "
-              f"{clusters[kname, 1]} CTAs at E=1, {clusters[kname, 8]} at E=8 and "
-              f"{clusters[kname, 64]} at E=64 "
+        sizes = ", ".join(f"{clusters[kname, e]} CTAs at E={e}"
+                          for e in (1, 8, 64) if (kname, e) in clusters)
+        print(f"phase 3 kernels: {kname} runs clusters of {sizes} "
               f"(the card holds clusters of up to {max_c} on {sms} SMs); ptxas: "
               f"{'; '.join(report[kname])}", flush=True)
     # flash attention: tolerance, not bits (f32 sums in another order)
@@ -3809,9 +3837,12 @@ def main() -> None:
             "fill_host_ms": fill_host_ms,
         }
         if key in clusters:
-            row.update(cluster=clusters[key], cluster_e8=clusters[kname, 8],
-                       ms_e8=timing[kname, 8][0], cluster_e64=clusters[kname, 64],
-                       ms_e64=timing[kname, 64][0])
+            row["cluster"] = clusters[key]
+        if (kname, 8) in clusters:
+            row.update(cluster_e8=clusters[kname, 8], ms_e8=timing[kname, 8][0],
+                       cluster_e64=clusters[kname, 64], ms_e64=timing[kname, 64][0])
+        if kname in draw_turns:
+            row["ms_in_turns_with_draw"] = draw_turns[kname]
         row["launches_by_path"] = {
             "phase 5 dense": dense_by_kernel[kname],
             "phase 6 grouped": grouped_by_kernel[kname],
@@ -3835,7 +3866,8 @@ def main() -> None:
               occ_launches, ("event_fuse_occ", 1), occ_bound(*OCC_MAIN)),
         entry("event_fuse", "src/repro/kernels/event_fuse.py:47", draw_launches,
               ("event_fuse", 1), draw_bound(*MAIN_SHAPE),
-              note="no engine path calls it; timed at [1, 11200]"),
+              note="no engine path calls it; timed at [1, 11200], and in turns "
+                   "with the ledger kernel (ms_in_turns_with_draw of both rows)"),
         {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

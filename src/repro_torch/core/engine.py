@@ -640,6 +640,7 @@ def _shadow(s: SimState, head: int, ready):
         torch.where(status == ALLOCATED, s.job_alloc_ready[cj] + reqtime, s.t),
     )
     rel = torch.where(nj >= 0, pred_of_job, ready)
+    # spars-lint: ignore[PL005] values only: equal values sort to the same list
     rel_sorted = torch.sort(rel).values
     res_h = s.job_res[head]
     # an unsatisfiable request (res > N) reads the last entry, like the
@@ -1248,3 +1249,16 @@ def simulate(
     out = run_sim(s, const, config, max_batches=cap)
     _warn_truncated(out, f"simulate({config.label()!r})")
     return out
+
+
+# the reference's engine also holds the batched sweep; here it lives in
+# core/sweep.py, which imports this module, so its names load on first use
+_SWEEP_NAMES = ("sweep", "sweep_async", "SimBatch", "PendingSweep", "cache_stats")
+
+
+def __getattr__(name):
+    if name not in _SWEEP_NAMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from repro_torch.core import sweep
+
+    return getattr(sweep, name)

@@ -49,7 +49,7 @@ def full_commands(s, ret):
 def _global(s, n_on, n_off):
     """Global scalar commands in slot 0 of the ``[G]`` command vectors."""
     G = s.rl_on_cmd.shape[-1]
-    slot0 = torch.arange(G, device=s.t.device) == 0
+    slot0 = torch.arange(G, dtype=torch.int64, device=s.t.device) == 0
     return (torch.where(slot0, n_on.to(I32)[..., None], 0),
             torch.where(slot0, n_off.to(I32)[..., None], 0))
 

@@ -634,6 +634,7 @@ def _shadow(s: SimState, head: torch.Tensor, ready: torch.Tensor):
                     s.t[:, None]),
     )
     rel = torch.where(nj >= 0, pred_of_job, ready)
+    # spars-lint: ignore[PL005] values only: equal values sort to the same list
     rel_sorted = torch.sort(rel, dim=-1).values
     res_h = s.job_res.gather(1, _clamp_job(head)[:, None])[:, 0]
     idx = torch.clamp(res_h - 1, 0, rel.shape[1] - 1)

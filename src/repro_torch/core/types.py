@@ -202,7 +202,7 @@ class SimMetrics(NamedTuple):
 
     total_energy_j: float
     wasted_energy_j: float
-    # spars-lint: ignore[SL006] legacy per-state view, summarized by the
+    # spars-lint: ignore[SL006, PL006] legacy per-state view, summarized by the
     # total/wasted columns; row() stays golden-file stable without it
     energy_by_state_j: tuple  # len 5, ordered by state id
     mean_wait_s: float

@@ -29,27 +29,31 @@
 // 0.03-0.04 us at the H100's 3.35 TB/s. So what bounds a call is latency:
 // the launch, and how many dependent trips to device memory a row takes.
 //
-// The ledger and occupancy kernels split each env row over a thread-block
-// cluster of C CTAs (cudaLaunchKernelEx with a cluster dimension). The
-// wrapper picks C from E and N so that the grid fills the card while each
-// CTA keeps enough of its row: 16 for the occupancy kernel and 4 for the
-// ledger (whose CTAs do less work a node; faster than 8 or 16 there) at
-// the engine's E = 1 and N = 11 200, 1 for a row under 1024 nodes. Each CTA
-// takes a contiguous run of 4-node quads, counted from the 16-byte boundary
-// at or before the row's start, and each thread issues all the loads of its
-// quads (16-byte vector loads where the array is 16-byte aligned on that
-// boundary, scalar loads on the ragged head and tail and for a misaligned
-// array) before it uses any of them: a thread holds one to three quads, so
-// one memory latency covers the row. Counts and the masked min stay in
+// All three kernels split each env row over a thread-block cluster of C
+// CTAs (cudaLaunchKernelEx with a cluster dimension). The wrapper picks C
+// from E and N so that the grid fills the card while each CTA keeps enough
+// of its row: 16 for the occupancy kernel and 4 for the ledger and the
+// scalar draw (whose CTAs do less work a node; faster than 8 or 16 there)
+// at the engine's E = 1 and N = 11 200, 1 for a row under 1024 nodes (4096
+// for the ledger and the draw). Each CTA takes a contiguous run of 4-node
+// quads, counted from the 16-byte boundary at or before the row's start,
+// and each thread issues all the loads of its quads (16-byte vector loads
+// where the array is 16-byte aligned on that boundary, scalar loads on the
+// ragged head and tail and for a misaligned array) before it uses any of
+// them: a thread holds one to three quads, so one memory latency covers the
+// row. Counts and the masked min stay in
 // registers; the occupancy histogram is built per CTA in shared memory with
 // warp-aggregated atomics (__match_any_sync groups lanes that carry the same
 // cell, and one lane adds the group's size). Then the cluster reduces
 // through distributed shared memory (cluster.map_shared_rank(..., 0)):
 //
-//   ledger: each CTA stores its five counts and its min into its own slot of
-//       the leader's shared memory, and the leader adds the slots in rank
+//   ledger and scalar draw: one reduction (reduce_row), two epilogues. Each
+//       CTA stores its five counts and its min into its own slot of the
+//       leader's shared memory, and the leader adds the slots in rank
 //       order: no zeroing and no atomics (faster than the atomic form
-//       below in every configuration timed).
+//       below in every configuration timed). The ledger's leader writes
+//       the five products count * watts; the draw's forms the same five
+//       products and adds them in the order s = 0..4.
 //   occupancy: the histogram has G * 8 cells, too many for a slot per CTA at
 //       large G, so each CTA adds its non-zero cells into the leader's
 //       accumulator with integer atomicAdd, and its min with atomicMin.
@@ -63,10 +67,6 @@
 // the leader reads them; non-leaders exit only after it, and the leader
 // writes the row. One launch per call, no scratch in global memory, no
 // memset.
-//
-// The scalar draw (event_fuse_kernel, no engine caller) keeps the one-block-
-// per-row design: one block walks N with coalesced int32 loads and reduces
-// with warp shuffles, then across warps through shared memory.
 //
 // Exactness: counts are integers, so any summation order gives the same
 // count. The ledger multiplies each count once by its watts; the scalar draw
@@ -123,40 +123,6 @@ __device__ __forceinline__ int block_min(int mn) {
   return warp_min(mn);  // meaningful in warp 0
 }
 
-// Per-row state counts (cnt[0..4]) and masked min, reduced across the block;
-// valid in thread 0 on return.
-__device__ __forceinline__ void count_states(const int* __restrict__ state,
-                                             const int* __restrict__ until,
-                                             int te, int n, int cnt[kStates],
-                                             int* mn_out) {
-  int mn = kInfTime;
-#pragma unroll
-  for (int k = 0; k < kStates; ++k) cnt[k] = 0;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int s = state[i];
-    const int u = until[i];
-#pragma unroll
-    for (int k = 0; k < kStates; ++k) cnt[k] += (s == k);
-    mn = min(mn, masked_until(s, u, te));
-  }
-
-#pragma unroll
-  for (int k = 0; k < kStates; ++k) cnt[k] = warp_sum(cnt[k]);
-  __shared__ int sh_cnt[kStates][kWarps];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kStates; ++k) sh_cnt[k][warp] = cnt[k];
-  }
-  mn = block_min(mn);  // its __syncthreads also publishes sh_cnt
-#pragma unroll
-  for (int k = 0; k < kStates; ++k) cnt[k] = lane < kWarps ? sh_cnt[k][lane] : 0;
-#pragma unroll
-  for (int k = 0; k < kStates; ++k) cnt[k] = warp_sum(cnt[k]);
-  *mn_out = mn;
-}
-
 // ---- the cluster-split rows ----------------------------------------------
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -211,15 +177,20 @@ __device__ __forceinline__ bool same_alignment(const void* p, const void* q) {
   return ((reinterpret_cast<uintptr_t>(p) - reinterpret_cast<uintptr_t>(q)) & 15) == 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-event_fuse_ledger_kernel(const int* __restrict__ node_state,
-                         const int* __restrict__ node_until,
-                         const int* __restrict__ t,
-                         const float* __restrict__ power,
-                         float* __restrict__ out,  // sums [e, 8], then next [e]
-                         int rows,
-                         int n,
-                         int power_stride) {
+// One row's five state counts and masked min, split over the cluster and
+// reduced into the leader CTA, which writes the row: with kDraw, the
+// scalar draw (out holds draw [rows], then next [rows]); else the ledger's
+// sums (out holds sums [rows, 8], then next [rows]).
+template <bool kDraw>
+__device__ __forceinline__ void reduce_row(const int* __restrict__ node_state,
+                                           const int* __restrict__ node_until,
+                                           const int* __restrict__ t,
+                                           const float* __restrict__ power,
+                                           float* __restrict__ out,
+                                           int rows,
+                                           int n,
+                                           int power_stride) {
+  constexpr int kOutCols = kDraw ? 1 : kCols;
   // in the leader: each CTA's five counts and min, one slot per CTA
   __shared__ int slots[kMaxCluster][kStates + 1];
   __shared__ int sh[kStates + 1][kWarps];
@@ -283,10 +254,47 @@ event_fuse_ledger_kernel(const int* __restrict__ node_state,
     for (int r = 0; r < c; ++r) v = k < kStates ? v + slots[r][k] : min(v, slots[r][k]);
   }
   const float* pw = power + static_cast<size_t>(e) * power_stride;
-  if (k < kCols)
-    out[static_cast<size_t>(e) * kCols + k] =
-        k < kStates ? __fmul_rn(static_cast<float>(v), pw[k]) : 0.0f;
-  if (k == kStates) reinterpret_cast<int*>(out + static_cast<size_t>(rows) * kCols)[e] = v;
+  if constexpr (kDraw) {
+    // warp 0 gathers the five counts from threads 0..4; the products are
+    // added in the fixed order s = 0..4, each rounded (no FMA contraction)
+    if (warp == 0) {
+      float acc = __fmul_rn(static_cast<float>(__shfl_sync(0xffffffffu, v, 0)), pw[0]);
+#pragma unroll
+      for (int s = 1; s < kStates; ++s)
+        acc = __fadd_rn(
+            acc, __fmul_rn(static_cast<float>(__shfl_sync(0xffffffffu, v, s)), pw[s]));
+      if (k == 0) out[e] = acc;
+    }
+  } else {
+    if (k < kCols)
+      out[static_cast<size_t>(e) * kCols + k] =
+          k < kStates ? __fmul_rn(static_cast<float>(v), pw[k]) : 0.0f;
+  }
+  if (k == kStates) reinterpret_cast<int*>(out + static_cast<size_t>(rows) * kOutCols)[e] = v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+event_fuse_ledger_kernel(const int* __restrict__ node_state,
+                         const int* __restrict__ node_until,
+                         const int* __restrict__ t,
+                         const float* __restrict__ power,
+                         float* __restrict__ out,  // sums [e, 8], then next [e]
+                         int rows,
+                         int n,
+                         int power_stride) {
+  reduce_row<false>(node_state, node_until, t, power, out, rows, n, power_stride);
+}
+
+__global__ void __launch_bounds__(kThreads)
+event_fuse_kernel(const int* __restrict__ node_state,
+                  const int* __restrict__ node_until,
+                  const int* __restrict__ t,
+                  const float* __restrict__ power,
+                  float* __restrict__ out,  // draw [e], then next [e]
+                  int rows,
+                  int n,
+                  int power_stride) {
+  reduce_row<true>(node_state, node_until, t, power, out, rows, n, power_stride);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -376,30 +384,6 @@ event_fuse_occ_kernel(const int* __restrict__ node_state,
     reinterpret_cast<int*>(out + static_cast<size_t>(rows) * cells)[e] = acc_min;
 }
 
-__global__ void __launch_bounds__(kThreads)
-event_fuse_kernel(const int* __restrict__ node_state,
-                  const int* __restrict__ node_until,
-                  const int* __restrict__ t,
-                  const float* __restrict__ power,
-                  float* __restrict__ draw,
-                  int* __restrict__ next,
-                  int n) {
-  const int e = blockIdx.x;
-  int cnt[kStates];
-  int mn;
-  count_states(node_state + static_cast<size_t>(e) * n,
-               node_until + static_cast<size_t>(e) * n, t[e], n, cnt, &mn);
-  if (threadIdx.x == 0) {
-    // the five products added in the fixed order s = 0..4
-    float acc = __fmul_rn(static_cast<float>(cnt[0]), power[0]);
-#pragma unroll
-    for (int k = 1; k < kStates; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(cnt[k]), power[k]));
-    draw[e] = acc;
-    next[e] = mn;
-  }
-}
-
 size_t occ_smem(int n_groups) {
   return 2 * static_cast<size_t>(n_groups) * kCols * sizeof(int);
 }
@@ -469,19 +453,21 @@ int setup_clusters(void (*kernel)(Params...), size_t smem, int* max_cluster) {
 // contiguous tensors: node_state/node_until int32 [e, n], t int32 [e],
 // power float32 [5] (power_stride 0) or [e, 5] (power_stride 5), group_id
 // int32 [n] (gid_stride 0) or [e, n] (gid_stride n); `out` is one buffer holding the
-// float32 sums [e, 8] (or occ [e, n_groups, 8]) followed by the int32 next
-// [e]; draw float32 [e] and next int32 [e] for the scalar draw. Each
-// launches on `stream` and returns the launch's error (0 = launched).
+// float32 sums [e, 8] (or occ [e, n_groups, 8], or the draw [e]) followed by
+// the int32 next [e]. Each launches on `stream` and returns the launch's
+// error (0 = launched).
 
-// which = 0 (ledger) or 1 (occupancy): allow cluster sizes up to 16 (and,
-// for the occupancy kernel, the shared memory of MAX_GROUPS groups) and
-// write the largest cluster size the card holds to *max_cluster. Called once
-// per kernel and device, on that device, before the first launch.
+// which = 0 (ledger), 1 (occupancy) or 2 (scalar draw): allow cluster sizes
+// up to 16 (and, for the occupancy kernel, the shared memory of MAX_GROUPS
+// groups) and write the largest cluster size the card holds to
+// *max_cluster. Called once per kernel and device, on that device, before
+// the first launch.
 extern "C" int event_fuse_cluster_setup(int which, int* max_cluster) {
   if (which == 0) return setup_clusters(event_fuse_ledger_kernel, 0, max_cluster);
   if (which == 1)
     return setup_clusters(event_fuse_occ_kernel, 2 * static_cast<size_t>(kMaxHistBytes),
                           max_cluster);
+  if (which == 2) return setup_clusters(event_fuse_kernel, 0, max_cluster);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -499,13 +485,14 @@ extern "C" int event_fuse_ledger_launch(const void* node_state, const void* node
 }
 
 extern "C" int event_fuse_launch(const void* node_state, const void* node_until,
-                                 const void* t, const void* power, void* draw,
-                                 void* next, int e, int n, void* stream) {
-  event_fuse_kernel<<<e, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(node_state), static_cast<const int*>(node_until),
-      static_cast<const int*>(t), static_cast<const float*>(power),
-      static_cast<float*>(draw), static_cast<int*>(next), n);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* t, const void* power, void* out, int e,
+                                 int n, int c, void* stream) {
+  if (c < 1 || c > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(event_fuse_kernel, e, c, 0, stream,
+                         static_cast<const int*>(node_state),
+                         static_cast<const int*>(node_until),
+                         static_cast<const int*>(t), static_cast<const float*>(power),
+                         static_cast<float*>(out), e, n, 0);
 }
 
 // The histogram and the accumulator, G * 8 int32 cells each, must fit the

@@ -28,11 +28,12 @@ fixed order, so on the card each kernel and its plain version agree bit for
 bit; against the reference's per-node f32 sums the watts-weighted outputs
 agree to f32 rounding (exact for integer watts below 2**24), and the
 occupancy counts exactly. The kernels are bound by latency at the engine's
-E = 1: the ledger and occupancy kernels split each row over a thread-block
-cluster of :func:`cluster_size` CTAs and reduce it through distributed shared
-memory (see the source), and their wrappers keep the host's work per call
-small: a check that builds no message unless it fails, one allocation for
-both outputs, and the launch's set-up cached per kernel, device and shape.
+E = 1: each splits a row over a thread-block cluster of :func:`cluster_size`
+CTAs and reduces it through distributed shared memory (see the source; the
+ledger and the scalar draw share one reduction and differ in what the
+leader writes), and the wrappers keep the host's work per call small: a
+check that builds no message unless it fails, one allocation for both
+outputs, and the launch's set-up cached per kernel, device and shape.
 """
 from __future__ import annotations
 
@@ -46,30 +47,29 @@ from repro_torch.core.types import INF_TIME, N_STATES, SWITCHING_OFF, SWITCHING_
 from repro_torch.kernels import _build
 
 COLS = 8  # the sums and occupancy rows are padded to 8 columns
+# in the order of event_fuse_cluster_setup's `which`
 KERNELS = ("event_fuse_ledger", "event_fuse_occ", "event_fuse")
 # a CTA's histogram and its cluster's accumulator, G * 8 int32 cells each,
 # must fit the 96 KB of shared memory the occupancy kernel is allowed
 MAX_GROUPS = 48 * 1024 // (4 * COLS)
-# the ledger and occupancy kernels split a row over a cluster of up to 16
-# CTAs (see :func:`cluster_size`), each CTA keeping at least this many nodes
-# of its row: the ledger's CTAs do less work a node, so they take more
+# each kernel splits a row over a cluster of up to 16 CTAs (see
+# :func:`cluster_size`), each CTA keeping at least this many nodes of its
+# row: the ledger's and the draw's CTAs do less work a node, so they take more
 MAX_CLUSTER = 16
-MIN_CTA_NODES = {"event_fuse_ledger": 2048, "event_fuse_occ": 512}
+MIN_CTA_NODES = {"event_fuse_ledger": 2048, "event_fuse_occ": 512, "event_fuse": 2048}
 CTAS_PER_SM = 2
 
 # kernel launches made by each wrapper (the plain route never counts)
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-# the cluster size of each cluster kernel's last launch
+# the cluster size of each kernel's last launch
 CLUSTER: Dict[str, int] = {}
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "event_fuse_ledger": [_VOIDP] * 5 + [_INT] * 4 + [_VOIDP],
-    "event_fuse": [_VOIDP] * 6 + [_INT, _INT, _VOIDP],
+    "event_fuse": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     "event_fuse_occ": [_VOIDP] * 5 + [_INT] * 5 + [_VOIDP],
 }
-# the order of event_fuse_cluster_setup's `which`
-_CLUSTER_KERNELS = ("event_fuse_ledger", "event_fuse_occ")
 # (name, device index, E, N) -> (entry point, cluster size) of a launch
 _PLANS: Dict[Tuple[str, int, int, int], Tuple[object, int]] = {}
 # the current CUDA stream of a device index, as an int; the current device
@@ -169,12 +169,12 @@ def event_fuse_occ_plain(
 
 def cluster_size(e: int, n: int, sms: int, max_cluster: int, min_nodes: int) -> int:
     """The cluster size C (a power of two) for an ``[E, N]`` call of a
-    cluster kernel on a card of ``sms`` SMs that holds clusters of up to
+    kernel on a card of ``sms`` SMs that holds clusters of up to
     ``max_cluster``: each row is split over C CTAs, so that the grid's ``E *
     C`` CTAs reach ``CTAS_PER_SM`` per SM while each CTA keeps at least
     ``min_nodes`` nodes of its row (``MIN_CTA_NODES`` of the kernel). At E =
     1 and N = 11 200 on an H100 (132 SMs): 16 for the occupancy kernel, 4
-    for the ledger; 1 for a row under ``2 * min_nodes`` nodes."""
+    for the ledger and the draw; 1 for a row under ``2 * min_nodes`` nodes."""
     want = min(max_cluster, n // min_nodes, -(-CTAS_PER_SM * sms // max(e, 1)))
     c = 1
     while 2 * c <= want:
@@ -223,7 +223,7 @@ def _check(name, node_state, node_until, t, key, x, shape, dtype,
 
 
 def cluster_setup(name: str, idx: int) -> Tuple[int, int]:
-    """(largest cluster size, SM count) of the cluster kernel ``name`` on
+    """(largest cluster size, SM count) of the kernel ``name`` on
     CUDA device ``idx``: the kernel is allowed clusters of up to 16 CTAs and
     the card says the largest it holds. Raises if the card refuses."""
     setup = _build.load("event_fuse").event_fuse_cluster_setup
@@ -231,7 +231,7 @@ def cluster_setup(name: str, idx: int) -> Tuple[int, int]:
     setup.restype = _INT
     max_c = _INT(0)
     with torch.cuda.device(idx):
-        err = setup(_CLUSTER_KERNELS.index(name), ctypes.byref(max_c))
+        err = setup(KERNELS.index(name), ctypes.byref(max_c))
     if err != 0:
         raise RuntimeError(f"{name}: the card refused the cluster set-up (cudaError {err})")
     return max_c.value, torch.cuda.get_device_properties(idx).multi_processor_count
@@ -239,17 +239,14 @@ def cluster_setup(name: str, idx: int) -> Tuple[int, int]:
 
 def _plan(name: str, idx: int, e: int, n: int) -> Tuple[object, int]:
     """(ctypes entry point ``<name>_launch``, cluster size) of ``name`` at
-    ``[E, N]`` on CUDA device ``idx``, set up once (the cluster size is 1
-    for ``event_fuse``, which runs one block a row)."""
+    ``[E, N]`` on CUDA device ``idx``, set up once."""
     plan = _PLANS.get((name, idx, e, n))
     if plan is None:
         fn = getattr(_build.load("event_fuse"), f"{name}_launch")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = _INT
-        c = 1
-        if name in _CLUSTER_KERNELS:
-            max_c, sms = cluster_setup(name, idx)
-            c = cluster_size(e, n, sms, max_c, MIN_CTA_NODES[name])
+        max_c, sms = cluster_setup(name, idx)
+        c = cluster_size(e, n, sms, max_c, MIN_CTA_NODES[name])
         plan = _PLANS[(name, idx, e, n)] = (fn, c)
     return plan
 
@@ -306,6 +303,8 @@ def event_fuse_ledger(
         return _empty_pair((e, COLS), e, dev)
     if dev.type == "cpu":
         return event_fuse_ledger_plain(node_state, node_until, t, power)
+    if power.requires_grad:  # the watts are the one input that can
+        _build.refuse_grad(name, power)
     fn, c = _plan(name, dev.index, e, n)
     sums, nxt = _outputs(node_state, (e, COLS), e)
     _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
@@ -322,7 +321,9 @@ def event_fuse(
     power: torch.Tensor,  # [5] f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused (power draw [E] f32, next transition [E] i32), with the
-    routing and zero-size contract of :func:`event_fuse_ledger`."""
+    routing, zero-size contract and one allocation of
+    :func:`event_fuse_ledger`. The draw is bit for bit the plain version's:
+    the five products added in the order s = 0..4."""
     name = "event_fuse"
     dev = _check(name, node_state, node_until, t, "power", power, (N_STATES,),
                  torch.float32)
@@ -331,11 +332,13 @@ def event_fuse(
         return _empty_pair((e,), e, dev)
     if dev.type == "cpu":
         return event_fuse_plain(node_state, node_until, t, power)
-    draw = torch.empty((e,), dtype=torch.float32, device=dev)
-    nxt = torch.empty((e,), dtype=torch.int32, device=dev)
-    fn, _ = _plan(name, dev.index, e, n)
+    if power.requires_grad:  # the watts are the one input that can
+        _build.refuse_grad(name, power)
+    fn, c = _plan(name, dev.index, e, n)
+    draw, nxt = _outputs(node_state, (e,), e)
     _launch(name, dev.index, fn, node_state.data_ptr(), node_until.data_ptr(),
-            t.data_ptr(), power.data_ptr(), draw.data_ptr(), nxt.data_ptr(), e, n)
+            t.data_ptr(), power.data_ptr(), draw.data_ptr(), e, n, c)
+    CLUSTER[name] = c
     return draw, nxt
 
 

@@ -177,6 +177,9 @@ def flash_attention(
     return launch_variant(variant(q.dtype, hd), q, k, v, causal=causal, sm_scale=sm_scale)
 
 
+# spars-lint: ignore[PL004] the entry to a named variant, for benchmarks:
+# flash_attention checks, short-circuits, routes the CPU and refuses grad
+# before it calls this
 def launch_variant(
     route: str,
     q: torch.Tensor,  # [B, Sq, H, hd], on the card

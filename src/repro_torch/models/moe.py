@@ -139,6 +139,7 @@ class MoE(nn.Module):
         keep_of = torch.empty_like(keep).scatter_(-1, order, keep)
         w = (gates.reshape(b, n) * keep_of).to(ye.dtype)
         contrib = (ye[rows, slot_of] * w[..., None]).reshape(b, s, k, d)
+        # spars-lint: ignore[PL005] a token's top-k expert ids are distinct: no ties
         by_expert = torch.argsort(expert_ids, dim=-1)
         contrib = torch.gather(contrib, 2, by_expert[..., None].expand(b, s, k, d))
         y = contrib[:, :, 0]

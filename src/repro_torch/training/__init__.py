@@ -1,4 +1,23 @@
 """Training on PyTorch: the optimizers (``optimizer.py``), checkpoints
 with async writes and the RL policy checkpoints (``checkpoint.py``), the LM
 train and eval steps (``train_step.py``), gradient compression
-(``compression.py``) and the straggler watchdog (``stragglers.py``)."""
+(``compression.py``) and the straggler watchdog (``stragglers.py``).
+
+The optimizer names are the reference's ``repro.training`` exports."""
+from repro_torch.training.optimizer import (
+    OptState,
+    adafactor,
+    adamw,
+    clip_by_global_norm,
+    cosine_schedule,
+    sgd,
+)
+
+__all__ = [
+    "OptState",
+    "adamw",
+    "adafactor",
+    "sgd",
+    "clip_by_global_norm",
+    "cosine_schedule",
+]

@@ -128,9 +128,9 @@ def swf_line_job(line: str) -> Optional[Job]:
     SWF fields used: 1 job id, 2 submit time, 4 run time, 5 allocated procs,
     8 requested procs, 9 requested time. Jobs with unknown (-1) runtime or
     zero resources are dropped, matching common SWF-cleaning practice.
-    This is the ONE cleaning rule — :func:`parse_swf` and the reference
-    package's streaming reader (``workloads/traces.py``, not ported yet) both
-    go through it, so the two readers can never drift.
+    This is the ONE cleaning rule — :func:`parse_swf` and the streaming
+    reader (``workloads/traces.py``, ``read_swf``) both go through it, so
+    the two readers can never drift.
     """
     line = line.strip()
     if not line or line.startswith(";"):
@@ -162,8 +162,8 @@ def parse_swf(path: str, max_jobs: Optional[int] = None) -> Workload:
     """Parse a Standard Workload Format trace (Parallel Workloads Archive).
 
     Cleaning rules live in :func:`swf_line_job`. For Curie-scale traces the
-    reference package's chunked streaming reader (``read_swf``, not ported
-    yet) parses the same format without holding every raw line.
+    chunked streaming reader (``workloads/traces.py``, ``read_swf``) parses
+    the same format without holding every raw line.
     """
     jobs: List[Job] = []
     nb_res = 0
