@@ -100,8 +100,9 @@ Phases (each prints a line; any failed check exits non-zero):
    launched once a batch and the schedule must equal the same run's on the
    plain per-node route (energy and mode ledgers to rel 1e-5); the Forecast
    run at horizon 0 must give phase 6's schedule and energy bit for bit;
-   the first 100 batches of each and of phase 6's configuration are
-   profiled (device ops a batch, device busy share);
+   the Forecast run's first 100 batches are profiled (device ops a batch,
+   device busy share; the DVFS run's and phase 6's windows are cut for
+   time, to pay for phase 17);
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
    x timeouts ``300 + 300 i``, on phase 5's inputs at E = 8 on their first
@@ -235,6 +236,20 @@ Phases (each prints a line; any failed check exits non-zero):
    env for 16 steps on ``curie_platform(280)``, legacy equal to fused; no
    event-kernel launch on any legacy run; the grouped 280-node EASY PSUS
    run timed on both loops in turns (µs and host syncs a batch).
+17. sharded sweeps and data-parallel rollouts, one worker process per card
+   (``repro_torch.core.shard``): (a) phase 11's dense E = 8 grid at
+   ``devices=1``, on one worker; (b) the same grid on two workers pinned to
+   card 0 (``shard.pinned_cards([0, 0])``), each row of both bit for bit
+   phase 11's, one ``event_fuse_ledger`` launch an iteration of each block
+   (the workers' counts reach this process); (c) ``SHARD_UPDATES`` (2) A2C
+   updates of phase 12 (a)'s grouped batch (16 envs) on two workers on
+   card 0, the parameters within ``SHARD_TOL`` (1e-6) of the same updates
+   run in this process (each block with its own generator, the mean of the
+   two blocks' gradients, one clip and one AdamW step), the losses finite,
+   one ``event_fuse_occ`` launch a step a worker; (d) with two cards or
+   more, (a) at D = the card count, one worker a card. The two workers
+   start beside phase 16 (``start_workers``); the phase prints their
+   start-up seconds, and each part its checks, wall and cards.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -1076,7 +1091,7 @@ def phase10(torch, np, swf, g_state, g_cfg, dev="cuda", nodes=11200,
     jobs) and DVFS (``DVFS_JOBS``) runs at Curie scale on ``dev``, each
     against its plain per-node route, the Forecast run at horizon 0 against
     phase 6's run (``g_state``, ``g_cfg``, ``max_jobs`` jobs), and the
-    profiled windows. Returns the event kernels' launches of the Forecast
+    Forecast run's profiled window. Returns the event kernels' launches of the Forecast
     and the DVFS run."""
     from repro_torch.core import engine, metrics
     from repro_torch.core.policy import from_label
@@ -1139,11 +1154,9 @@ def phase10(torch, np, swf, g_state, g_cfg, dev="cuda", nodes=11200,
     d0, d6 = metrics.np_state(fc0), metrics.np_state(g_state)
     for fld in ("energy", "n_batches", "n_switch_on", "n_switch_off"):
         check(np.array_equal(d0[fld], d6[fld]), f"phase 10: horizon 0 {fld} == phase 6's")
-    prof10 = {name: profile_batches(torch, engine, plat, wl, cfg, dev=dev)
-              for name, plat, wl, cfg in (
-                  ("phase 6 EASY PSUS", curie, fc_wl, g_cfg),
-                  ("forecast", curie, fc_wl, fc_cfg),
-                  ("dvfs", dvfs_plat, dvfs_wl, dv_cfg))}
+    # one profiled window, the Forecast run's (the phase 6 and DVFS windows
+    # are cut for time, to pay for phase 17)
+    prof10 = {"forecast": profile_batches(torch, engine, curie, fc_wl, fc_cfg, dev=dev)}
     fc, dv = runs10["forecast"], runs10["dvfs"]
     fc_by_kernel, dv_by_kernel = fc["by_kernel"], dv["by_kernel"]
     fm, dm = fc["m"], dv["m"]
@@ -1466,6 +1479,32 @@ RL_STEPS = 256  # batched steps of phase 12 (a)
 RL_ROWS = (0, 15)  # rows held against their own HPCGymEnv episodes
 
 
+def curie_rl_batch(swf, dev="cuda", nodes=11200, envs=RL_ENVS, window=RL_WINDOW):
+    """Phase 12 (a)'s env batch: ``envs`` envs of ``curie_platform(nodes)``,
+    each on one of as many consecutive ``window``-job windows of the trace,
+    EASY RL:groups at a 600 s decision interval. Returns (platform,
+    workloads, EnvConfig, const, ``[envs]`` initial states)."""
+    from repro_torch.core import engine
+    from repro_torch.core.policy import RLController
+    from repro_torch.core.rl import a2c, env
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.workloads.platform import curie_platform
+    from repro_torch.workloads.traces import rebase_submit_times, replay_workload
+    from repro_torch.workloads.workload import Workload
+    plat = curie_platform(nodes)
+    trace = replay_workload(swf, nb_nodes=nodes, oversize="clamp", max_jobs=envs * window)
+    wls = [rebase_submit_times(Workload(nodes, trace.jobs[i * window:(i + 1) * window]))
+           for i in range(envs)]
+    cfg = env.EnvConfig(
+        engine=EngineConfig(policy=RLController(grouped=True), rl_decision_interval=600,
+                            grouped_tables=True),
+        feature="compact_groups", action="group_target_fraction",
+        reward="group_waste_wait", n_groups=plat.n_groups(), max_steps=512)
+    cfg = dataclasses.replace(cfg, engine=engine.trim_window(cfg.engine, window))
+    const = engine.make_const(plat, cfg.engine, device=dev)
+    return plat, wls, cfg, const, a2c.make_batched_sims(plat, wls, cfg, device=dev)
+
+
 def phase12(torch, np, swf, tmp, dev="cuda", nodes=11200):
     """Phase 12: the RL stack on ``dev``. (a) the grouped env over 16 Curie
     windows, rows 0 and 15 against their own single envs; (b) A2C on it;
@@ -1486,8 +1525,6 @@ def phase12(torch, np, swf, tmp, dev="cuda", nodes=11200):
     from repro_torch.workloads.platform import (
         PlatformSpec, curie_platform, dvfs_platform_example,
     )
-    from repro_torch.workloads.traces import rebase_submit_times, replay_workload
-    from repro_torch.workloads.workload import Workload
 
     t12 = time.perf_counter()
     check(torch.get_float32_matmul_precision() == "highest",
@@ -1508,19 +1545,7 @@ def phase12(torch, np, swf, tmp, dev="cuda", nodes=11200):
               f"phase 12 {part}: launches {got}, {want} {kname} expected")
 
     # ---- (a) the grouped env over 16 Curie windows ----
-    plat = curie_platform(nodes)
-    trace = replay_workload(swf, nb_nodes=nodes, oversize="clamp",
-                            max_jobs=RL_ENVS * RL_WINDOW)
-    wls = [rebase_submit_times(Workload(nodes, trace.jobs[i * RL_WINDOW:(i + 1) * RL_WINDOW]))
-           for i in range(RL_ENVS)]
-    cfg = env.EnvConfig(
-        engine=EngineConfig(policy=RLController(grouped=True), rl_decision_interval=600,
-                            grouped_tables=True),
-        feature="compact_groups", action="group_target_fraction",
-        reward="group_waste_wait", n_groups=plat.n_groups(), max_steps=512)
-    cfg = dataclasses.replace(cfg, engine=engine.trim_window(cfg.engine, RL_WINDOW))
-    const = engine.make_const(plat, cfg.engine, device=dev)
-    sims0 = a2c.make_batched_sims(plat, wls, cfg, device=dev)
+    plat, wls, cfg, const, sims0 = curie_rl_batch(swf, dev, nodes)
     grid = env.make_env_grid(const, RL_ENVS)
     actions = ((3 * torch.arange(RL_STEPS, device=dev)[:, None]
                 + torch.arange(RL_ENVS, device=dev)) % cfg.n_actions).to(torch.int32)
@@ -2783,6 +2808,202 @@ def phase16(torch, np, fused_runs, swf, dev="cuda"):
     return out
 
 
+SHARD_UPDATES = 2  # phase 17 (c): A2C updates on two workers
+SHARD_TOL = 1e-6  # (c): parameters against the in-process per-block mean
+SHARD_CARDS = (0, 0)  # phase 17 (b)-(c): two workers pinned to card 0
+
+
+def start_workers(torch, dev="cuda"):
+    """Start phase 17's two workers on card 0 (``SHARD_CARDS``) without
+    waiting: each initialises CUDA, then reports its clock. Returns (the
+    submit time, the calls); :func:`phase17` reads the start-up from them,
+    so the workers start while an earlier phase runs."""
+    from repro_torch.core import shard
+    t0 = time.time()
+    with shard.pinned_cards(SHARD_CARDS):
+        mesh = shard.mesh(len(SHARD_CARDS), dev)
+    calls = []
+    for d in range(len(mesh)):
+        if dev == "cuda":
+            mesh.submit(d, torch.cuda.init)
+        calls.append(mesh.submit(d, time.time))
+    return t0, calls
+
+
+def phase17(torch, np, swf, e8_rows, warm, dev="cuda", nodes=11200,
+            max_jobs=SWEEP_JOBS, rl=(RL_ENVS, RL_WINDOW)):
+    """Phase 17: sharded sweeps and data-parallel rollouts, one worker
+    process per card (``repro_torch.core.shard``). (a) phase 11's dense E =
+    8 grid (``max_jobs`` jobs of phase 5's inputs) at ``devices=1``, on one
+    worker; (b) the same grid on two workers pinned to card 0; each row bit
+    for bit phase 11's (``e8_rows``); (c) ``SHARD_UPDATES`` A2C updates of
+    phase 12 (a)'s grouped batch on two workers on card 0, the parameters
+    within ``SHARD_TOL`` of the same updates in this process (each block's
+    rollout with its block's generator, the gradients' mean, one clip and
+    one AdamW step), the losses finite; (d) with two cards or more, (a) at
+    D = the card count, one worker a card. ``warm`` is
+    :func:`start_workers`' handle. Returns each part's event-kernel
+    launches, by kernel, counted from the workers' deltas."""
+    import copy
+
+    from repro_torch.core import engine, shard, sweep
+    from repro_torch.core.policy import from_label
+    from repro_torch.core.rl import a2c, env, networks
+    from repro_torch.core.types import EngineConfig
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.training.optimizer import adamw, apply_updates, clip_by_global_norm
+    from repro_torch.workloads.generator import PRESETS, generate_workload
+    from repro_torch.workloads.platform import PlatformSpec
+    t17 = time.perf_counter()
+    cuda = dev == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def reset_counts():
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        engine.HOST_SYNCS = 0
+
+    t_submit, calls = warm
+    up = max(c.result() for c in calls) - t_submit
+    print(f"phase 17 workers: {len(SHARD_CARDS)} started on cards {list(SHARD_CARDS)} "
+          f"beside phase 16, each up (spawned, the port imported, CUDA initialised) "
+          f"{up:.2f} s after the start", flush=True)
+
+    by_part = {}
+    plat = PlatformSpec(nb_nodes=nodes)
+    wl = generate_workload(dataclasses.replace(
+        PRESETS["cea_curie"], n_jobs=max_jobs, nb_res=nodes,
+        max_res=min(PRESETS["cea_curie"].max_res, nodes)))
+    base, pol = from_label("EASY PSUS")
+    cfg = EngineConfig(base=base, policy=pol, timeout=1800)
+    scen = sweep_grid(8)
+
+    def grid_part(part, cards):
+        """The dense grid on workers pinned to ``cards``: its rows against
+        phase 11's, one ledger launch an iteration of each block."""
+        with shard.pinned_cards(cards):
+            reset_counts()
+            t0 = time.perf_counter()
+            b = sweep.sweep(plat, wl, scen, cfg, devices=len(cards), device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+        launches = dict(event_fuse.LAUNCHES)
+        by_part[part] = launches
+        nb = b.states.n_batches.cpu().numpy()
+        iters = [int(nb[lo:hi].max()) for lo, hi in shard.block_bounds(len(scen), len(cards))
+                 if hi > lo]
+        check(b.devices == len(cards) and not b.states.truncated.any(),
+              f"phase 17 {part}: devices {b.devices}, truncated rows")
+        check((not cuda or launches["event_fuse_ledger"] == sum(iters))
+              and all(v == 0 for k, v in launches.items() if k != "event_fuse_ledger")
+              and fa.LAUNCHES["flash_attention"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0,
+              f"phase 17 {part}: launches {launches}, {sum(iters)} ledger expected "
+              f"(the blocks' iterations {iters})")
+        check(engine.HOST_SYNCS >= sum(iters),
+              f"phase 17 {part}: {engine.HOST_SYNCS} host syncs for {iters} iterations")
+        bad = [(sc["scheduler"], sc["timeout"]) for sc, m in zip(scen, b.metrics)
+               if m.row() != e8_rows[sc["scheduler"], sc["timeout"]]]
+        check(not bad, f"phase 17 {part}: rows {bad} != phase 11's dense E=8 rows")
+        print(f"phase 17 {part}: phase 11's dense E=8 grid ({len(scen)} scenarios, "
+              f"{plat.nb_nodes} nodes, {len(wl)} jobs) on {len(cards)} worker(s), cards "
+              f"{list(cards)}: wall {wall:.2f} s "
+              f"({wall / len(scen):.3f} s a scenario); the blocks' iterations {iters}, "
+              f"event_fuse_ledger launches {launches['event_fuse_ledger']}, host syncs "
+              f"{engine.HOST_SYNCS}; every row == phase 11's bit for bit", flush=True)
+
+    grid_part("(a)", SHARD_CARDS[:1])
+    grid_part("(b)", SHARD_CARDS)
+
+    # ---- (c) A2C on two workers on card 0 ----
+    envs, window = rl
+    _, _, ecfg, const, sims0 = curie_rl_batch(swf, dev, nodes, envs, window)
+    acfg = a2c.A2CConfig(n_envs=envs, n_steps=16)
+    key = torch.Generator(device=dev).manual_seed(acfg.seed)
+    params = networks.policy_init(key, ecfg.obs_size, ecfg.n_actions, acfg.hidden)
+    ref = copy.deepcopy(params)
+    with shard.pinned_cards(SHARD_CARDS):
+        t0 = time.perf_counter()
+        update, opt = a2c.make_update_fn(ecfg, const, sims0, acfg, devices=2)
+        open_s = time.perf_counter() - t0
+        ts = a2c.TrainState(params, opt.init(params.parameters()), None, None, key)
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = []
+        for _ in range(SHARD_UPDATES):
+            ts, m = update(ts)
+            hist.append({k: float(v) for k, v in m.items()})
+        sync()
+        a2c_wall = time.perf_counter() - t0
+        halves = env.shard_env_batch(sims0, 2)  # the workers' blocks
+    launches = dict(event_fuse.LAUNCHES)
+    by_part["(c)"] = launches
+    want = SHARD_UPDATES * acfg.n_steps * 2
+    check((not cuda or launches["event_fuse_occ"] == want)
+          and all(v == 0 for k, v in launches.items() if k != "event_fuse_occ"),
+          f"phase 17 (c): launches {launches}, {want} event_fuse_occ expected")
+    check(all(np.isfinite(h["loss"]) for h in hist), f"phase 17 (c): losses {hist}")
+    # the same updates in this process: each block's rollout with its
+    # block's generator, the mean of the two blocks' gradients, one step
+    blocks = []
+    for d, blk in enumerate(halves):
+        grid, fresh = a2c._grid_and_reset(ecfg, const, blk)
+        blocks.append([grid, fresh, fresh, torch.Generator(device=dev).manual_seed(
+            a2c.shard_seed(acfg.seed, d))])
+    ref_params = list(ref.parameters())
+    ref_opt = adamw(lr=acfg.lr)
+    ref_state = ref_opt.init(ref_params)
+    for _ in range(SHARD_UPDATES):
+        grads = []
+        for blk in blocks:
+            grid, fresh, (states, obs), gen = blk
+            states, obs, roll = a2c.collect_rollout(ref, states, obs, gen, fresh, ecfg,
+                                                    grid, acfg.n_steps)
+            blk[2] = (states, obs)
+            advs, returns = a2c.gae(roll, acfg.gamma, acfg.gae_lambda)
+            loss, _ = a2c.a2c_loss(ref, roll, advs, returns, acfg)
+            grads.append(torch.autograd.grad(loss, ref_params))
+        mean = [a2c.mean_in_order(g) for g in zip(*grads)]
+        mean, _ = clip_by_global_norm(mean, acfg.max_grad_norm)
+        updates, ref_state = ref_opt.update(mean, ref_state, ref_params)
+        apply_updates(ref_params, updates)
+    with torch.no_grad():
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(params.parameters(), ref_params))
+        moved = sum(float((a - b).abs().sum()) for a, b in zip(
+            params.parameters(), networks.policy_init(
+                torch.Generator(device=dev).manual_seed(acfg.seed), ecfg.obs_size,
+                ecfg.n_actions, acfg.hidden).parameters()))
+    check(diff <= SHARD_TOL and moved > 0,
+          f"phase 17 (c): parameters {diff} from the in-process per-block mean "
+          f"(tolerance {SHARD_TOL}), moved {moved}")
+    print(f"phase 17 (c) A2C: {envs} envs of curie_platform({nodes}) (phase 12 (a)'s "
+          f"batch) on 2 workers on card 0, {envs // 2} envs each: blocks opened (grid "
+          f"and reset in each worker) in {open_s:.2f} s; "
+          f"{SHARD_UPDATES} updates of {acfg.n_steps} steps in {a2c_wall:.2f} s = "
+          f"{a2c_wall / SHARD_UPDATES:.3f} s an update; event_fuse_occ launches "
+          f"{launches['event_fuse_occ']} (= {SHARD_UPDATES} x {acfg.n_steps} x 2); "
+          f"losses {[round(h['loss'], 6) for h in hist]}; parameters max abs diff "
+          f"{diff:.3g} from the same updates in this process (tolerance {SHARD_TOL}), "
+          f"moved {moved:.4f} (sum |delta|)", flush=True)
+    del update, ts, blocks
+
+    # ---- (d) one worker a card ----
+    n_cards = torch.cuda.device_count() if cuda else 1
+    if n_cards >= 2:
+        grid_part("(d)", list(range(n_cards)))
+    else:
+        print(f"phase 17 (d): {n_cards} card, so no grid on distinct cards", flush=True)
+    shard.shutdown()
+    print(f"phase 17 wall {time.perf_counter() - t17:.1f} s", flush=True)
+    return by_part
+
+
 def main() -> None:
     import torch
 
@@ -3822,7 +4043,12 @@ def main() -> None:
 
     # ---- 16. mixed block programs, standalone stages, the legacy loop ----
     torch.cuda.empty_cache()
+    warm17 = start_workers(torch)  # phase 17's workers start beside it
     p16 = phase16(torch, np, label_runs, swf)
+
+    # ---- 17. sharded sweeps and rollouts, one worker process per card ----
+    torch.cuda.empty_cache()
+    p17 = phase17(torch, np, swf, e8_rows, warm17)
 
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
@@ -3854,6 +4080,7 @@ def main() -> None:
             **{f"phase 12 {part}": got[kname] for part, got in rl_by_part.items()},
             **{f"phase 13 {part}": got[kname] for part, got in exp_by_part.items()},
             "phase 16 legacy": p16["legacy"][kname],
+            **{f"phase 17 sharded {part}": got[kname] for part, got in p17.items()},
         }
         if note:
             row["note"] = note

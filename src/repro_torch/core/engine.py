@@ -21,8 +21,8 @@ legacy one (``fused_events=False``: ``next_time`` decides each batch and
 :func:`accrue_energy` re-gathers the draw, with no quiet batches and no
 event kernel, the reference's baseline loop). ``devices`` is ignored, as
 the reference's single run ignores it; the batched sweep over a scenario
-axis is ``core/sweep.py``, and it refuses more than one device (ROADMAP
-item 8b).
+axis is ``core/sweep.py``, which shards its rows over ``devices`` worker
+processes, one per card (``core/shard.py``).
 
 Loop structure and host syncs. The reference runs the whole simulation
 inside one ``lax.while_loop`` on the device. Eager PyTorch needs a host read
@@ -215,10 +215,10 @@ class GanttLog(NamedTuple):
 def check_supported(config: EngineConfig) -> None:
     """The single run takes every configuration: this check refuses none.
 
-    ``devices`` places a sweep's scenario axis and is ignored here, as the
-    reference's ``simulate`` ignores it (the field enters only its jit key).
-    The sweep, the batched RL env, the runner and the service refuse D > 1
-    themselves (``sweep.check_supported``, ROADMAP Queue 1 item 8b)."""
+    ``devices`` places a sweep's scenario axis, or a learner's env batch,
+    over worker processes (``core/shard.py``) and is ignored here, as the
+    reference's ``simulate`` ignores it (the field enters only its jit
+    key)."""
     del config
 
 

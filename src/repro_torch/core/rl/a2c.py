@@ -16,16 +16,33 @@ batch's reset state, which is a pure function of the constant initial
 states, so it is computed once per update function and its rows are
 selected with ``torch.where`` (the reference re-runs the reset every step;
 the result is the same bit for bit).
+
+Data-parallel rollouts (``devices`` = D > 1, the reference's ``shard_map``
+over a 1-D ``("env",)`` mesh): the ``[B]`` batch is cut into D blocks
+(``env.shard_env_batch``) and worker ``d`` of ``env.rollout_mesh(D)``, one
+process per card, keeps block ``d``: its grid, reset state, env states
+and its own ``torch.Generator``, seeded :func:`shard_seed` ``(seed, d)``
+(the reference folds the mesh index into a split of its key). An update
+sends the parameters to every worker; each rolls out ``n_steps`` on its
+block, computes GAE, the loss and its gradients, and returns them and its
+metrics on the CPU. The parent averages the gradients in worker order as
+``sum / D`` (the reference's ``pmean``), clips them and applies AdamW
+once, so every replica's parameters are the same by construction; the
+metrics are averaged the same way (``grad_norm`` is the clip's, of the
+averaged gradients). ``TrainState.env_states`` and ``obs`` are None there:
+the workers hold them.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import engine, sweep
+from repro_torch.core import engine, shard, sweep
 from repro_torch.core.engine import EngineConst, SimState
 from repro_torch.core.rl.env import (
     EnvConfig,
@@ -33,8 +50,9 @@ from repro_torch.core.rl.env import (
     batched_reset,
     batched_step,
     make_env_grid,
+    resolve_rollout_devices,
+    rollout_mesh,
     shard_env_batch,
-    single_device,
     stack_sims,
 )
 from repro_torch.core.rl.networks import ActorCritic, policy_init
@@ -185,6 +203,105 @@ def _grid_and_reset(env_cfg: EnvConfig, const: EngineConst, sims0: SimState):
     return grid, batched_reset(env_cfg, grid, sims0)
 
 
+def shard_seed(seed: int, d: int) -> int:
+    """The seed of block ``d``'s generator in a data-parallel rollout: the
+    first 32-bit word of numpy's ``SeedSequence((seed, d))``, so each block
+    draws its own actions (and PPO its own minibatches), as the reference's
+    ``fold_in(split(key)[1], d)`` gives each shard its own key."""
+    return int(np.random.SeedSequence((seed, d)).generate_state(1, np.uint32)[0])
+
+
+def mean_in_order(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``(xs[0] + xs[1] + ...) / len(xs)``, added in that order (the
+    reference's ``pmean`` over the mesh)."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc / len(xs)
+
+
+def _a2c_grads(params: ActorCritic, env_states, obs, key, fresh, env_cfg, grid,
+               cfg: A2CConfig):
+    """One block's part of an update: the rollout, GAE, the loss and its
+    gradients. Returns (env states, obs, gradients, metrics)."""
+    env_states, obs, roll = collect_rollout(
+        params, env_states, obs, key, fresh, env_cfg, grid, cfg.n_steps)
+    advs, returns = gae(roll, cfg.gamma, cfg.gae_lambda)
+    loss, aux = a2c_loss(params, roll, advs, returns, cfg)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    mask = roll.live.to(F32)
+    metrics = {
+        "loss": loss.detach(),
+        "mean_reward": torch.sum(roll.rewards * mask)
+        / torch.clamp(torch.sum(mask), min=1.0),
+        **{k: v.detach() for k, v in aux.items()},
+    }
+    return env_states, obs, grads, metrics
+
+
+def _apply(opt, grads, opt_state, params: ActorCritic, max_grad_norm: float):
+    """Clip ``grads`` and take one optimizer step on ``params`` in place;
+    returns (optimizer state, gradient norm)."""
+    params = list(params.parameters())
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    updates, opt_state = opt.update(grads, opt_state, params)
+    apply_updates(params, updates)
+    return opt_state, gnorm
+
+
+def _a2c_metrics(metrics: dict, gnorm) -> dict:
+    """The reference's metrics, in its order."""
+    return {"loss": metrics["loss"], "grad_norm": gnorm,
+            **{k: v for k, v in metrics.items() if k != "loss"}}
+
+
+class _Block:
+    """A shard worker's env block: its grid, reset state, env states and
+    generator on the worker's card (``env_states`` and ``obs`` advance with
+    every update; PPO keeps its rollout's samples and permutation here)."""
+
+    def __init__(self, env_cfg: EnvConfig, const: EngineConst, sims0: SimState,
+                 seed: int):
+        dev = shard.worker_device()
+        const, sims0 = shard.to_device((const, sims0), dev)
+        self.env_cfg = env_cfg
+        self.grid, self.fresh = _grid_and_reset(env_cfg, const, sims0)
+        self.env_states, self.obs = self.fresh
+        self.key = torch.Generator(device=dev).manual_seed(seed)
+        self.data = self.perm = None
+
+    def rollout(self, params: ActorCritic, n_steps: int) -> Rollout:
+        self.env_states, self.obs, roll = collect_rollout(
+            params, self.env_states, self.obs, self.key, self.fresh, self.env_cfg,
+            self.grid, n_steps)
+        return roll
+
+
+def _model_to(params: ActorCritic, device) -> ActorCritic:
+    """A copy of the policy on ``device`` (how it crosses to a worker)."""
+    return copy.deepcopy(params).to(device)
+
+
+def _block_a2c(blk: _Block, params: ActorCritic, cfg: A2CConfig):
+    """A worker's part of a data-parallel A2C update (module docstring)."""
+    params = params.to(shard.worker_device())
+    blk.env_states, blk.obs, grads, metrics = _a2c_grads(
+        params, blk.env_states, blk.obs, blk.key, blk.fresh, blk.env_cfg, blk.grid,
+        cfg)
+    return shard.to_host((list(grads), metrics))
+
+
+def _open_blocks(env_cfg: EnvConfig, const: EngineConst, sims0: SimState, seed: int,
+                D: int) -> shard.Resident:
+    """The D blocks of ``sims0`` kept by the workers of ``rollout_mesh(D)``
+    on ``const``'s device type, block ``d`` seeded ``shard_seed(seed, d)``."""
+    blocks = shard_env_batch(sims0, D, env_cfg.engine)
+    mesh = rollout_mesh(D, const.power.device)
+    const = shard.to_host(const)
+    return mesh.resident(_Block, [(env_cfg, const, shard.to_host(b), shard_seed(seed, d))
+                                  for d, b in enumerate(blocks)])
+
+
 def make_update_fn(
     env_cfg: EnvConfig,
     const: EngineConst,
@@ -195,37 +312,44 @@ def make_update_fn(
 ) -> Tuple[Callable[[TrainState], Tuple[TrainState, dict]], Any]:
     """The A2C update over the env batch ``sims0`` (``[B]`` initial states
     on ``const``): returns ``(update, optimizer)``; ``update(ts)`` returns
-    the next :class:`TrainState` and the metrics (device scalars)."""
+    the next :class:`TrainState` and the metrics (device scalars).
+
+    ``devices`` (None falls back to ``env_cfg.engine.devices``; an int D or
+    ``"all"``; None and 1 run in this process) shards the batch over D
+    worker processes (module docstring); B must divide by D."""
     opt = optimizer or adamw(lr=cfg.lr)
-    single_device(devices, env_cfg.engine)
+    D = resolve_rollout_devices(devices, env_cfg.engine, cfg.n_envs, const.power.device)
+    if D is not None:
+        return _sharded_a2c(env_cfg, const, sims0, cfg, opt, D), opt
     grid, fresh = _grid_and_reset(env_cfg, const, sims0)
 
     def update(ts: TrainState) -> Tuple[TrainState, dict]:
-        env_states, obs, roll = collect_rollout(
-            ts.params, ts.env_states, ts.obs, ts.key, fresh, env_cfg, grid,
-            cfg.n_steps,
-        )
-        advs, returns = gae(roll, cfg.gamma, cfg.gae_lambda)
-        params = list(ts.params.parameters())
-        loss, aux = a2c_loss(ts.params, roll, advs, returns, cfg)
-        grads = torch.autograd.grad(loss, params)
-        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
-        updates, opt_state = opt.update(grads, ts.opt_state, params)
-        apply_updates(params, updates)
-        mask = roll.live.to(F32)
-        metrics = {
-            "loss": loss.detach(),
-            "grad_norm": gnorm,
-            "mean_reward": torch.sum(roll.rewards * mask)
-            / torch.clamp(torch.sum(mask), min=1.0),
-            **{k: v.detach() for k, v in aux.items()},
-        }
-        return TrainState(ts.params, opt_state, env_states, obs, ts.key), metrics
+        env_states, obs, grads, metrics = _a2c_grads(
+            ts.params, ts.env_states, ts.obs, ts.key, fresh, env_cfg, grid, cfg)
+        opt_state, gnorm = _apply(opt, grads, ts.opt_state, ts.params, cfg.max_grad_norm)
+        return (TrainState(ts.params, opt_state, env_states, obs, ts.key),
+                _a2c_metrics(metrics, gnorm))
 
     return update, opt
 
 
-def _setup(platform, workloads, env_cfg, n_envs, seed, hidden, devices, device):
+def _sharded_a2c(env_cfg, const, sims0, cfg: A2CConfig, opt, D: int):
+    blocks = _open_blocks(env_cfg, const, sims0, cfg.seed, D)
+
+    def update(ts: TrainState) -> Tuple[TrainState, dict]:
+        dev = next(ts.params.parameters()).device
+        outs = blocks.call(_block_a2c, _model_to(ts.params, "cpu"), cfg)
+        grads = [mean_in_order(g).to(dev) for g in zip(*[o[0] for o in outs])]
+        metrics = {k: mean_in_order([o[1][k] for o in outs]).to(dev) for k in outs[0][1]}
+        opt_state, gnorm = _apply(opt, grads, ts.opt_state, ts.params, cfg.max_grad_norm)
+        return (TrainState(ts.params, opt_state, None, None, ts.key),
+                _a2c_metrics(metrics, gnorm))
+
+    update.blocks = blocks  # the workers' blocks live as long as the update
+    return update
+
+
+def _setup(platform, workloads, env_cfg, n_envs, seed, hidden, device):
     """The shared set-up of the learners: const, the ``[n_envs]`` initial
     states (workloads repeated to fill the batch), the generator and the
     initial policy."""
@@ -234,17 +358,16 @@ def _setup(platform, workloads, env_cfg, n_envs, seed, hidden, devices, device):
     wls = list(workloads)
     if len(wls) < n_envs:
         wls = (wls * ((n_envs + len(wls) - 1) // len(wls)))[:n_envs]
-    sims0 = shard_env_batch(
-        make_batched_sims(platform, wls[:n_envs], env_cfg, device=dev),
-        devices, env_cfg.engine,
-    )
+    sims0 = make_batched_sims(platform, wls[:n_envs], env_cfg, device=dev)
     key = torch.Generator(device=dev).manual_seed(seed)
     params = policy_init(key, env_cfg.obs_size, env_cfg.n_actions, hidden)
     return const, sims0, key, params
 
 
 def _train(update, opt, env_cfg, const, sims0, params, key, n_updates, progress):
-    env_states, obs = _grid_and_reset(env_cfg, const, sims0)[1]
+    # a sharded update's workers hold the env states (``update.blocks``)
+    env_states, obs = (None, None) if hasattr(update, "blocks") else (
+        _grid_and_reset(env_cfg, const, sims0)[1])
     ts = TrainState(params, opt.init(params.parameters()), env_states, obs, key)
     history = []
     for i in range(n_updates):
@@ -266,10 +389,11 @@ def train_a2c(
     device: DeviceLike = None,
 ):
     """Paper-scale A2C training on ``device`` (``cuda`` unless the caller
-    passes ``"cpu"``). Returns (params, history)."""
+    passes ``"cpu"``). Returns (params, history). ``devices`` shards the
+    ``n_envs`` rollout batch over worker processes, one per card
+    (:func:`make_update_fn`)."""
     const, sims0, key, params = _setup(
-        platform, workloads, env_cfg, cfg.n_envs, cfg.seed, cfg.hidden,
-        devices, device,
+        platform, workloads, env_cfg, cfg.n_envs, cfg.seed, cfg.hidden, device,
     )
     update, opt = make_update_fn(env_cfg, const, sims0, cfg, devices=devices)
     return _train(update, opt, env_cfg, const, sims0, params, key, cfg.n_updates,

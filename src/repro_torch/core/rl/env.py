@@ -9,9 +9,10 @@ the sweep's :class:`~repro_torch.core.sweep.Grid` (``core/sweep.py``), one
 shared const laid out once as stride-0 tables (:func:`make_env_grid`), so
 row ``b`` of a batched step equals the single step of that environment bit
 for bit, under every engine option the single env runs (``node_order=
-"pack"``, ``allocation="partition"`` and ``merge_bursts`` included). A
-config the sweep refuses (more than one device) raises at
-:func:`batched_reset`, naming its ROADMAP item, instead of running. The
+"pack"``, ``allocation="partition"`` and ``merge_bursts`` included). The
+batched env is one device's: the learners shard an env batch over worker
+processes, one per card (:func:`shard_env_batch`, :func:`rollout_mesh`,
+``core/rl/a2c.py``), each worker stepping its block on these functions. The
 agent acts at every simulation event, plus the periodic decision tick of
 ``rl_decision_interval``.
 
@@ -43,7 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import engine, sweep
+from repro_torch.core import engine, shard, sweep
 from repro_torch.core.engine import EngineConst, SimState
 from repro_torch.core.policy import (
     RLController,
@@ -196,11 +197,7 @@ def stack_sims(sims) -> SimState:
 
 
 def batched_reset(cfg: EnvConfig, grid: sweep.Grid, sims0: SimState):
-    """:func:`env_reset` of every row of ``sims0`` (``[B]`` state). A config
-    the sweep does not run raises here (``sweep.check_supported``), once a
-    rollout, not in the step loop."""
-    sweep.check_supported(cfg.engine, sweep._resolve_devices(
-        None, cfg.engine, grid.const.power.device))
+    """:func:`env_reset` of every row of ``sims0`` (``[B]`` state)."""
     B = sims0.t.shape[0]
     sim = sweep.process_batch(sims0, grid, cfg.engine, [True] * B, None)
     state = EnvState(sim=sim, steps=torch.zeros_like(sim.n_batches),
@@ -228,32 +225,61 @@ def batched_step(cfg: EnvConfig, grid: sweep.Grid, states: EnvState, actions):
     return _finish(cfg, const, states, prev, sim, can_advance, sweep.all_done(sim))
 
 
-def single_device(devices, engine_cfg: Optional[EngineConfig] = None) -> None:
-    """Check that a rollout runs on one device: ``devices`` (None falls back
-    to ``engine_cfg.devices``; an int or ``"all"``) above one raises,
-    naming ROADMAP item 8b."""
-    if devices is None:
-        devices = (engine_cfg or EngineConfig()).devices
-    if devices is None:
-        return
-    D = max(torch.cuda.device_count(), 1) if devices == "all" else int(devices)
-    if D > 1:
-        raise NotImplementedError(
-            f"RL rollouts over {D} devices are not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 8b); run them on one device"
+def _leaves(tree) -> list:
+    out = []
+    shard.tree_map(lambda x: out.append(x) or x, tree)
+    return out
+
+
+def resolve_rollout_devices(devices, engine_cfg: Optional[EngineConfig],
+                            n_envs: int, device) -> Optional[int]:
+    """The rollout device count (the reference's ``_resolve_rollout_devices``):
+    ``devices`` follows the sweep's contract (None falls back to
+    ``engine_cfg.devices``; an int or ``"all"``); None or 1 is unsharded
+    (None), and ``n_envs`` must divide by the count."""
+    D = sweep._resolve_devices(devices, engine_cfg or EngineConfig(),
+                               torch.device(device))
+    if D is None or D == 1:
+        return None
+    if n_envs % D:
+        raise ValueError(
+            f"n_envs={n_envs} does not shard evenly across {D} devices; "
+            "size the env batch to a device multiple"
         )
+    return D
 
 
-def rollout_mesh(D: int):
-    """The reference's 1-D device mesh for RL rollouts: one device only."""
-    single_device(D)
+def rollout_mesh(D: int, device: DeviceLike = None):
+    """The D worker processes, one per card of ``device``'s type (``cuda``
+    unless the caller passes ``"cpu"``), that the learners shard an env
+    batch over: the reference's 1-D ``("env",)`` device mesh
+    (``core/shard.py``)."""
+    return shard.mesh(D, resolve_device(device))
 
 
 def shard_env_batch(tree, devices=None, engine_cfg: Optional[EngineConfig] = None):
-    """The reference's placement of an env batch over devices: on one
-    device ``tree`` stays as it is; more raise naming ROADMAP item 8b."""
-    single_device(devices, engine_cfg)
-    return tree
+    """Cut a stacked env batch (every tensor's leading axis B) into the
+    blocks of a 1-D device mesh (the reference's placement over its
+    ``("env",)`` mesh): ``devices`` follows the sweep's contract (None falls
+    back to ``engine_cfg.devices``, unsharded when that is None too; an int
+    D or ``"all"``). Unsharded or D = 1, ``tree`` comes back as it is; else a
+    tuple of D trees, block ``d`` rows ``[d B/D, (d + 1) B/D)`` (compact
+    copies, each the size of its block). B must divide by D: env batches
+    are caller-sized (``n_envs``), so no pad rows."""
+    leaves = _leaves(tree)
+    D = sweep._resolve_devices(devices, engine_cfg or EngineConfig(),
+                               leaves[0].device)
+    if D is None or D == 1:
+        return tree
+    B = leaves[0].shape[0]
+    if B % D:
+        raise ValueError(
+            f"env batch of {B} does not shard evenly across {D} devices; "
+            "size n_envs to a device multiple"
+        )
+    b = B // D
+    return tuple(shard.tree_map(lambda x, d=d: x[d * b:(d + 1) * b].clone(), tree)
+                 for d in range(D))
 
 
 class HPCGymEnv:

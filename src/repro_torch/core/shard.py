@@ -1,0 +1,394 @@
+"""Worker processes, one per card — the port's counterpart of the JAX
+reference's 1-D device mesh (its ``core/SEMANTICS.md`` §Device-sharded
+sweeps).
+
+The reference lowers a sweep's ``[K]`` scenario axis, or an RL env batch,
+onto a ``jax.sharding.Mesh`` and runs one program on every device. Eager
+PyTorch issues every op from the host, and the port's loops are bound by
+that dispatch, so one host thread driving D cards would issue D times the
+ops and gain nothing. Here a :class:`Mesh` is D worker processes instead,
+each a single-worker executor on a ``spawn`` context running the port's
+single-card code on its own card:
+
+* a CUDA worker is pinned to its card by ``CUDA_VISIBLE_DEVICES``, set
+  before CUDA initialises in the worker, so it sees the card as ``cuda:0``
+  and runs on ``"cuda"``;
+* a CPU worker runs on ``"cpu"`` with one intra-op thread; D of them stand
+  in for the reference's forced host devices.
+
+Workers start at first use and are kept, keyed by (device type, card, slot),
+so later sweeps and updates reuse them (a service and a streamed run sweep
+many times); :func:`shutdown` stops them, and runs at exit. Only CPU tensors
+cross a process boundary, pickled by this module (:func:`dumps` refuses a
+CUDA tensor; no CUDA IPC): :func:`to_host` and :func:`to_device` move a
+tree's tensors keeping each tensor's storage layout (stride-0 views stay
+views) and which tensors share an object. A worker that raises re-raises in
+the parent with its traceback (the executor's ``__cause__``); a worker that
+dies raises :class:`RuntimeError`. No block is ever rerun in the parent.
+
+Each call sends back the worker's deltas of the launch counters
+(``event_fuse.LAUNCHES``, ``flash_attention.LAUNCHES``,
+``ssd_scan.LAUNCHES``) and of ``engine.HOST_SYNCS``; :meth:`Call.result`
+adds them to the parent's, so the counters count the whole grid.
+
+:func:`mesh` takes D and fills the card list with 0..D-1. Inside
+:func:`pinned_cards` it takes the given list instead (``[0, 0]``: two
+workers on one card), which is how ``chip_smoke.py`` drives two workers on
+a one-card machine; it is not a user option.
+"""
+from __future__ import annotations
+
+import atexit
+import concurrent.futures as cf
+import contextlib
+import io
+import itertools
+import multiprocessing
+import os
+import pickle
+import threading
+import weakref
+from concurrent.futures.process import BrokenProcessPool
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+# ---------------------------------------------------------------------------
+# the worker side
+# ---------------------------------------------------------------------------
+
+_WORKER_DEVICE: Optional[torch.device] = None  # set in a worker only
+_RESIDENT: Dict[int, Any] = {}  # a worker's state kept across calls, by token
+
+
+def _init_worker(device_type: str, visible: str) -> None:
+    """Executor initializer: pin a CUDA worker to its card before CUDA
+    initialises; one intra-op thread for a CPU worker."""
+    global _WORKER_DEVICE
+    if device_type == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible
+        if torch.cuda.device_count() != 1:
+            raise RuntimeError(
+                f"shard worker pinned to card {visible!r} sees "
+                f"{torch.cuda.device_count()} cards: CUDA initialised before "
+                "the pin"
+            )
+    else:
+        torch.set_num_threads(1)
+    _WORKER_DEVICE = torch.device(device_type)
+
+
+def worker_device() -> torch.device:
+    """The device of the worker this runs in (``"cuda"`` or ``"cpu"``)."""
+    if _WORKER_DEVICE is None:
+        raise RuntimeError("worker_device() is only defined inside a shard worker")
+    return _WORKER_DEVICE
+
+
+def _counters() -> Dict[str, Any]:
+    from repro_torch.core import engine
+    from repro_torch.kernels import event_fuse, flash_attention, ssd_scan
+
+    return {
+        "event_fuse": dict(event_fuse.LAUNCHES),
+        "flash_attention": dict(flash_attention.LAUNCHES),
+        "ssd_scan": dict(ssd_scan.LAUNCHES),
+        "host_syncs": engine.HOST_SYNCS,
+    }
+
+
+def _delta(before: Dict[str, Any], after: Dict[str, Any]) -> Dict[str, Any]:
+    out = {"host_syncs": after["host_syncs"] - before["host_syncs"]}
+    for k in ("event_fuse", "flash_attention", "ssd_scan"):
+        out[k] = {n: v - before[k].get(n, 0) for n, v in after[k].items()}
+    return out
+
+
+def _run(payload: bytes) -> bytes:
+    """A task in a worker: ``fn(*args)`` and the counters' deltas it made,
+    both pickled by :func:`dumps`."""
+    fn, args = pickle.loads(payload)
+    before = _counters()
+    out = fn(*args)
+    return dumps((out, _delta(before, _counters())), "a worker's result")
+
+
+def _open(token: int, opener: Callable, *args) -> None:
+    _RESIDENT[token] = opener(*args)
+
+
+def _apply(token: int, fn: Callable, *args):
+    return fn(_RESIDENT[token], *args)
+
+
+def _close(token: int) -> None:
+    _RESIDENT.pop(token, None)
+
+
+# ---------------------------------------------------------------------------
+# what crosses a process boundary
+# ---------------------------------------------------------------------------
+
+class _Pickler(pickle.Pickler):
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+            raise ValueError(
+                f"a {obj.device.type} tensor of shape {tuple(obj.shape)} cannot "
+                "cross to a shard worker: only CPU tensors do (move it with "
+                "shard.to_host)"
+            )
+        return NotImplemented
+
+
+def dumps(obj, what: str = "an argument") -> bytes:
+    """``obj`` pickled for a shard worker; ValueError, saying why, when it
+    holds a CUDA tensor or does not pickle (a lambda, a closure)."""
+    buf = io.BytesIO()
+    try:
+        _Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    except (pickle.PicklingError, TypeError, AttributeError) as e:
+        raise ValueError(
+            f"{what} does not pickle, and a shard worker receives everything "
+            f"pickled: {type(e).__name__}: {e}"
+        ) from e
+    return buf.getvalue()
+
+
+def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """``fn`` on every tensor of ``tree`` (tensors, tuples and named tuples,
+    lists, dicts); every other leaf unchanged."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    if isinstance(tree, list):
+        return [tree_map(fn, x) for x in tree]
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _mover(device: torch.device):
+    """A tensor mover to ``device`` that keeps each tensor's storage layout
+    (size, stride, offset: a stride-0 view stays one) and maps a tensor, and
+    a storage, that it has seen to the same result."""
+    memo: Dict[Any, Any] = {}
+
+    def move(x: torch.Tensor) -> torch.Tensor:
+        if x.device == device:
+            return x
+        if id(x) in memo:
+            return memo[id(x)][1]
+        s = x.untyped_storage()
+        skey = (x.device, s.data_ptr(), s.nbytes())
+        if skey not in memo:
+            raw = torch.empty(0, dtype=torch.uint8, device=x.device).set_(s)
+            memo[skey] = raw.to(device).untyped_storage()
+        y = torch.empty(0, dtype=x.dtype, device=device).set_(
+            memo[skey], x.storage_offset(), x.size(), x.stride())
+        memo[id(x)] = (x, y)  # keep x alive: its id must not be reused
+        return y
+
+    return move
+
+
+def to_host(tree):
+    """``tree`` with every tensor on the CPU (layout and sharing kept)."""
+    return tree_map(_mover(torch.device("cpu")), tree)
+
+
+def to_device(tree, device):
+    """``tree`` with every tensor on ``device`` (layout and sharing kept)."""
+    return tree_map(_mover(torch.device(device)), tree)
+
+
+# ---------------------------------------------------------------------------
+# the parent side
+# ---------------------------------------------------------------------------
+
+_WORKERS: Dict[Tuple[str, int, int], cf.ProcessPoolExecutor] = {}
+_LOCK = threading.Lock()
+_PINNED: Optional[Tuple[int, ...]] = None
+_TOKENS = itertools.count(1)
+
+
+def _add(delta: Dict[str, Any]) -> None:
+    from repro_torch.core import engine
+    from repro_torch.kernels import event_fuse, flash_attention, ssd_scan
+
+    engine.HOST_SYNCS += delta["host_syncs"]
+    for mod, k in ((event_fuse, "event_fuse"), (flash_attention, "flash_attention"),
+                   (ssd_scan, "ssd_scan")):
+        for n, v in delta[k].items():
+            mod.LAUNCHES[n] = mod.LAUNCHES.get(n, 0) + v
+
+
+def _visible_list() -> Optional[List[str]]:
+    v = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return None if v is None else [c.strip() for c in v.split(",") if c.strip()]
+
+
+def _worker(key: Tuple[str, int, int]) -> cf.ProcessPoolExecutor:
+    device_type, card, _ = key
+    with _LOCK:
+        ex = _WORKERS.get(key)
+        if ex is None:
+            parent = _visible_list()
+            visible = parent[card] if parent is not None else str(card)
+            ex = cf.ProcessPoolExecutor(
+                max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_init_worker, initargs=(device_type, visible),
+            )
+            _WORKERS[key] = ex
+        return ex
+
+
+def _drop(key) -> None:
+    with _LOCK:
+        ex = _WORKERS.pop(key, None)
+    if ex is not None:
+        ex.shutdown(wait=False, cancel_futures=True)
+
+
+def shutdown() -> None:
+    """Stop every worker (at exit, and between tests that want a cold pool)."""
+    with _LOCK:
+        workers = list(_WORKERS.values())
+        _WORKERS.clear()
+    for ex in workers:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+atexit.register(shutdown)
+
+
+class Call:
+    """A task on one worker. :meth:`result` waits, adds the worker's counter
+    deltas to the parent's (once) and returns what the task returned."""
+
+    def __init__(self, future: cf.Future, key, d: int):
+        self._future, self._key, self._d = future, key, d
+        self._done = False
+        self._out = None
+
+    def result(self):
+        if not self._done:
+            try:
+                raw = self._future.result()
+            except BrokenProcessPool as e:
+                _drop(self._key)
+                raise RuntimeError(
+                    f"shard worker {self._d} ({self._key[0]} card {self._key[1]}) "
+                    "died before it answered; nothing was rerun in the parent"
+                ) from e
+            out, delta = pickle.loads(raw)
+            _add(delta)
+            self._out, self._done = out, True
+        return self._out
+
+
+class Mesh:
+    """D workers, worker ``d`` on card ``cards[d]`` of ``device_type``."""
+
+    def __init__(self, device_type: str, cards: Sequence[int]):
+        self.device_type = device_type
+        self.cards = tuple(int(c) for c in cards)
+        seen: Dict[int, int] = {}
+        self._keys = []
+        for c in self.cards:
+            self._keys.append((device_type, c, seen.get(c, 0)))
+            seen[c] = seen.get(c, 0) + 1
+
+    def __len__(self) -> int:
+        return len(self.cards)
+
+    def submit(self, d: int, fn: Callable, *args) -> Call:
+        """``fn(*args)`` on worker ``d``; ``fn`` must be a module-level
+        function and ``args`` hold CPU tensors only."""
+        payload = dumps((fn, args), f"a call of {getattr(fn, '__name__', fn)!r}")
+        key = self._keys[d]
+        try:
+            future = _worker(key).submit(_run, payload)
+        except BrokenProcessPool as e:
+            _drop(key)
+            raise RuntimeError(f"shard worker {d} ({key[0]} card {key[1]}) is "
+                               "dead") from e
+        return Call(future, key, d)
+
+    def resident(self, opener: Callable, args: Sequence[tuple]) -> "Resident":
+        """State kept in the workers across calls: worker ``d`` keeps
+        ``opener(*args[d])``."""
+        return Resident(self, opener, args)
+
+
+class Resident:
+    """State that lives in the workers of a :class:`Mesh` under one token:
+    :meth:`call` runs ``fn(state_d, *args)`` on every worker and returns the
+    results in worker order; :meth:`close` frees it (also when the handle is
+    collected)."""
+
+    def __init__(self, mesh: Mesh, opener: Callable, args: Sequence[tuple]):
+        self.mesh, self.token = mesh, next(_TOKENS)
+        for c in [mesh.submit(d, _open, self.token, opener, *a)
+                  for d, a in enumerate(args)]:
+            c.result()
+        self._finalizer = weakref.finalize(self, _close_all, mesh, self.token)
+
+    def call(self, fn: Callable, *args) -> list:
+        """``fn(state_d, *args)`` on every worker, waited for."""
+        calls = [self.mesh.submit(d, _apply, self.token, fn, *args)
+                 for d in range(len(self.mesh))]
+        return [c.result() for c in calls]
+
+    def close(self) -> None:
+        self._finalizer()
+
+
+def _close_all(mesh: Mesh, token: int) -> None:
+    for d, key in enumerate(mesh._keys):
+        if key in _WORKERS:
+            with contextlib.suppress(RuntimeError, BrokenProcessPool):
+                mesh.submit(d, _close, token)
+
+
+@contextlib.contextmanager
+def pinned_cards(cards: Sequence[int]):
+    """Inside, :func:`mesh` takes ``cards`` for its card list (their length
+    is the device count it accepts) and :func:`visible_cards` their count."""
+    global _PINNED
+    old, _PINNED = _PINNED, tuple(int(c) for c in cards)
+    try:
+        yield
+    finally:
+        _PINNED = old
+
+
+def visible_cards() -> int:
+    """The cards a sharded call may use: the pinned list's length, else
+    ``torch.cuda.device_count()``."""
+    return len(_PINNED) if _PINNED is not None else torch.cuda.device_count()
+
+
+def mesh(devices: int, device: torch.device) -> Mesh:
+    """The D-worker mesh on ``device``'s type: cards 0..D-1, or the pinned
+    list (:func:`pinned_cards`)."""
+    device = torch.device(device)
+    if _PINNED is not None and device.type == "cuda":
+        if devices != len(_PINNED):
+            raise ValueError(f"devices={devices} but {len(_PINNED)} cards are "
+                             f"pinned ({list(_PINNED)})")
+        return Mesh("cuda", _PINNED)
+    return Mesh(device.type, range(devices))
+
+
+def block_bounds(n: int, d: int) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` of each of ``d`` contiguous blocks of ``n`` rows, as
+    ``np.array_split`` cuts them (the first ``n % d`` one row longer)."""
+    q, r = divmod(n, d)
+    out, lo = [], 0
+    for i in range(d):
+        hi = lo + q + (i < r)
+        out.append((lo, hi))
+        lo = hi
+    return out

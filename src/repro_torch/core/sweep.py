@@ -22,8 +22,8 @@ the per-pass "pack" key), ``allocation`` "any" and "partition",
 ``merge_bursts`` and the batch cap, with truncation per row, on the fused
 loop or the legacy one (``fused_events=False``: :func:`next_time` over the
 rows, the accrual's own gather of the draw, no quiet batches and no event
-kernel). A grid over more than one device raises ``NotImplementedError``
-naming ROADMAP item 8b (:func:`check_supported`).
+kernel). ``devices`` = D shards the scenario axis over D worker
+processes, one per card (:func:`sweep_async`, ``core/shard.py``).
 
 The in-graph controller (``RLController.controller``) runs once per full
 batch for every row, before rule 8, as ``engine._power_step`` runs it for
@@ -76,9 +76,24 @@ G*5]``; the CPU's reduction adds the nodes in the same order at the test
 sizes, and a CUDA reduction may split them otherwise (energy then agrees to
 f32 rounding).
 
-The loop needs host reads, so :func:`sweep_async` runs the grid before it
-returns; its handle holds the finished batch. An overlap of host and device
-across chunks is ROADMAP item 15's.
+The loop needs host reads, so the unsharded :func:`sweep_async` runs the
+grid before it returns; its handle holds the finished batch. An overlap of
+host and device across chunks is ROADMAP item 15's.
+
+Device-sharded sweeps (the reference's ``shard_map`` over a 1-D mesh of D
+devices). ``devices`` = D splits the K lowered scenario rows into D
+contiguous blocks, as ``np.array_split`` cuts them, and worker ``d`` of a
+:class:`~repro_torch.core.shard.Mesh` runs block ``d`` through this module's
+own unsharded sweep on its card (an empty block runs nothing, so no pad row
+is run: no program is shared). The rows cross to the workers as CPU
+``EngineConst`` rows lowered here, on the caller's device, so every worker
+runs the tables the unsharded sweep would; each row is the unsharded row
+bit for bit, since a row's loop reads no other row. The config crosses
+pickled: a sharded sweep whose in-graph controller does not pickle raises
+ValueError (``launch/sim``'s checkpointed controller pickles; the
+reference, whose controller is traced into one program, has no such
+limit). ``sweep_async`` returns as soon as the blocks are sent, and
+:meth:`PendingSweep.result` gathers them in order onto the caller's device.
 """
 from __future__ import annotations
 
@@ -90,7 +105,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tup
 import numpy as np
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import engine, shard
 from repro_torch.core.engine import (
     EngineConst,
     EventAux,
@@ -148,35 +163,26 @@ INF = int(INF_TIME)
 # what a sweep runs
 # ---------------------------------------------------------------------------
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported to the PyTorch sweep yet (ROADMAP Queue 1 item 8b)"
-    )
-
-
 def _resolve_devices(devices, config: EngineConfig, dev: torch.device) -> Optional[int]:
-    """The sweep's device count: ``None`` falls back to ``config.devices``;
-    ``"all"`` is every visible device of ``dev``'s type; ``None`` overall is
-    the unsharded dispatch."""
+    """The sweep's device count (the reference's ``_resolve_devices``):
+    ``None`` falls back to ``config.devices``, and ``None`` overall is the
+    unsharded dispatch; ``"all"`` is every visible card on ``dev``'s type
+    (1 on the CPU); an int D >= 1, at most the visible cards on ``cuda``
+    (any D on the CPU, whose workers are processes)."""
     if devices is None:
         devices = config.devices
     if devices is None:
         return None
     if devices == "all":
-        return torch.cuda.device_count() if dev.type == "cuda" else 1
+        return shard.visible_cards() if dev.type == "cuda" else 1
     d = int(devices)
     if d < 1:
         raise ValueError(f"devices must be >= 1, got {devices!r}")
+    if dev.type == "cuda" and d > shard.visible_cards():
+        raise ValueError(
+            f"devices={d} exceeds the {shard.visible_cards()} visible device(s)"
+        )
     return d
-
-
-def check_supported(config: EngineConfig, devices: Optional[int] = None) -> None:
-    """Raise NotImplementedError for a grid structure the sweep does not run
-    yet: more than one device, naming ROADMAP item 8b (``devices`` is the
-    resolved count); the single run's check applies too."""
-    if devices is not None and devices > 1:
-        raise _later(f"sweep({config.label()!r}): devices={devices} (sharded sweeps)")
-    engine.check_supported(config)
 
 
 # ---------------------------------------------------------------------------
@@ -1389,22 +1395,31 @@ def _tick_cache(key) -> bool:
 
 @dataclasses.dataclass
 class PendingSweep:
-    """The handle :func:`sweep_async` returns. The port's loop reads the
-    device every iteration, so the grid has already run when the handle is
-    made; :meth:`result` builds the :class:`SimBatch` (metrics and the
-    truncation warning) once."""
+    """The handle :func:`sweep_async` returns. Unsharded, the port's loop
+    reads the device every iteration, so the grid has already run when the
+    handle is made (``_out``); sharded, ``_blocks`` holds the workers'
+    calls, one a non-empty block in row order, and :meth:`result` waits for
+    them and concatenates their states onto ``_device``. :meth:`result`
+    builds the :class:`SimBatch` (metrics and the truncation warning) once."""
 
-    _out: SimState
+    _out: Optional[SimState]
     _plats: list
     _cache_hit: bool
     _devices: Optional[int]
+    _blocks: Optional[list] = None
+    _device: Optional[torch.device] = None
     _batch: Optional[SimBatch] = None
 
     def result(self) -> SimBatch:
         if self._batch is not None:
             return self._batch
-        out = self._out
-        host = SimState(*[x.cpu() for x in out])  # one copy a field
+        if self._blocks is None:
+            out = self._out
+            host = SimState(*[x.cpu() for x in out])  # one copy a field
+        else:
+            host = SimState(*[torch.cat(xs) for xs in zip(
+                *[call.result() for call in self._blocks])])
+            out = SimState(*[x.to(self._device) for x in host])
         trunc = np.flatnonzero(host.truncated.numpy())
         if trunc.size:
             warnings.warn(
@@ -1426,6 +1441,41 @@ class PendingSweep:
         return self._batch
 
 
+def _on_device(config: EngineConfig, dev: torch.device) -> EngineConfig:
+    """``config`` with its in-graph controller moved to ``dev`` where the
+    controller can move (``to(device)``, as ``launch/sim``'s checkpointed
+    one): a shard worker receives it with its tensors on the CPU."""
+    ctrl = getattr(config.policy, "controller", None)
+    if ctrl is None or not hasattr(ctrl, "to"):
+        return config
+    return dataclasses.replace(
+        config, policy=dataclasses.replace(config.policy, controller=ctrl.to(dev)))
+
+
+def _sweep_block(platform, workload, rows, config, job_capacity) -> SimState:
+    """A shard worker's block: the unsharded sweep of the lowered rows on
+    the worker's card; the final state comes back on the CPU."""
+    dev = shard.worker_device()
+    rows = shard.to_device(rows, dev)
+    out = sweep_async(platform, workload, rows, _on_device(config, dev),
+                      job_capacity=job_capacity, device=dev)._out
+    return shard.to_host(out)
+
+
+def _send_blocks(D, platform, workload, consts, cfg, job_capacity, dev) -> list:
+    """Send ``consts`` to D workers in contiguous blocks; the calls of the
+    non-empty blocks, in row order."""
+    ctrl = getattr(cfg.policy, "controller", None)
+    if ctrl is not None:
+        shard.dumps(ctrl, f"a sharded sweep's in-graph controller {ctrl!r}")
+    mesh = shard.mesh(D, dev)
+    rows = shard.to_host(consts)  # one mover: rows keep sharing their tables
+    return [mesh.submit(d, _sweep_block, platform, workload, rows[lo:hi], cfg,
+                        job_capacity)
+            for d, (lo, hi) in enumerate(shard.block_bounds(len(rows), D))
+            if hi > lo]
+
+
 def sweep_async(
     platform: PlatformSpec,
     workload: Workload,
@@ -1435,14 +1485,15 @@ def sweep_async(
     devices: Optional[Any] = None,
     device: DeviceLike = None,
 ) -> PendingSweep:
-    """:func:`sweep`'s arguments and cache; returns a :class:`PendingSweep`
-    whose grid has already run (the loop reads the device every iteration,
-    so nothing is left in flight; an overlap across chunks is ROADMAP item
-    15's)."""
+    """:func:`sweep`'s arguments and cache; returns a :class:`PendingSweep`.
+    Unsharded, its grid has already run (the loop reads the device every
+    iteration, so nothing is left in flight; an overlap across chunks is
+    ROADMAP item 15's); with ``devices`` = D it returns once the D blocks
+    are sent to the workers (module docstring)."""
     dev = resolve_device(device)
     config = trim_window(config or EngineConfig(), len(workload))
     D = _resolve_devices(devices, config, dev)
-    check_supported(config, D)
+    engine.check_supported(config)
     scenarios = list(scenarios)
     if not scenarios:
         raise ValueError("sweep needs at least one scenario")
@@ -1455,13 +1506,18 @@ def sweep_async(
         c, p = _scenario_const(sc, base_const, platform, cfg, dev)
         consts.append(c)
         plats.append(p)
-    grid = make_grid(consts, dev)
     s0 = init_state(platform, workload, cfg, device=dev, job_capacity=job_capacity)
     cap = config.max_batches or default_batch_cap(len(workload))
+    # the key grows the grid width and the device count, so a sharded grid
+    # never shares an unsharded grid's entry
     key = _static_trace_key(
         platform, config, int(s0.job_status.shape[0]), cap, dev
     ) + (len(consts), D)
     hit = _tick_cache(key)
+    if D is not None:
+        blocks = _send_blocks(D, platform, workload, consts, cfg, job_capacity, dev)
+        return PendingSweep(None, plats, hit, D, _blocks=blocks, _device=dev)
+    grid = make_grid(consts, dev)
     out = run_sim(replicate_state(s0, len(consts)), grid, cfg, cap)
     return PendingSweep(out, plats, hit, D)
 
@@ -1497,8 +1553,10 @@ def sweep(
     for every row. Each row equals the port's single run
     (``engine.simulate``) of its scenario (module docstring); per-scenario
     :class:`SimMetrics` come back
-    in a :class:`SimBatch`. ``devices``: None, 1 or ``"all"`` on one card;
-    more raises naming ROADMAP item 8b.
+    in a :class:`SimBatch`. ``devices`` (None falls back to
+    ``config.devices``; an int D or ``"all"``) shards the rows over D worker
+    processes, one per card, each row bit for bit its unsharded row
+    (module docstring); None runs them in this process.
     """
     return sweep_async(
         platform, workload, scenarios, config, job_capacity=job_capacity,

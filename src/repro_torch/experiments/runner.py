@@ -27,8 +27,10 @@ that stream with one chunk a replication, drained.
 
 Everything runs on ``device`` (``cuda`` unless the caller passes
 ``"cpu"``; raises when CUDA is asked for and absent). ``devices`` follows
-the sweep's contract: ``None``, 1 or ``"all"`` on one card; more raises
-naming ROADMAP item 8b.
+the sweep's contract (None, an int D or ``"all"``): each sweep, a
+replication's grid or a streamed chunk, shards its rows over D worker
+processes, one per card, and gathers them in grid order, so rows and files
+are the unsharded run's byte for byte; a one-point grid runs alone.
 """
 from __future__ import annotations
 
@@ -227,10 +229,8 @@ def _resolve_run(experiment: Experiment, platform, workload, devices, device):
             "ran; write outputs yourself or put the platform/workload in "
             "the spec"
         )
-    D = sweep._resolve_devices(devices, experiment.engine_config(), device)
-    if D is not None and D > 1:
-        raise sweep._later(f"experiment {experiment.name!r}: devices={D} "
-                           "(sharded sweeps)")
+    # a device count the sweep would refuse raises here, before any chunk
+    sweep._resolve_devices(devices, experiment.engine_config(), device)
     plat = platform if platform is not None else resolve_platform(experiment.platform)
     cfg = _engine_config_with_rl(experiment, plat, device)
     # swap platform-axis *names* for resolved PlatformSpecs (sweep
@@ -307,8 +307,8 @@ def run(
     be injected into a single-replication run: replications r >= 1 would be
     resolved from the spec, silently mixing two different studies.
 
-    ``devices``: the sweep's contract (None, 1 or ``"all"``; more raises
-    naming ROADMAP item 8b). ``stream=True`` returns a
+    ``devices``: the sweep's contract (None, an int D or ``"all"``; each
+    sweep shards its rows over D worker processes). ``stream=True`` returns a
     :class:`StreamingRun` instead of blocking on the whole grid;
     ``chunk_scenarios`` bounds the scenarios per launch (default: the whole
     grid per replication).

@@ -38,6 +38,7 @@ reference's clash check against the single-run flags.
 from __future__ import annotations
 
 import argparse
+import copy
 import csv
 import dataclasses
 import json
@@ -113,22 +114,37 @@ def _load_mini_yaml(path: str) -> Dict[str, Any]:
     return out
 
 
-def _checkpoint_controller(params, meta):
+class _CheckpointController:
     """Greedy in-graph controller: features -> argmax logits -> commands,
-    on the state's device (no host read). The same closure steps a single
+    on the state's device (no host read). The same controller steps a single
     state or a sweep's ``[E]`` rows (features of every row, one batched
     forward, an argmax per row, the translator over rows), as the batched
-    RL env does; its ``rows`` attribute marks it for the sweep."""
-    translate = ACTION_TRANSLATORS[meta["action"]]
-    window = meta.get("feature_window", 8)
+    RL env does; its ``rows`` attribute marks it for the sweep.
 
-    def controller(s, const):
+    A class at module level, so that a sharded sweep can send it to its
+    worker processes: it pickles with the policy's parameters on the CPU,
+    and ``to(device)`` gives a copy whose parameters are on ``device``."""
+
+    def __init__(self, params, meta):
+        self.params, self.meta = params, meta
+
+    @property
+    def rows(self) -> "_CheckpointController":
+        return self
+
+    def __call__(self, s, const):
+        meta = self.meta
         with torch.no_grad():
-            logits, _ = params(extract(meta["feature"], s, const, window))
-        return translate(s, const, torch.argmax(logits, dim=-1), meta["n_levels"])
+            logits, _ = self.params(
+                extract(meta["feature"], s, const, meta.get("feature_window", 8)))
+        return ACTION_TRANSLATORS[meta["action"]](
+            s, const, torch.argmax(logits, dim=-1), meta["n_levels"])
 
-    controller.rows = controller
-    return controller
+    def to(self, device) -> "_CheckpointController":
+        return _CheckpointController(copy.deepcopy(self.params).to(device), self.meta)
+
+    def __getstate__(self):
+        return {"params": self.to("cpu").params, "meta": self.meta}
 
 
 def _resolve_rl_policy(pol, config, plat, device):
@@ -185,7 +201,7 @@ def _resolve_rl_policy(pol, config, plat, device):
                 f"action {meta['action']!r}); group-targeted commands would "
                 "be mis-decoded — retrain or pick a matching platform"
             )
-    controller = _checkpoint_controller(params, meta)
+    controller = _CheckpointController(params, meta)
     return dataclasses.replace(pol, controller=controller), rl
 
 

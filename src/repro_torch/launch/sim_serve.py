@@ -21,8 +21,11 @@ Many users' grids run *interleaved*: each request becomes a
 and the service round-robins one completed chunk per active request per
 turn, so a short grid is never stuck behind a long one. Every grid runs on
 ``--device`` (default ``cuda``; ``cpu`` on a machine without a card);
-``--devices`` follows the sweep's contract (None, 1 or ``"all"``; more
-raises, naming ROADMAP item 8b, in the request's error response).
+``--devices`` follows the sweep's contract (None, an int D or ``"all"``):
+every launch shards its scenario axis over D worker processes, one per
+card, bit for bit the unsharded launch, and the response's ``"devices"``
+reports the resolved D. The workers start with the first sharded launch
+and serve every later one.
 """
 from __future__ import annotations
 
@@ -309,8 +312,8 @@ def main(argv=None):
     ap.add_argument("--poll", type=float, default=0.5, metavar="S",
                     help="request-directory poll interval when idle")
     ap.add_argument("--devices", default=None,
-                    help='devices per launch: 1 or "all" (one card; more '
-                         'is not ported) (default: unsharded)')
+                    help='shard each launch across worker processes, one '
+                         'per card: an int or "all" (default: unsharded)')
     ap.add_argument("--chunk", type=int, default=None, metavar="K",
                     help="scenarios per streamed launch (default: whole grid)")
     ap.add_argument("--smoke", action="store_true",

@@ -162,12 +162,6 @@ def test_run_rejections_are_the_reference_messages(case, tmp_path):
     assert port == _message(lambda: fn(jexp, jexp.run, tmp_path))
 
 
-def test_devices_beyond_one_name_item_8b():
-    with pytest.raises(NotImplementedError, match="devices=2 .*item 8b"):
-        texp.run(_small(texp), devices=2, device=CPU)
-    assert len(texp.run(_small(texp), devices="all", device=CPU).rows) == 1
-
-
 def test_run_needs_cuda_unless_asked_for_cpu():
     import torch
 

@@ -255,13 +255,3 @@ def test_gym_env_messages_are_the_reference(kw):
     assert _message(lambda: env.HPCGymEnv(tplat_, twl, dataclasses.replace(tcfg, **kw),
                                           device=CPU)) \
         == _message(lambda: jenv.HPCGymEnv(jplat_, jwl, dataclasses.replace(jcfg, **kw)))
-
-
-def test_rollouts_over_more_than_one_device_name_item_8b():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        env.shard_env_batch({"x": torch.zeros(4)}, devices=2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        env.rollout_mesh(4)
-    tree = {"x": torch.zeros(4)}
-    assert env.shard_env_batch(tree, devices=1) is tree
-    assert env.shard_env_batch(tree) is tree

@@ -133,16 +133,3 @@ def test_an_a2c_rollout_under_partition_is_its_single_envs():
             assert torch.equal(roll.obs[t, b], ob), (t, b)
             ob, rb, done, _ = e.step(int(roll.actions[t, b]))
             assert float(roll.rewards[t, b]) == rb and bool(roll.dones[t, b]) == done, (t, b)
-
-
-def test_a_batched_env_on_a_config_the_sweep_refuses_raises():
-    tplat_, _, tcfg, _, twls, _ = _setup("partition")
-    tconst = engine.make_const(tplat_, tcfg.engine, device=CPU)
-    sims0 = a2c.make_batched_sims(tplat_, twls, tcfg, device=CPU)
-    grid = env.make_env_grid(tconst, B)
-    sharded = dataclasses.replace(
-        tcfg, engine=dataclasses.replace(tcfg.engine, devices=2))
-    with pytest.raises(NotImplementedError, match="devices=2 .*ROADMAP Queue 1 item 8b"):
-        env.batched_reset(sharded, grid, sims0)
-    with pytest.raises(NotImplementedError, match="devices=2 .*item 8b"):
-        a2c._grid_and_reset(sharded, tconst, sims0)

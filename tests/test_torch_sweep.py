@@ -457,21 +457,9 @@ def test_dvfs_mode_width_must_match():
         sweep.sweep(plat, wl, [other], EngineConfig(timeout=300), device=CPU)
 
 
-@pytest.mark.parametrize("scenarios,kw,what", [
-    ([60], {"devices": 2}, "devices=2"),
-])
-def test_what_the_sweep_does_not_run_names_item_8b(scenarios, kw, what):
-    plat = tplat.PlatformSpec(nb_nodes=16)
-    wl = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=10, nb_res=16, seed=0))
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP Queue 1 item 8b"):
-        sweep.sweep(plat, wl, scenarios, EngineConfig(timeout=300, **kw), device=CPU)
-
-
-def test_devices_argument_beyond_one_names_item_8b_and_all_is_one_here():
+def test_devices_all_is_one_on_the_cpu():
     plat = tplat.PlatformSpec(nb_nodes=8)
     wl = tgen.generate_workload(tgen.GeneratorConfig(n_jobs=8, nb_res=8, seed=0))
-    with pytest.raises(NotImplementedError, match="devices=3 .*item 8b"):
-        sweep.sweep(plat, wl, [60], EngineConfig(), devices=3, device=CPU)
     assert sweep.sweep(plat, wl, [60], EngineConfig(), devices="all",
                        device=CPU).devices == 1
 

@@ -168,7 +168,6 @@ PL002_PER_ROW = {
     "policy.params": "lowers the row's policy to its [E] PolicyParams flags",
     "policy.horizon": "the Forecast policy's horizon, a per-row value",
     "policy.alpha": "the Forecast policy's EWMA weight, a per-row value",
-    "label": "names the config in an error message only",
 }
 
 
