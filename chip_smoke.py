@@ -106,7 +106,7 @@ Phases (each prints a line; any failed check exits non-zero):
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
    x timeouts ``300 + 300 i``, on phase 5's inputs at E = 8 on their first
-   ``SWEEP_JOBS`` (500) jobs and at E = 64 on ``SWEEP_CUT_JOBS`` (250) — one
+   ``SWEEP_JOBS`` (250) jobs and at E = 64 on ``SWEEP_CUT_JOBS`` (250) — one
    ``event_fuse_ledger`` launch per loop iteration for the grid, at most
    two host syncs an iteration; (e) the
    grouped E = 8 grid (timeouts 600-2400) on the first 250 of phase 6's
@@ -250,6 +250,18 @@ Phases (each prints a line; any failed check exits non-zero):
    more, (a) at D = the card count, one worker a card. The two workers
    start beside phase 16 (``start_workers``); the phase prints their
    start-up seconds, and each part its checks, wall and cards.
+18. the dry run's count on the card (``repro_torch.launch.dryrun``), after
+   phase 15: (a) one more of phase 15's training steps, counted by the dry
+   run's ``count`` on the card, against ``lower_cell`` at phase 15's shape
+   (internlm2-1.8b, 4 x 1024, bf16, remat, AdamW) on fake tensors:
+   ``flops_computed`` equal exactly (shapes alone decide it); the step's
+   median ms (phase 15) against the cell's ``roofline_step_s`` (its share
+   of the roofline, against the H100 SXM data-sheet peaks) and
+   ``args_bytes_per_device`` against phase 15's peak device memory, with
+   the card's name and power limit; (b) ``lower_spars_rl`` (one A2C update
+   of the reference's 64-node setting at 4096 envs) on the card: ``ok``,
+   FLOPs above 0, its wall and its event-kernel launches (the kernels
+   line's ``phase 18 spars-rl``).
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -290,12 +302,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 sys.path.insert(0, SRC)
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+from repro_torch.launch import mesh  # noqa: E402  (the card's data-sheet peaks)
+
+HBM_BYTES_PER_S = mesh.HBM_BW  # H100 SXM device memory rate
 # the event kernels' work is int32 compares and adds outside the tensor
 # cores; the closest published scalar peak is the 67 TFLOP/s of float32
-SCALAR_OPS_PER_S = 67e12
+SCALAR_OPS_PER_S = mesh.PEAK_FLOPS_F32
 # H100 SXM dense bf16 tensor-core peak: flash attention's bound
-TENSOR_BF16_FLOPS_PER_S = 989e12
+TENSOR_BF16_FLOPS_PER_S = mesh.PEAK_FLOPS_BF16
 ARCH = "internlm2-1.8b"
 # (B, Sq, Sk, H, KH, hd, causal): the serve path's prefill shape first
 FLASH_MAIN = (1, 1024, 1024, 16, 8, 128, True)
@@ -410,7 +424,7 @@ SSD_INSTANCES = sorted(["ssd_scan_chunk_kernel<64>", "ssd_scan_chunk_kernel<128>
                         "ssd_scan_state_kernel", "ssd_scan_out_kernel<64>",
                         "ssd_scan_out_kernel<128>", "ssd_scan_out_narrow_kernel"])
 BF16_ULP = 2.0 ** -7
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
+F32_FLOPS_PER_S = mesh.PEAK_FLOPS_F32  # H100 SXM f32 peak outside the tensor cores
 # f32 kernel route against plain route, last-position logits of the full
 # model: the two differ only in f32 summation order, which 24 layers
 # amplify; atol = 1e-3 of the logits' largest magnitude
@@ -457,10 +471,12 @@ LABELS = [
     for psm in ("PSUS", "PSAS", "PSAS+IPM")
 ] + ["EASY AlwaysOn"]
 # depth cuts that keep the script inside its time: phase 10's Forecast run
-# replays the first 250 jobs, not 1000, phase 11's grids the first 500, and
-# phase 10's DVFS run takes phase 5's workload cut to 125 jobs
+# replays the first 250 jobs, not 1000, phase 11's dense E = 8 grid the
+# first 250, not 500 (the cut that pays for phase 18; phase 13 (c)'s Curie
+# grid and phase 17 (a)-(b) follow it, since they hold their rows to it),
+# and phase 10's DVFS run takes phase 5's workload cut to 125 jobs
 FORECAST_JOBS = 250
-SWEEP_JOBS = 500
+SWEEP_JOBS = 250
 DVFS_JOBS = 125
 # phase 11's dense E = 64 grid and (e) replay the first 250 jobs, not 500,
 # and its plain grouped E = 8 grid is dropped, so that (e) and (f) fit
@@ -508,11 +524,10 @@ def check(ok: bool, what: str) -> None:
 
 
 def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip()
+    """The card's name and power limit (``mesh.card``); fails without one."""
+    line = mesh.card()
+    check(line is not None, "nvidia-smi gave no card's name and power limit")
+    return line
 
 
 def kernel_inputs(torch, np, e, n, seed=0, per_row=False):
@@ -2293,7 +2308,9 @@ def phase14(torch, np, dev="cuda"):
 
 def phase15(torch, np, tmp):
     """Phase 15: LM training on the card (see the module docstring). Returns
-    the flash and ``ssd_scan`` launches of (a)'s steps (none)."""
+    the flash and ``ssd_scan`` launches of (a)'s steps (none), and for phase
+    18 (a) the steps' median ms, the peak device memory and the dry run's
+    count of one more step."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels import flash_attention as fa
@@ -2346,7 +2363,8 @@ def phase15(torch, np, tmp):
              for k, v in watched.items()}
     check(all(x > 0 for x in moved.values()), f"phase 15 (a): parameters moved {moved}")
     check(int(state.step) == TRAIN_STEPS, f"phase 15 (a): optimizer step {int(state.step)}")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()  # over the 8 steps
+    peak_gib = peak_bytes / 2**30
     median = statistics.median(ms[1:])
     # the copies the step makes to run the optimizer on the reference's
     # leaves: the parameters stacked, then written back
@@ -2376,6 +2394,15 @@ def phase15(torch, np, tmp):
     train_launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
     check(not any(train_launches.values()),
           f"phase 15 (a): the training steps launched {train_launches}")
+    # one more step, counted by the dry run's counter (phase 18 (a))
+    from repro_torch.launch import dryrun
+
+    sync()
+    t = time.perf_counter()
+    _, counter = dryrun.count(one_step)
+    sync()
+    p18 = {"median_ms": median, "peak_bytes": peak_bytes,
+           "count": counter.record(), "count_ms": 1e3 * (time.perf_counter() - t)}
     n_params = model.n_params()
     del model, state, step, holder, before
     torch.cuda.empty_cache()
@@ -2502,7 +2529,76 @@ def phase15(torch, np, tmp):
     print(f"phase 15 wall: (a) {a_s:.1f} s, (b) and the crashing process's start "
           f"{t_c - t15 - a_s:.1f} s, (c) {c_s:.1f} s, (d) after (c) {d_s:.1f} s; all "
           f"{time.perf_counter() - t15:.1f} s", flush=True)
-    return train_launches
+    return train_launches, p18
+
+
+SPARS_RL_ENVS = 4096  # phase 18 (b): the reference's A2C batch
+
+
+def phase18(torch, np, p15, dev="cuda"):
+    """Phase 18: the dry run's count on the card (see the module
+    docstring). Returns the event kernels' launches of (b)'s update."""
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec
+
+    t18 = time.perf_counter()
+    smi = nvidia_smi()
+
+    # ---- (a) phase 15's step: counted on the card and on fake tensors ----
+    shape = ShapeSpec("phase15", "train", TRAIN_SEQ, TRAIN_BATCH)
+    fake = dryrun.lower_cell(ARCH, shape)
+    real = p15["count"]
+    check(fake["status"] == "ok" and fake["accum_steps"] == 1,
+          f"phase 18 (a): lower_cell {fake.get('status')}, accum {fake.get('accum_steps')}")
+    check(real["flops_computed"] == fake["flops_computed"] > 0,
+          f"phase 18 (a): flops_computed {real['flops_computed']} on the card, "
+          f"{fake['flops_computed']} on fake tensors")
+    rf = fake["roofline"]
+    share = 1e3 * rf["roofline_step_s"] / p15["median_ms"]
+    check(0 < share <= 1, f"phase 18 (a): share of roofline {share}")
+    print(f"phase 18 (a) dry run vs the card ({smi}): {ARCH} train at {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} (bf16, remat, adamw, accum 1): flops_computed {real['flops_computed']} "
+          f"on the card == {fake['flops_computed']} on fake tensors; flops_per_device (the "
+          f"causal half off) {fake['flops_per_device']}, hbm_bytes_per_device "
+          f"{fake['hbm_bytes_per_device']}, op_bytes {fake['op_bytes']} fake / "
+          f"{real['op_bytes']} card; roofline ({fake['peak']['source']}) "
+          f"{1e3 * rf['roofline_step_s']:.3f} ms, {rf['dominant']}-bound (compute "
+          f"{1e3 * rf['t_compute_s']:.3f} ms, memory {1e3 * rf['t_memory_s']:.3f} ms); phase "
+          f"15's median step {p15['median_ms']:.2f} ms: share of roofline {100 * share:.2f} %; "
+          f"args_bytes_per_device {fake['args_bytes_per_device']} "
+          f"({fake['args_bytes_per_device'] / 2**30:.2f} GiB) against phase 15's peak device "
+          f"memory {p15['peak_bytes']} ({p15['peak_bytes'] / 2**30:.2f} GiB); the fake count "
+          f"took {fake['total_s']} s, the counted step on the card {p15['count_ms']:.0f} ms",
+          flush=True)
+
+    # ---- (b) the paper's own cell on the card ----
+    event_fuse.reset_launches()
+    fa.reset_launches()
+    ssd.reset_launches()
+    t = time.perf_counter()
+    rl = dryrun.lower_spars_rl(SPARS_RL_ENVS, device=dev)
+    wall = time.perf_counter() - t
+    launches = dict(event_fuse.LAUNCHES)
+    check(rl["status"] == "ok" and rl["flops_per_device"] > 0,
+          f"phase 18 (b): spars-rl {rl.get('status')}, flops {rl.get('flops_per_device')}")
+    check(all(np.isfinite(v) for v in rl["metrics"].values()),
+          f"phase 18 (b): metrics {rl['metrics']}")
+    check(launches["event_fuse_ledger"] > 0 and fa.LAUNCHES["flash_attention"] == 0
+          and ssd.LAUNCHES["ssd_scan"] == 0,
+          f"phase 18 (b): launches {launches}, flash {fa.LAUNCHES}, ssd {ssd.LAUNCHES}")
+    rrf = rl["roofline"]
+    print(f"phase 18 (b) spars-rl on the card ({smi}): one A2C update, {SPARS_RL_ENVS} envs of "
+          f"64 nodes and 128 jobs, EASY RL at decision interval 600, 8 steps: wall "
+          f"{wall:.2f} s (the update {rl['update_s']} s), flops_per_device "
+          f"{rl['flops_per_device']}, hbm_bytes_per_device {rl['hbm_bytes_per_device']}, "
+          f"op_bytes {rl['op_bytes']}, {rl['n_ops']} ops; roofline {rrf['roofline_step_s']:.3g} s "
+          f"({rrf['dominant']}); event-kernel launches {launches}; metrics {rl['metrics']}",
+          flush=True)
+    print(f"phase 18 wall {time.perf_counter() - t18:.1f} s", flush=True)
+    return launches
 
 
 def kernel_vs_plain_f32(torch, np, cfg, stages, want, dev="cuda"):
@@ -4039,7 +4135,11 @@ def main() -> None:
 
     # ---- 15. LM training ----
     torch.cuda.empty_cache()
-    train_launches = phase15(torch, np, tmp)
+    train_launches, p15 = phase15(torch, np, tmp)
+
+    # ---- 18. the dry run's count on the card ----
+    torch.cuda.empty_cache()
+    rl18 = phase18(torch, np, p15)
 
     # ---- 16. mixed block programs, standalone stages, the legacy loop ----
     torch.cuda.empty_cache()
@@ -4081,6 +4181,7 @@ def main() -> None:
             **{f"phase 13 {part}": got[kname] for part, got in exp_by_part.items()},
             "phase 16 legacy": p16["legacy"][kname],
             **{f"phase 17 sharded {part}": got[kname] for part, got in p17.items()},
+            "phase 18 spars-rl": rl18[kname],
         }
         if note:
             row["note"] = note

@@ -415,16 +415,21 @@ class SLstm(nn.Module):
 
     def forward(self, x, state: Optional[SLstmState] = None, eps: float = 1e-5):
         """x ``[B, S, D]`` -> (y, final state), one cell step per position."""
-        b, s, _ = x.shape
+        b = x.shape[0]
         st = state if state is not None else slstm_zero_state(self.dims, b, x.device)
-        x_gates = self.w_in(x)  # [B,S,4di]
+        hs, st = self.scan(self.w_in(x), st)  # x_gates [B,S,4di]
+        y = rms_norm(hs.to(x.dtype), self.norm_g, eps)
+        return self.out_proj(y), st
+
+    def scan(self, x_gates: torch.Tensor, st: SLstmState) -> Tuple[torch.Tensor, SLstmState]:
+        """One :meth:`cell` step a position of ``x_gates`` ``[B, S, 4 di]``:
+        (h at every position ``[B, S, di]`` f32, the last state). The dry run
+        (``launch/dryrun.py``) counts this loop by its trip count."""
         hs = []
-        for t in range(s):
+        for t in range(x_gates.shape[1]):
             st = self.cell(x_gates[:, t], st)
             hs.append(st.h)
-        y = torch.stack(hs, 1).to(x.dtype)
-        y = rms_norm(y, self.norm_g, eps)
-        return self.out_proj(y), st
+        return torch.stack(hs, 1), st
 
     def decode(self, x_t, state: SLstmState, eps: float = 1e-5):
         st = self.cell(self.w_in(x_t), state)

@@ -115,6 +115,15 @@ def opt_state_from_tree(tree, leaves: List[RefLeaf], device):
     return torch.as_tensor(tree, device=device)
 
 
+def microbatches(n: int, body: Callable[[int, Any], Any], carry: Any) -> Any:
+    """``carry = body(i, carry)`` for each of the ``n`` microbatches, in
+    order (the dry run, ``launch/dryrun.py``, counts this loop by its trip
+    count)."""
+    for i in range(n):
+        carry = body(i, carry)
+    return carry
+
+
 def make_train_step(
     model: Transformer,
     optimizer: Optimizer,
@@ -152,12 +161,14 @@ def make_train_step(
             a = cfg.accum_steps
             micro = {k: v.reshape((a, v.shape[0] // a) + v.shape[1:]) for k, v in batch.items()}
             gsum = {p: torch.zeros(p.shape, dtype=F32, device=p.device) for p in params}
-            lsum = torch.zeros((), dtype=F32, device=model.device)
-            for i in range(a):
+
+            def accumulate(i, lsum):
                 loss, _ = grads_of({k: v[i] for k, v in micro.items()})
                 for p, acc in gsum.items():
                     acc.add_(grad_of(p).to(F32))
-                lsum = lsum + loss
+                return lsum + loss
+
+            lsum = microbatches(a, accumulate, torch.zeros((), dtype=F32, device=model.device))
             grads = [leaf.stack(lambda p: gsum[p] / a) for leaf in leaves]
             loss, metrics = lsum / a, {}
         for p in params:

@@ -38,7 +38,7 @@ def test_the_list_names_only_reference_modules_and_the_refused_options():
     listed, section = _not_ported()
     assert listed and all(os.path.exists(os.path.join(REF, m)) for m in listed), listed
     ported = [m for m in listed if os.path.exists(os.path.join(PORT, m))]
-    assert ported == ["launch/shapes.py"], ported  # the port has `applicable` only
+    assert ported == [], ported
     assert "item 12c.6" in section
 
 

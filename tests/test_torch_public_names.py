@@ -81,10 +81,14 @@ DIFFERENCES = {
         "LANES": "the TPU's 128-lane tiling of the Pallas kernel",
         "NEG_INF": "the masked logit, a literal -1e30 in the port's kernels and plain version",
     },
-    "launch/shapes.py": {
-        name: "a dry-run builder of ShapeDtypeStructs (README, Not ported: the port "
-              "has `applicable` only)"
-        for name in ("sds", "batch_specs", "decode_specs", "train_accum_steps", "param_count")
+    "launch/mesh.py": {
+        "make_production_mesh": "a JAX device mesh for the multi-device launchers; one LM "
+                                "runs on one card, and the port's mesh is "
+                                "`core/shard.py`'s `Mesh` of worker processes",
+        "make_host_mesh": "a JAX device mesh over the host's devices; the port's mesh is "
+                          "`core/shard.py`'s `Mesh`",
+        "ICI_BW_PER_LINK": "the TPU's inter-chip link; the port's collective term is "
+                           "`NVLINK_BW` (0 on one card)",
     },
 }
 
@@ -105,7 +109,8 @@ MODULE_NOT_FUNCTION = {
 NOT_PORTED = {
     "kernels/ref.py": "the plain references live beside each port kernel (`*_plain`)",
     "kernels/ops.py": "the dispatch lives in each port kernel module",
-    "training/elastic.py": "re-meshes a run over a jax Mesh; one card has no mesh",
+    "training/elastic.py": "re-meshes a run over a jax Mesh; the next slice ports it onto "
+                           "`core/shard.py`'s workers (ROADMAP Queue 1)",
 }
 
 
