@@ -106,7 +106,7 @@ Phases (each prints a line; any failed check exits non-zero):
 11. the batched sweep at Curie scale (``repro_torch.core.sweep``):
    ``benchmarks/bench_scale.py``'s grid, ``("EASY PSUS", "FCFS PSAS+IPM")``
    x timeouts ``300 + 300 i``, on phase 5's inputs at E = 8 on their first
-   ``SWEEP_JOBS`` (250) jobs and at E = 64 on ``SWEEP_CUT_JOBS`` (250) — one
+   ``SWEEP_JOBS`` (250) jobs and at E = 64 on ``SWEEP_E64_JOBS`` (125) — one
    ``event_fuse_ledger`` launch per loop iteration for the grid, at most
    two host syncs an iteration; (e) the
    grouped E = 8 grid (timeouts 600-2400) on the first 250 of phase 6's
@@ -262,6 +262,20 @@ Phases (each prints a line; any failed check exits non-zero):
    of the reference's 64-node setting at 4096 envs) on the card: ``ok``,
    FLOPs above 0, its wall and its event-kernel launches (the kernels
    line's ``phase 18 spars-rl``).
+19. the pipeline and elastic resharding (``repro_torch.training``) on
+   phase 17's two workers on card 0, after phase 17: (a) ``pipeline``'s
+   GPipe over ``internlm2-1.8b``'s full-width trunk (24 dense layers, bf16,
+   seeded weights) in 2 stages of 12, 8 microbatches of ``[2, 1024,
+   2048]``: each stage's weights placed in its worker once (timed apart),
+   the output bit for bit the same layers run in this process one
+   microbatch at a time, 192 ``flash_attention`` launches (24 x 8) on the
+   wgmma kernel counted from the workers (the kernels line's ``phase 19
+   pipeline``) and 192 in this process; both walls, run twice in turns,
+   and the bubble ``(S-1)/(M+S-1)``; (b) ``elastic``: phase 12 (a)'s
+   grouped 16-env batch state resharded onto 2 workers, 1 and 2 again and
+   gathered back bit for bit, shrunk to 12 envs and grown to 16, then one
+   batched step: one ``event_fuse_occ`` launch (``phase 19 elastic``),
+   rows 12-15 equal to rows 0-3, whose copies they are, bit for bit.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -478,9 +492,11 @@ LABELS = [
 FORECAST_JOBS = 250
 SWEEP_JOBS = 250
 DVFS_JOBS = 125
-# phase 11's dense E = 64 grid and (e) replay the first 250 jobs, not 500,
-# and its plain grouped E = 8 grid is dropped, so that (e) and (f) fit
+# phase 11's (e) replays the first 250 jobs, not 500, and its plain grouped
+# E = 8 grid is dropped, so that (e) and (f) fit; its dense E = 64 grid
+# replays the first 125 (250 before the cut that pays for phase 19)
 SWEEP_CUT_JOBS = 250
+SWEEP_E64_JOBS = 125
 # phase 11 (e) and (f): the engine options a grid runs with
 OPTIONS = dict(node_order="pack", allocation="partition", merge_bursts=True)
 # and phase 4's 16-node runs take 30 generated jobs, not 100 (50 to PR
@@ -1308,10 +1324,10 @@ def single_runs(runs, dev="cuda"):
 
 
 def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
-            cut_jobs=SWEEP_CUT_JOBS):
+            cut_jobs=SWEEP_CUT_JOBS, e64_jobs=SWEEP_E64_JOBS):
     """Phase 11: the batched sweep at Curie scale. Dense grids at E = 8 on
     phase 5's inputs cut to their first ``max_jobs`` jobs and at E = 64 on
-    ``cut_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
+    ``e64_jobs``; (e) a grouped E = 8 grid on phase 6's inputs cut to
     ``cut_jobs`` with ``OPTIONS`` (pack, partition, burst merging); (f) a
     dense E = 4 grid with ``OPTIONS`` on phase 4's 280-node Curie platform
     and trace (``GROUPED_JOBS`` jobs).
@@ -1338,7 +1354,7 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
             PRESETS["cea_curie"], n_jobs=n, nb_res=nodes,
             max_res=min(PRESETS["cea_curie"].max_res, nodes)))
 
-    dense_wl, dense_cut = dense_jobs(max_jobs), dense_jobs(cut_jobs)
+    dense_wl, dense_cut = dense_jobs(max_jobs), dense_jobs(e64_jobs)
     base, pol = from_label("EASY PSUS")
     dense_cfg = EngineConfig(base=base, policy=pol, timeout=1800)
     g_plat = curie_platform(nodes)
@@ -1462,13 +1478,13 @@ def phase11(torch, np, swf, dev="cuda", nodes=11200, max_jobs=SWEEP_JOBS,
         walls[name, scheduler] = wall
     e, m8 = runs["(e) options E=8"], runs["dense E=8"]
     print(f"phase 11 rows: the E=64 row EASY PSUS 1800 == phase 5's configuration run "
-          f"alone on its first {cut_jobs} jobs, the E=8 row FCFS PSAS+IPM 600 == its "
+          f"alone on its first {e64_jobs} jobs, the E=8 row FCFS PSAS+IPM 600 == its "
           f"single run on {max_jobs}, bit for bit; (e) "
           f"{OPTIONS}: rows EASY PSUS 1800 and FCFS PSAS+IPM 600 == their single runs "
           "(every state field, the schedule table, every SimMetrics field); (f) every "
           f"row == its single run on curie_platform(280), {len(f_wl)} jobs, dense. The "
           f"{len(checks)} single runs ran in a worker process beside the grids (waited "
-          f"{wait_s:.2f} s for them): dense EASY PSUS 1800 on {cut_jobs} jobs "
+          f"{wait_s:.2f} s for them): dense EASY PSUS 1800 on {e64_jobs} jobs "
           f"{walls['dense E=64', 'EASY PSUS']:.2f} s, FCFS PSAS+IPM 600 "
           f"{walls['dense E=8', 'FCFS PSAS+IPM']:.2f} s; (e)'s EASY PSUS 1800 "
           f"{walls['(e) options E=8', 'EASY PSUS']:.2f} s and FCFS PSAS+IPM 600 "
@@ -3095,9 +3111,213 @@ def phase17(torch, np, swf, e8_rows, warm, dev="cuda", nodes=11200,
         grid_part("(d)", list(range(n_cards)))
     else:
         print(f"phase 17 (d): {n_cards} card, so no grid on distinct cards", flush=True)
-    shard.shutdown()
     print(f"phase 17 wall {time.perf_counter() - t17:.1f} s", flush=True)
     return by_part
+
+
+PIPE_STAGES = 2  # phase 19 (a): internlm2-1.8b's 24 dense layers in 2 stages of 12
+PIPE_MICRO, PIPE_MB, PIPE_SEQ = 8, 2, 1024  # (a): 8 microbatches of [2, 1024, d_model]
+ELASTIC_SHRINK = 12  # (b): the 16-env batch shrunk to 12 envs, then grown back to 16
+
+
+def env_axis_placement(mesh, shapes):
+    """Phase 19 (b)'s ``sharding_fn``: every leaf with the env axis first
+    is split over the workers, the rest replicated."""
+    from repro_torch.core import shard
+    from repro_torch.training import elastic
+    return shard.tree_map(lambda s: elastic.SPLIT if s.ndim and s.shape[0] == RL_ENVS
+                          else elastic.REPLICATE, shapes)
+
+
+def phase19(torch, np, swf, dev="cuda", nodes=11200, arch=None,
+            pipe=(PIPE_MICRO, PIPE_MB, PIPE_SEQ)):
+    """Phase 19: the pipeline and elastic resharding on phase 17's two
+    workers on card 0 (``SHARD_CARDS``). (a) ``training.pipeline``: the
+    full-width ``ARCH`` trunk (24 dense layers, bf16, seeded weights) in
+    ``PIPE_STAGES`` stages over ``pipe`` = (``PIPE_MICRO`` microbatches of
+    ``[PIPE_MB, PIPE_SEQ, d_model]``), each stage's weights placed in its
+    worker once (timed apart), the output bit for bit the same layers run
+    in this process one microbatch at a time, ``flash_attention`` launched
+    once a layer a microbatch on the wgmma kernel in the workers (counted
+    from their deltas) and in this process; the two run twice in turns. (b)
+    ``training.elastic``: phase 12 (a)'s grouped 16-env batch state after
+    its reset resharded onto 2 workers, 1, and 2 again (``surviving_mesh``
+    inside ``shard.pinned_cards``) and gathered back bit for bit, shrunk to
+    ``ELASTIC_SHRINK`` envs and grown back to 16, then one batched step: one
+    ``event_fuse_occ`` launch, rows 12-15 (copies of rows 0-3, under their
+    actions) equal to rows 0-3 bit for bit. Returns the flash launches of
+    (a)'s pipeline by kernel and the event kernels' launches of (b)."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import engine, shard
+    from repro_torch.core.rl import env
+    from repro_torch.kernels import event_fuse
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+    from repro_torch.training import elastic, pipeline
+    t19 = time.perf_counter()
+    cuda = dev == "cuda"
+    n_micro, mb, seq = pipe
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def reset_counts():
+        event_fuse.reset_launches()
+        fa.reset_launches()
+        ssd.reset_launches()
+        engine.HOST_SYNCS = 0
+
+    # ---- (a) GPipe over two workers ----
+    cfg = arch or get_arch(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(gen)
+    sync()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stages = pipeline.split_stages(pipeline.stack_blocks(model.blocks), PIPE_STAGES)
+    del model
+    x = torch.randn((n_micro, mb, seq, cfg.d_model), generator=gen, device=dev,
+                    dtype=cfg.dtype)
+    sync()
+    stack_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in stages.values())
+    stage_fn = pipeline.make_stage_fn(
+        functools.partial(pipeline.dense_block_apply, cfg, None, "auto"))
+    with shard.pinned_cards(SHARD_CARDS):
+        mesh = pipeline.stage_mesh(PIPE_STAGES, dev)
+    t0 = time.perf_counter()
+    placed = pipeline.place_stages(stages, mesh)
+    place_s = time.perf_counter() - t0
+
+    def sequential():
+        """The same layers in this process, one microbatch at a time."""
+        outs = []
+        with torch.no_grad():
+            for m in range(n_micro):
+                h = x[m]
+                for r in range(PIPE_STAGES):
+                    h = stage_fn({k: a[r] for k, a in stages.items()}, h)
+                outs.append(h)
+        return torch.stack(outs)
+
+    def timed(run):
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        return out, time.perf_counter() - t0, dict(fa.LAUNCHES), dict(event_fuse.LAUNCHES)
+
+    def piped():
+        return pipeline.pipeline_forward(stage_fn, placed, x, mesh=mesh, axis="pod")
+
+    want = cfg.n_layers * n_micro
+    walls = {"pipeline": [], "sequential": []}
+    outs, counts = {}, {}
+    for name, run in (("pipeline", piped), ("sequential", sequential),
+                      ("sequential", sequential), ("pipeline", piped)):
+        out, wall, flash, events = timed(run)
+        walls[name].append(wall)
+        check((not cuda or flash["flash_attention"] == want == flash["flash_attention_wgmma"])
+              and flash["flash_attention_simt"] == 0 and ssd.LAUNCHES["ssd_scan"] == 0
+              and not any(events.values()),
+              f"phase 19 (a) {name}: launches {flash} {events}, {want} wgmma flash expected")
+        check(out.shape == x.shape and out.dtype == x.dtype and bool(out.isfinite().all()),
+              f"phase 19 (a) {name}: output {tuple(out.shape)} {out.dtype}, or not finite")
+        if name in outs:
+            check(torch.equal(out, outs[name]), f"phase 19 (a) {name}: a rerun differs")
+        outs[name], counts[name] = out, flash
+    diff = float((outs["pipeline"].float() - outs["sequential"].float()).abs().max())
+    check(torch.equal(outs["pipeline"], outs["sequential"]),
+          f"phase 19 (a): the pipeline's output != the sequential run's (max abs diff "
+          f"{diff:.3g})")
+    placed.close()
+    del stages, placed, outs
+    if cuda:
+        torch.cuda.empty_cache()
+    bubble = (PIPE_STAGES - 1) / (n_micro + PIPE_STAGES - 1)
+    print(f"phase 19 (a) pipeline: {ARCH} full width {cfg.dtype} ({cfg.n_layers} dense "
+          f"layers, d {cfg.d_model}, H {cfg.n_heads}, KH {cfg.n_kv_heads}, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}; {n_params:,} trunk params, seed 0) in {PIPE_STAGES} stages on "
+          f"workers pinned to cards {list(SHARD_CARDS)}, {n_micro} microbatches of "
+          f"[{mb}, {seq}, {cfg.d_model}]: the model built and initialised in "
+          f"{init_s:.2f} s, its blocks stacked in {stack_s:.2f} s, placed (a stage a "
+          f"worker, pickled through the parent) in {place_s:.2f} s; "
+          f"pipeline wall {walls['pipeline'][0]:.3f} and {walls['pipeline'][1]:.3f} s, "
+          f"sequential in this process {walls['sequential'][0]:.3f} and "
+          f"{walls['sequential'][1]:.3f} s (in turns: pipeline, sequential, sequential, "
+          f"pipeline); bubble (S-1)/(M+S-1) = {bubble:.4f}; flash_attention launches "
+          f"{counts['pipeline']['flash_attention']} from the workers (wgmma "
+          f"{counts['pipeline']['flash_attention_wgmma']}) and "
+          f"{counts['sequential']['flash_attention']} in this process; output == the "
+          f"sequential run's bit for bit ({nvidia_smi()})", flush=True)
+
+    # ---- (b) elastic resharding of the grouped env batch ----
+    t0 = time.perf_counter()
+    _, _, ecfg, const, sims0 = curie_rl_batch(swf, dev, nodes)
+    state, _ = env.batched_reset(ecfg, env.make_env_grid(const, RL_ENVS), sims0)
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    def fields(st):
+        return list(zip((*engine.SimState._fields, "steps", "done"), (*st.sim, st.steps,
+                                                                      st.done)))
+
+    t0 = time.perf_counter()
+    with shard.pinned_cards(SHARD_CARDS):
+        m2 = elastic.surviving_mesh(len(SHARD_CARDS), 1, device=dev)
+    with shard.pinned_cards(SHARD_CARDS[:1]):
+        m1 = elastic.surviving_mesh(1, 1, device=dev)
+    p2 = elastic.reshard(state, m2, env_axis_placement)
+    p1 = elastic.reshard(p2, m1, env_axis_placement)
+    p2b = elastic.reshard(p1, m2, env_axis_placement)
+    back = p2b.gather()
+    sync()
+    reshard_s = time.perf_counter() - t0
+    for p in (p2, p1, p2b):
+        p.close()
+    bad = [f for (f, a), (_, b) in zip(fields(back), fields(state))
+           if not (a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+                   and torch.equal(a, b))]
+    check(not bad, f"phase 19 (b): fields {bad} changed through the reshards")
+    n_bytes = sum(a.numel() * a.element_size() for _, a in fields(state))
+    grown = elastic.grow_env_axis(elastic.shrink_env_axis(back, ELASTIC_SHRINK), RL_ENVS)
+    check(all(a.shape[0] == RL_ENVS for _, a in fields(grown) if a.ndim),
+          "phase 19 (b): the grown batch's env axis")
+    # rows 12-15 are copies of rows 0-3 and take their actions
+    actions = ((5 * (torch.arange(RL_ENVS, device=dev) % ELASTIC_SHRINK) + 1)
+               % ecfg.n_actions).to(torch.int32)
+    reset_counts()
+    t0 = time.perf_counter()
+    st, obs, reward, done, _ = env.batched_step(ecfg, env.make_env_grid(const, RL_ENVS),
+                                                grown, actions)
+    sync()
+    step_s = time.perf_counter() - t0
+    events = dict(event_fuse.LAUNCHES)
+    check((not cuda or events["event_fuse_occ"] == 1) and all(v == 0 for k, v in events.items()
+                                                if k != "event_fuse_occ")
+          and fa.LAUNCHES["flash_attention"] == 0,
+          f"phase 19 (b): launches {events}, one event_fuse_occ expected")
+    copies = slice(ELASTIC_SHRINK, RL_ENVS)
+    rows = slice(0, RL_ENVS - ELASTIC_SHRINK)
+    bad = [f for f, a in fields(st) + [("obs", obs), ("reward", reward)]
+           if not torch.equal(a[copies], a[rows])]
+    check(not bad, f"phase 19 (b): rows 12-15 {bad} != rows 0-3 after the step")
+    print(f"phase 19 (b) elastic: phase 12 (a)'s batch ({RL_ENVS} grouped envs of "
+          f"curie_platform({nodes}), {n_bytes / 2**20:.1f} MiB of state after its reset, "
+          f"set up in {setup_s:.2f} s) resharded 2 -> 1 -> 2 workers on card 0 and "
+          f"gathered back in {reshard_s:.2f} s, every field bit for bit; shrunk to "
+          f"{ELASTIC_SHRINK} envs, grown to {RL_ENVS}, one batched step in {step_s:.3f} s "
+          f"with launches {events}: rows 12-15 == rows 0-3 bit for bit (state, obs, "
+          f"reward, done)", flush=True)
+    shard.shutdown()
+    print(f"phase 19 wall {time.perf_counter() - t19:.1f} s", flush=True)
+    return counts["pipeline"], events
 
 
 def main() -> None:
@@ -4150,6 +4370,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     p17 = phase17(torch, np, swf, e8_rows, warm17)
 
+    # ---- 19. the pipeline and elastic resharding on phase 17's workers ----
+    torch.cuda.empty_cache()
+    pipe19, elastic19 = phase19(torch, np, swf)
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
@@ -4182,6 +4406,7 @@ def main() -> None:
             "phase 16 legacy": p16["legacy"][kname],
             **{f"phase 17 sharded {part}": got[kname] for part, got in p17.items()},
             "phase 18 spars-rl": rl18[kname],
+            "phase 19 elastic": elastic19[kname],
         }
         if note:
             row["note"] = note
@@ -4213,6 +4438,7 @@ def main() -> None:
                 "phase 15 train": train_launches["flash_attention"],
                 "phase 16 mixed": p16["mixed"]["flash_attention"],
                 "phase 16 recurrent stages": p16["recurrent"]["flash_attention"],
+                "phase 19 pipeline": pipe19["flash_attention"],
             },
             "launches_by_path_variant": {
                 path: {r: got[f"flash_attention_{r}"] for r in ("wgmma", "simt")}
@@ -4220,7 +4446,8 @@ def main() -> None:
                     (f"phase 8 {ARCH}", flash_routes),
                     *((f"phase 14 {a}", got) for a, got in lm_by_arch.items()),
                     ("phase 16 mixed", p16["mixed"]),
-                    ("phase 16 recurrent stages", p16["recurrent"]))
+                    ("phase 16 recurrent stages", p16["recurrent"]),
+                    ("phase 19 pipeline", pipe19))
             },
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "

@@ -225,12 +225,6 @@ def batched_step(cfg: EnvConfig, grid: sweep.Grid, states: EnvState, actions):
     return _finish(cfg, const, states, prev, sim, can_advance, sweep.all_done(sim))
 
 
-def _leaves(tree) -> list:
-    out = []
-    shard.tree_map(lambda x: out.append(x) or x, tree)
-    return out
-
-
 def resolve_rollout_devices(devices, engine_cfg: Optional[EngineConfig],
                             n_envs: int, device) -> Optional[int]:
     """The rollout device count (the reference's ``_resolve_rollout_devices``):
@@ -266,7 +260,7 @@ def shard_env_batch(tree, devices=None, engine_cfg: Optional[EngineConfig] = Non
     tuple of D trees, block ``d`` rows ``[d B/D, (d + 1) B/D)`` (compact
     copies, each the size of its block). B must divide by D: env batches
     are caller-sized (``n_envs``), so no pad rows."""
-    leaves = _leaves(tree)
+    leaves = shard.leaves(tree)
     D = sweep._resolve_devices(devices, engine_cfg or EngineConfig(),
                                leaves[0].device)
     if D is None or D == 1:

@@ -20,11 +20,14 @@ Workers start at first use and are kept, keyed by (device type, card, slot),
 so later sweeps and updates reuse them (a service and a streamed run sweep
 many times); :func:`shutdown` stops them, and runs at exit. Only CPU tensors
 cross a process boundary, pickled by this module (:func:`dumps` refuses a
-CUDA tensor; no CUDA IPC): :func:`to_host` and :func:`to_device` move a
-tree's tensors keeping each tensor's storage layout (stride-0 views stay
-views) and which tensors share an object. A worker that raises re-raises in
-the parent with its traceback (the executor's ``__cause__``); a worker that
-dies raises :class:`RuntimeError`. No block is ever rerun in the parent.
+CUDA tensor; no CUDA IPC). A plain CPU tensor crosses as its view of its
+storage's raw bytes, sent once a storage, and a storage of ``SPILL_BYTES``
+or more through a temporary file rather than the executor's pipe.
+:func:`to_host` and :func:`to_device` move a tree's tensors keeping each
+tensor's storage layout (stride-0 views stay views) and which tensors share
+an object. A worker that raises re-raises in the parent with its traceback
+(the executor's ``__cause__``); a worker that dies raises
+:class:`RuntimeError`. No block is ever rerun in the parent.
 
 Each call sends back the worker's deltas of the launch counters
 (``event_fuse.LAUNCHES``, ``flash_attention.LAUNCHES``,
@@ -46,10 +49,11 @@ import itertools
 import multiprocessing
 import os
 import pickle
+import tempfile
 import threading
 import weakref
 from concurrent.futures.process import BrokenProcessPool
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -104,13 +108,13 @@ def _delta(before: Dict[str, Any], after: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _run(payload: bytes) -> bytes:
+def _run(payload: "_Packed") -> "_Packed":
     """A task in a worker: ``fn(*args)`` and the counters' deltas it made,
-    both pickled by :func:`dumps`."""
-    fn, args = pickle.loads(payload)
+    both packed by :func:`_pack`."""
+    fn, args = _unpack(payload)
     before = _counters()
     out = fn(*args)
-    return dumps((out, _delta(before, _counters())), "a worker's result")
+    return _pack((out, _delta(before, _counters())), "a worker's result")
 
 
 def _open(token: int, opener: Callable, *args) -> None:
@@ -129,23 +133,69 @@ def _close(token: int) -> None:
 # what crosses a process boundary
 # ---------------------------------------------------------------------------
 
+class _Storage:
+    """A CPU tensor storage's bytes, pickled once however many tensors view
+    it (the pickler's memo), as one protocol-5 buffer: copied once into the
+    stream (or the file) and once out of it."""
+
+    def __init__(self, raw: torch.Tensor):
+        self.raw = raw  # uint8 over the whole storage
+
+    def __reduce__(self):
+        return _bytes_storage, (pickle.PickleBuffer(self.raw.numpy()),)
+
+
+def _bytes_storage(buf) -> torch.UntypedStorage:
+    if len(buf) == 0:
+        return torch.UntypedStorage(0)
+    return torch.frombuffer(buf, dtype=torch.uint8).untyped_storage()
+
+
+def _view(storage: torch.UntypedStorage, dtype, offset: int, size, stride) -> torch.Tensor:
+    return torch.empty(0, dtype=dtype).set_(storage, offset, size, stride)
+
+
 class _Pickler(pickle.Pickler):
+    """Refuses a non-CPU tensor; pickles a plain CPU tensor as a view (its
+    dtype, offset, size and stride) of its storage's raw bytes, so tensors
+    that share a storage share it after the trip, each layout is kept and
+    the bytes are copied once each way. Parameters, tensors that require
+    grad and other kinds take torch's own reduction."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._storages: Dict[Tuple[int, int], _Storage] = {}
+
     def reducer_override(self, obj):
-        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+        if not isinstance(obj, torch.Tensor):
+            return NotImplemented
+        if obj.device.type != "cpu":
             raise ValueError(
                 f"a {obj.device.type} tensor of shape {tuple(obj.shape)} cannot "
                 "cross to a shard worker: only CPU tensors do (move it with "
                 "shard.to_host)"
             )
-        return NotImplemented
+        if (type(obj) is not torch.Tensor or obj.requires_grad or obj.layout != torch.strided
+                or obj.is_quantized or obj.is_conj() or obj.is_neg()):
+            return NotImplemented
+        s = obj.untyped_storage()
+        key = (s.data_ptr(), s.nbytes())
+        if key not in self._storages:
+            raw = torch.empty(0, dtype=torch.uint8).set_(s)
+            self._storages[key] = _Storage(raw)
+        return _view, (self._storages[key], obj.dtype, obj.storage_offset(),
+                       tuple(obj.size()), tuple(obj.stride()))
 
 
-def dumps(obj, what: str = "an argument") -> bytes:
+def dumps(obj, what: str = "an argument", buffer_callback=None) -> bytes:
     """``obj`` pickled for a shard worker; ValueError, saying why, when it
-    holds a CUDA tensor or does not pickle (a lambda, a closure)."""
+    holds a CUDA tensor or does not pickle (a lambda, a closure).
+    ``buffer_callback`` is pickle's: a storage buffer it returns a false
+    value for is left out of the stream."""
     buf = io.BytesIO()
     try:
-        _Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+        _Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL,
+                 buffer_callback=buffer_callback).dump(obj)
     except (pickle.PicklingError, TypeError, AttributeError) as e:
         raise ValueError(
             f"{what} does not pickle, and a shard worker receives everything "
@@ -154,19 +204,95 @@ def dumps(obj, what: str = "an argument") -> bytes:
     return buf.getvalue()
 
 
-def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+# a storage of this many bytes or more crosses through a file: the
+# executor's pipe moves 100-200 MiB/s (an 8 MiB argument took 82 ms on an
+# 8-core host, 3.0 GB of pipeline stages 32 s beside an H100)
+SPILL_BYTES = 1 << 20
+
+
+class _Packed(NamedTuple):
+    """What crosses the executor's pipe: the pickle stream, and the file
+    holding its large storages' bytes (None without any) with their sizes."""
+    stream: bytes
+    path: Optional[str]
+    sizes: Tuple[int, ...]
+
+
+def _pack(obj, what: str) -> _Packed:
+    """:func:`dumps`, with every storage of ``SPILL_BYTES`` or more written
+    to a temporary file; :func:`_unpack` reads and removes it."""
+    big: List[pickle.PickleBuffer] = []
+
+    def in_stream(b: pickle.PickleBuffer) -> bool:
+        if b.raw().nbytes < SPILL_BYTES:
+            return True
+        big.append(b)
+        return False
+
+    stream = dumps(obj, what, in_stream)
+    if not big:
+        return _Packed(stream, None, ())
+    fd, path = tempfile.mkstemp(prefix="repro_torch_shard_", suffix=".bin")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            for b in big:
+                f.write(b.raw())
+    except BaseException:
+        os.unlink(path)
+        raise
+    return _Packed(stream, path, tuple(b.raw().nbytes for b in big))
+
+
+def _unpack(packed: _Packed):
+    bufs = []
+    if packed.path is not None:
+        try:
+            with open(packed.path, "rb", buffering=0) as f:
+                for n in packed.sizes:
+                    b = bytearray(n)
+                    view, got = memoryview(b), 0
+                    while got < n:
+                        k = f.readinto(view[got:])
+                        if not k:
+                            raise EOFError(f"{packed.path} ended {n - got} bytes short")
+                        got += k
+                    bufs.append(b)
+        finally:
+            os.unlink(packed.path)
+    return pickle.loads(packed.stream, buffers=bufs)
+
+
+def _discard(packed: _Packed) -> None:
+    """Remove what :func:`_pack` wrote when no one will read it."""
+    if packed.path is not None:
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(packed.path)
+
+
+def tree_map(fn: Callable[..., torch.Tensor], tree, *others):
     """``fn`` on every tensor of ``tree`` (tensors, tuples and named tuples,
-    lists, dicts); every other leaf unchanged."""
+    lists, dicts); every other leaf unchanged. With ``others``, trees of the
+    same structure, ``fn`` takes each one's leaf beside the tensor."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *others)
     if isinstance(tree, tuple):
-        items = [tree_map(fn, x) for x in tree]
+        items = [tree_map(fn, *xs) for xs in zip(tree, *others, strict=True)]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     if isinstance(tree, list):
-        return [tree_map(fn, x) for x in tree]
+        return [tree_map(fn, *xs) for xs in zip(tree, *others, strict=True)]
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        for o in others:
+            if not isinstance(o, dict) or o.keys() != tree.keys():
+                raise ValueError(f"a tree of keys {sorted(tree)} against {o!r}")
+        return {k: tree_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
     return tree
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of ``tree``, in :func:`tree_map`'s order."""
+    out: List[torch.Tensor] = []
+    tree_map(lambda x: out.append(x) or x, tree)
+    return out
 
 
 def _mover(device: torch.device):
@@ -267,8 +393,8 @@ class Call:
     """A task on one worker. :meth:`result` waits, adds the worker's counter
     deltas to the parent's (once) and returns what the task returned."""
 
-    def __init__(self, future: cf.Future, key, d: int):
-        self._future, self._key, self._d = future, key, d
+    def __init__(self, future: cf.Future, key, d: int, sent: _Packed):
+        self._future, self._key, self._d, self._sent = future, key, d, sent
         self._done = False
         self._out = None
 
@@ -278,11 +404,12 @@ class Call:
                 raw = self._future.result()
             except BrokenProcessPool as e:
                 _drop(self._key)
+                _discard(self._sent)
                 raise RuntimeError(
                     f"shard worker {self._d} ({self._key[0]} card {self._key[1]}) "
                     "died before it answered; nothing was rerun in the parent"
                 ) from e
-            out, delta = pickle.loads(raw)
+            out, delta = _unpack(raw)
             _add(delta)
             self._out, self._done = out, True
         return self._out
@@ -306,15 +433,16 @@ class Mesh:
     def submit(self, d: int, fn: Callable, *args) -> Call:
         """``fn(*args)`` on worker ``d``; ``fn`` must be a module-level
         function and ``args`` hold CPU tensors only."""
-        payload = dumps((fn, args), f"a call of {getattr(fn, '__name__', fn)!r}")
+        payload = _pack((fn, args), f"a call of {getattr(fn, '__name__', fn)!r}")
         key = self._keys[d]
         try:
             future = _worker(key).submit(_run, payload)
         except BrokenProcessPool as e:
             _drop(key)
+            _discard(payload)
             raise RuntimeError(f"shard worker {d} ({key[0]} card {key[1]}) is "
                                "dead") from e
-        return Call(future, key, d)
+        return Call(future, key, d, payload)
 
     def resident(self, opener: Callable, args: Sequence[tuple]) -> "Resident":
         """State kept in the workers across calls: worker ``d`` keeps
@@ -325,7 +453,8 @@ class Mesh:
 class Resident:
     """State that lives in the workers of a :class:`Mesh` under one token:
     :meth:`call` runs ``fn(state_d, *args)`` on every worker and returns the
-    results in worker order; :meth:`close` frees it (also when the handle is
+    results in worker order, :meth:`call_each` the same with each worker's
+    own arguments; :meth:`close` frees it (also when the handle is
     collected)."""
 
     def __init__(self, mesh: Mesh, opener: Callable, args: Sequence[tuple]):
@@ -340,6 +469,17 @@ class Resident:
         calls = [self.mesh.submit(d, _apply, self.token, fn, *args)
                  for d in range(len(self.mesh))]
         return [c.result() for c in calls]
+
+    def call_each(self, fn: Callable, args: Sequence[Optional[tuple]]) -> list:
+        """``fn(state_d, *args[d])`` on every worker ``d`` whose ``args[d]``
+        is not None, all submitted before any is waited for; worker ``d``
+        receives only ``args[d]``. A worker given None runs nothing, and its
+        result is None."""
+        if len(args) != len(self.mesh):
+            raise ValueError(f"{len(args)} argument tuples for {len(self.mesh)} workers")
+        calls = [None if a is None else self.mesh.submit(d, _apply, self.token, fn, *a)
+                 for d, a in enumerate(args)]
+        return [None if c is None else c.result() for c in calls]
 
     def close(self) -> None:
         self._finalizer()

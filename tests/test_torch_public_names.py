@@ -109,8 +109,6 @@ MODULE_NOT_FUNCTION = {
 NOT_PORTED = {
     "kernels/ref.py": "the plain references live beside each port kernel (`*_plain`)",
     "kernels/ops.py": "the dispatch lives in each port kernel module",
-    "training/elastic.py": "re-meshes a run over a jax Mesh; the next slice ports it onto "
-                           "`core/shard.py`'s workers (ROADMAP Queue 1)",
 }
 
 
