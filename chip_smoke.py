@@ -173,7 +173,7 @@ Phases (each prints a line; any failed check exits non-zero):
 14. dense, hybrid, MoE, VLM and encoder-decoder archs:
    ``repro_torch.launch.serve --per-slot-positions`` serves glm4-9b,
    stablelm-3b, qwen3-14b, zamba2-2.7b, qwen2-moe-a2.7b, internvl2-26b (at
-   ``INTERNVL_LAYERS``, 24 of its 48 layers, a cut for time) and
+   ``INTERNVL_LAYERS``, 12 of its 48 layers, a cut for time) and
    whisper-tiny at full width and depth in bf16 (random weights from seed
    0; 8 requests of 1024 tokens, 4 slots, 32 new tokens, cache 1280; zero
    image embeds and encoder frames, as the reference's loop), one model at
@@ -276,6 +276,18 @@ Phases (each prints a line; any failed check exits non-zero):
    gathered back bit for bit, shrunk to 12 envs and grown to 16, then one
    batched step: one ``event_fuse_occ`` launch (``phase 19 elastic``),
    rows 12-15 equal to rows 0-3, whose copies they are, bit for bit.
+20. tensor parallelism (``repro_torch.training.tensor_parallel``) on the
+   same two workers on card 0, after phase 19: a (data, model) = (1, 2)
+   grid of ``internlm2-1.8b`` at full width (bf16, remat) with ``gloo``,
+   each rank drawing the model from seed 0 and keeping its half; each
+   rank's bf16 and f32 sum and max over the model group checked; (b) the
+   grid's prefill of one 1024-token prompt on the kernel routes, 24 wgmma
+   flash launches a rank at H 8, KH 4, hd 128 (the kernels line's ``phase
+   20 tp prefill``), its last-position logits within ``TP_LOGITS_REL`` of
+   one process's; (a) 3 AdamW steps on phase 15's batches, each loss within
+   ``TP_LOSS_TOL`` of phase 15's, with ms a step, ms in all-reduces a
+   step (the last step timed around each, so that step carries the
+   barriers), each rank's peak memory and the backend.
 
 Phase 3 also holds ``ssd_scan`` against its plain version at the xLSTM
 serve shapes (dv 512 and the normaliser's dv 1) in the mLSTM's mixed
@@ -376,14 +388,16 @@ XPAIRS = 4
 # calls, the depth of its f32 kernel-route check (2 layers, or one
 # super-block of 6 Mamba-2 layers and the shared block, or 2 encoder and 2
 # decoder layers) and its serve depth (None: the full depth)
-INTERNVL_LAYERS = 24  # a cut for time: internvl2-26b serves 24 of its 48 layers
+# a cut for time: internvl2-26b serves 12 of its 48 layers (24 to PR 30;
+# phase 20 pays for it)
+INTERNVL_LAYERS = 12
 ARCHS14 = {
     "glm4-9b": (320, "wgmma", 0, 2, None),
     "stablelm-3b": (256, "wgmma", 0, 2, None),
     "qwen3-14b": (320, "wgmma", 0, 2, None),
     "zamba2-2.7b": (72, "wgmma", 432, 6, None),
     "qwen2-moe-a2.7b": (192, "wgmma", 0, 2, None),
-    "internvl2-26b": (192, "wgmma", 0, 2, INTERNVL_LAYERS),
+    "internvl2-26b": (8 * INTERNVL_LAYERS, "wgmma", 0, 2, INTERNVL_LAYERS),
     "whisper-tiny": (96, "wgmma", 0, 2, None),
 }
 SERVE14_ARGS = ["--requests", "8", "--slots", "4", "--prompt-len", "1024", "--max-new", "32",
@@ -2417,7 +2431,7 @@ def phase15(torch, np, tmp):
     t = time.perf_counter()
     _, counter = dryrun.count(one_step)
     sync()
-    p18 = {"median_ms": median, "peak_bytes": peak_bytes,
+    p18 = {"median_ms": median, "peak_bytes": peak_bytes, "losses": losses,
            "count": counter.record(), "count_ms": 1e3 * (time.perf_counter() - t)}
     n_params = model.n_params()
     del model, state, step, holder, before
@@ -3315,9 +3329,134 @@ def phase19(torch, np, swf, dev="cuda", nodes=11200, arch=None,
           f"{ELASTIC_SHRINK} envs, grown to {RL_ENVS}, one batched step in {step_s:.3f} s "
           f"with launches {events}: rows 12-15 == rows 0-3 bit for bit (state, obs, "
           f"reward, done)", flush=True)
-    shard.shutdown()
     print(f"phase 19 wall {time.perf_counter() - t19:.1f} s", flush=True)
     return counts["pipeline"], events
+
+
+TP_STEPS = 3  # phase 20 (a): AdamW steps of the grid, against phase 15's first three
+TP_MODEL = 2  # phase 20: (data, model) = (1, TP_MODEL), two ranks pinned to card 0
+# phase 20 (a): each grid loss within this of phase 15's (absolute; bf16: a
+# rank's partial products round to bf16 before their sum, so each layer's
+# output may differ from one process's by a bf16 ulp, and AdamW's first
+# steps amplify small gradient differences)
+TP_LOSS_TOL = 0.05
+# phase 20 (b): the grid's last-position logits within this share of the
+# largest |logit| of one process's (bf16, the same rounding)
+TP_LOGITS_REL = 0.05
+TP_PREFILL = (1, 1024)  # phase 20 (b): one prompt of 1024 tokens
+
+
+def phase20(torch, np, ref_losses, dev="cuda", arch=None):
+    """Phase 20: tensor-parallel training and prefill
+    (``training.tensor_parallel``) of the full-width ``ARCH`` on a (data,
+    model) = (1, ``TP_MODEL``) grid of two ranks pinned to card 0 with
+    ``gloo`` (phase 17's workers, kept by phase 19). Each rank draws the
+    model from seed 0 as phase 15 does and keeps its half. First each
+    rank's bf16 and f32 sum and max over the model group are checked; (b)
+    the grid's prefill of one 1024-token prompt on the kernel routes, 24
+    wgmma flash launches a rank (H 8, KH 4, hd 128), its last-position
+    logits against one process's prefill within ``TP_LOGITS_REL``; (a)
+    ``TP_STEPS`` AdamW steps on phase 15's batches, each loss within
+    ``TP_LOSS_TOL`` of phase 15's ``ref_losses``, with ms a step, ms in
+    all-reduces a step (the last step waits for the card around each to
+    time them), each rank's peak memory and the backend. Returns
+    (b)'s flash launches by kernel."""
+    import functools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import shard
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import scheduled_optimizer
+    from repro_torch.models import build_model
+    from repro_torch.training.tensor_parallel import Grid
+
+    t20 = time.perf_counter()
+    cuda = dev == "cuda"
+    cfg = arch or get_arch(ARCH)
+    print(f"phase 20 tolerances: losses within {TP_LOSS_TOL} of phase 15's, prefill logits "
+          f"within {TP_LOGITS_REL} of the largest |logit|", flush=True)
+    make_opt = functools.partial(scheduled_optimizer, "adamw", 3e-4, TRAIN_STEPS, 2)
+    t0 = time.perf_counter()
+    with shard.pinned_cards(SHARD_CARDS):
+        grid = Grid(cfg, TP_MODEL, len(SHARD_CARDS), device=dev, backend="gloo",
+                    make_optimizer=make_opt, seed=0)
+    open_s = time.perf_counter() - t0
+    try:
+        probe = grid.check_collectives()
+        check(all(all(r.values()) for r in probe),
+              f"phase 20: gloo sums and maxes on {dev} over the model group: {probe}")
+        # ---- (b) the prefill, before any step changes the weights ----
+        b, s = TP_PREFILL
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)))
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        logits = grid.prefill(tokens)
+        prefill_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        want = cfg.n_layers * TP_MODEL
+        check(not cuda or launches["flash_attention"] == want == launches["flash_attention_wgmma"],
+              f"phase 20 (b): flash launches {launches}, {cfg.n_layers} wgmma a rank expected")
+        model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            one, _ = model.prefill(tokens.to(dev))
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+        one = one.cpu()
+        scale = float(one.abs().max())
+        diff = float((logits - one).abs().max())
+        check(logits.shape == one.shape == (b, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()) and diff <= TP_LOGITS_REL * scale,
+              f"phase 20 (b): grid logits {tuple(logits.shape)} vs one process's "
+              f"{tuple(one.shape)}: max abs diff {diff:.4g} against {TP_LOGITS_REL} x {scale:.4g}")
+        same = int((logits.argmax(-1) == one.argmax(-1)).sum())
+        print(f"phase 20 (b) prefill: {cfg.name} {cfg.dtype} on (data, model) = (1, {TP_MODEL}), "
+              f"ranks on cards {list(SHARD_CARDS)} (gloo): one {s}-token prompt in "
+              f"{1e3 * prefill_s:.1f} ms; flash_attention launches {launches['flash_attention']} "
+              f"({launches['flash_attention'] // TP_MODEL} a rank at H {cfg.n_heads // TP_MODEL}, KH "
+              f"{cfg.n_kv_heads // TP_MODEL}, hd {cfg.hd}; wgmma "
+              f"{launches['flash_attention_wgmma']}); last-position logits against one "
+              f"process's: max abs diff {diff:.4g} (largest |logit| {scale:.4g}), greedy token "
+              f"equal in {same} of {b}", flush=True)
+
+        # ---- (a) training steps on phase 15's batches ----
+        stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH, seed=0)
+        rows, walls = [], []
+        for i in range(TP_STEPS):  # the last step waits for the card around each all-reduce
+            batch = stream.batch_at(i)
+            t0 = time.perf_counter()
+            rows.append(grid.step(batch, time_all_reduces=i == TP_STEPS - 1))
+            walls.append(1e3 * (time.perf_counter() - t0))
+        stats = grid.stats()
+    finally:
+        grid.close()
+    losses = [r["loss"] for r in rows]
+    gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    check(all(np.isfinite(losses)) and max(gaps) <= TP_LOSS_TOL,
+          f"phase 20 (a): grid losses {losses} against phase 15's {ref_losses[:TP_STEPS]} "
+          f"(largest gap {max(gaps):.4g}, tolerance {TP_LOSS_TOL})")
+    peaks = [r.get("peak_bytes", 0) / 2**30 for r in stats]
+    print(f"phase 20 (a) train: {cfg.name} {cfg.dtype} (remat {cfg.remat}) on (data, model) = (1, "
+          f"{TP_MODEL}), ranks on cards {list(SHARD_CARDS)}, backend {grid.backend} "
+          f"(reductions in each tensor's own dtype), grid opened in {open_s:.2f} s (each rank "
+          f"draws the model from seed 0 and keeps its half: "
+          f"{stats[0]['params']:,} params a rank); {TP_STEPS} AdamW steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens on phase 15's batches: losses {[round(x, 5) for x in losses]} "
+          f"against phase 15's {[round(x, 5) for x in ref_losses[:TP_STEPS]]} (largest gap "
+          f"{max(gaps):.4g}, tolerance {TP_LOSS_TOL}); gradient norms "
+          f"{[round(r['grad_norm'], 4) for r in rows]}; ms a step (rank 0) "
+          f"{[round(r['step_ms'], 1) for r in rows]}, in the parent {[round(x, 1) for x in walls]}; "
+          f"all-reduces a step {[r['all_reduces'] for r in rows]} taking "
+          f"{[round(r['all_reduce_ms'], 1) for r in rows]} ms (rank 0; host wall, and in the "
+          f"last step, timed, each waits for the card before and after); bytes all-reduced since the grid opened "
+          f"{[round(r['all_reduce_bytes'] / 2**30, 2) for r in stats]} GiB a rank; peak device "
+          f"memory {[round(x, 2) for x in peaks]} GiB a rank"
+          + (f" ({nvidia_smi()})" if cuda else ""), flush=True)
+    shard.shutdown()
+    print(f"phase 20 wall {time.perf_counter() - t20:.1f} s", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -4374,6 +4513,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     pipe19, elastic19 = phase19(torch, np, swf)
 
+    # ---- 20. tensor-parallel training and prefill on the same workers ----
+    torch.cuda.empty_cache()
+    tp20 = phase20(torch, np, p15["losses"])
+
     def entry(kname, replaces, launches, key, bound, note=None):
         k_ms, p_ms, host_ms_call, fill_host_ms = timing[key]
         b_ms, b_by = bound
@@ -4439,6 +4582,7 @@ def main() -> None:
                 "phase 16 mixed": p16["mixed"]["flash_attention"],
                 "phase 16 recurrent stages": p16["recurrent"]["flash_attention"],
                 "phase 19 pipeline": pipe19["flash_attention"],
+                "phase 20 tp prefill": tp20["flash_attention"],
             },
             "launches_by_path_variant": {
                 path: {r: got[f"flash_attention_{r}"] for r in ("wgmma", "simt")}
@@ -4447,7 +4591,8 @@ def main() -> None:
                     *((f"phase 14 {a}", got) for a, got in lm_by_arch.items()),
                     ("phase 16 mixed", p16["mixed"]),
                     ("phase 16 recurrent stages", p16["recurrent"]),
-                    ("phase 19 pipeline", pipe19))
+                    ("phase 19 pipeline", pipe19),
+                    ("phase 20 tp prefill", tp20))
             },
             "note": "timed at the serve prefill shape (B 1, S 1024, H 16, KH 8, "
                     "hd 128) in bf16, causal: ms is the wgmma kernel (every main-path "

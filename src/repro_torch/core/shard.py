@@ -46,6 +46,7 @@ import concurrent.futures as cf
 import contextlib
 import io
 import itertools
+import math
 import multiprocessing
 import os
 import pickle
@@ -398,29 +399,75 @@ class Call:
         self._done = False
         self._out = None
 
+    def _raw(self) -> _Packed:
+        try:
+            return self._future.result()
+        except BrokenProcessPool as e:
+            _drop(self._key)
+            _discard(self._sent)
+            raise RuntimeError(
+                f"shard worker {self._d} ({self._key[0]} card {self._key[1]}) "
+                "died before it answered; nothing was rerun in the parent"
+            ) from e
+
     def result(self):
         if not self._done:
-            try:
-                raw = self._future.result()
-            except BrokenProcessPool as e:
-                _drop(self._key)
-                _discard(self._sent)
-                raise RuntimeError(
-                    f"shard worker {self._d} ({self._key[0]} card {self._key[1]}) "
-                    "died before it answered; nothing was rerun in the parent"
-                ) from e
-            out, delta = _unpack(raw)
+            out, delta = _unpack(self._raw())
             _add(delta)
             self._out, self._done = out, True
         return self._out
 
+    def discard(self) -> None:
+        """Wait for the task and drop what it returned (its spill file
+        removed, its counter deltas not added); an error it raised is
+        dropped too."""
+        if self._done:
+            return
+        self._done = True
+        try:
+            raw = self._raw()
+        except Exception:
+            return
+        _discard(raw)
+
+
+def gather(calls: Sequence[Optional[Call]]) -> list:
+    """Each call's result, in order (None for a None). Once one raises, the
+    calls after it are still waited for and their results discarded
+    (:meth:`Call.discard`: no spill file stays under ``TMPDIR``), and then
+    the first error is raised."""
+    out: list = []
+    error: Optional[BaseException] = None
+    for c in calls:
+        if c is None:
+            out.append(None)
+        elif error is not None:
+            c.discard()
+        else:
+            try:
+                out.append(c.result())
+            except BaseException as e:  # the rest are drained first
+                error = e
+    if error is not None:
+        raise error
+    return out
+
 
 class Mesh:
-    """D workers, worker ``d`` on card ``cards[d]`` of ``device_type``."""
+    """D workers, worker ``d`` on card ``cards[d]`` of ``device_type``.
+    ``shape`` names the mesh's axes and sizes, in order (the reference's
+    ``mesh.shape``): ``{"data": D}`` by default, or a grid such as
+    ``{"data": D, "model": M}`` whose worker ``d * M + m`` sits at (d, m)."""
 
-    def __init__(self, device_type: str, cards: Sequence[int]):
+    def __init__(self, device_type: str, cards: Sequence[int],
+                 shape: Optional[Dict[str, int]] = None):
         self.device_type = device_type
         self.cards = tuple(int(c) for c in cards)
+        self.shape = {"data": len(self.cards)} if shape is None else dict(shape)
+        n = math.prod(self.shape.values())
+        if n != len(self.cards):
+            raise ValueError(f"a mesh of shape {self.shape} holds {n} workers, not "
+                             f"{len(self.cards)}")
         seen: Dict[int, int] = {}
         self._keys = []
         for c in self.cards:
@@ -454,21 +501,19 @@ class Resident:
     """State that lives in the workers of a :class:`Mesh` under one token:
     :meth:`call` runs ``fn(state_d, *args)`` on every worker and returns the
     results in worker order, :meth:`call_each` the same with each worker's
-    own arguments; :meth:`close` frees it (also when the handle is
-    collected)."""
+    own arguments (both through :func:`gather`: when a worker raises, every
+    other result is still read or discarded); :meth:`close` frees it (also
+    when the handle is collected)."""
 
     def __init__(self, mesh: Mesh, opener: Callable, args: Sequence[tuple]):
         self.mesh, self.token = mesh, next(_TOKENS)
-        for c in [mesh.submit(d, _open, self.token, opener, *a)
-                  for d, a in enumerate(args)]:
-            c.result()
+        gather([mesh.submit(d, _open, self.token, opener, *a) for d, a in enumerate(args)])
         self._finalizer = weakref.finalize(self, _close_all, mesh, self.token)
 
     def call(self, fn: Callable, *args) -> list:
         """``fn(state_d, *args)`` on every worker, waited for."""
-        calls = [self.mesh.submit(d, _apply, self.token, fn, *args)
-                 for d in range(len(self.mesh))]
-        return [c.result() for c in calls]
+        return gather([self.mesh.submit(d, _apply, self.token, fn, *args)
+                       for d in range(len(self.mesh))])
 
     def call_each(self, fn: Callable, args: Sequence[Optional[tuple]]) -> list:
         """``fn(state_d, *args[d])`` on every worker ``d`` whose ``args[d]``
@@ -477,9 +522,8 @@ class Resident:
         result is None."""
         if len(args) != len(self.mesh):
             raise ValueError(f"{len(args)} argument tuples for {len(self.mesh)} workers")
-        calls = [None if a is None else self.mesh.submit(d, _apply, self.token, fn, *a)
-                 for d, a in enumerate(args)]
-        return [None if c is None else c.result() for c in calls]
+        return gather([None if a is None else self.mesh.submit(d, _apply, self.token, fn, *a)
+                       for d, a in enumerate(args)])
 
     def close(self) -> None:
         self._finalizer()
@@ -510,16 +554,16 @@ def visible_cards() -> int:
     return len(_PINNED) if _PINNED is not None else torch.cuda.device_count()
 
 
-def mesh(devices: int, device: torch.device) -> Mesh:
+def mesh(devices: int, device: torch.device, shape: Optional[Dict[str, int]] = None) -> Mesh:
     """The D-worker mesh on ``device``'s type: cards 0..D-1, or the pinned
-    list (:func:`pinned_cards`)."""
+    list (:func:`pinned_cards`); ``shape`` as :class:`Mesh` takes it."""
     device = torch.device(device)
     if _PINNED is not None and device.type == "cuda":
         if devices != len(_PINNED):
             raise ValueError(f"devices={devices} but {len(_PINNED)} cards are "
                              f"pinned ({list(_PINNED)})")
-        return Mesh("cuda", _PINNED)
-    return Mesh(device.type, range(devices))
+        return Mesh("cuda", _PINNED, shape)
+    return Mesh(device.type, range(devices), shape)
 
 
 def block_bounds(n: int, d: int) -> List[Tuple[int, int]]:

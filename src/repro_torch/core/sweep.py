@@ -1417,8 +1417,7 @@ class PendingSweep:
             out = self._out
             host = SimState(*[x.cpu() for x in out])  # one copy a field
         else:
-            host = SimState(*[torch.cat(xs) for xs in zip(
-                *[call.result() for call in self._blocks])])
+            host = SimState(*[torch.cat(xs) for xs in zip(*shard.gather(self._blocks))])
             out = SimState(*[x.to(self._device) for x in host])
         trunc = np.flatnonzero(host.truncated.numpy())
         if trunc.size:

@@ -21,6 +21,18 @@ on placeholder CPU devices, so :func:`lower_cell` takes no device.
 paper's own cell, ``spars-rl``, runs for real, on the card unless
 ``--device cpu``).
 
+``--mesh DxM`` (or ``PxDxM``; the reference's ``--mesh single|multi`` are
+16x16 and 2x16x16) counts each LM cell's arguments per card on that mesh
+of H100s: ``args_bytes_per_device`` becomes the parameters, optimizer
+state, batch and cache under ``models/sharding.py``'s specs (AdamW's
+moments follow their parameters, Adafactor's statistics and the step
+replicate, as the reference's dry run places them), beside
+``args_bytes_one_card`` and ``fits_per_card`` against one card's
+``HBM_BYTES``. FLOPs, bytes and the roofline stay the one-card counts, and
+``collective_wire_bytes_per_device`` stays 0 (the step's all-reduces are
+not counted yet; ``collective_note`` says so). ``--mesh 1``, the default,
+writes today's one-card record.
+
 A cell's step:
 
 * ``train_4k``: ``make_train_step`` with the reference's accumulation
@@ -87,10 +99,13 @@ from repro_torch.launch.shapes import (
     train_accum_steps,
 )
 from repro_torch.models import layers as L
+from repro_torch.models import sharding
 from repro_torch.models import ssm as S
+from repro_torch.models.convert import reference_leaves
 from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import build_model
 from repro_torch.training import train_step
+from repro_torch.training.optimizer import OptState, _AdamMoments
 
 MESH = "1xH100"
 PEAK_SOURCE = "NVIDIA H100 SXM data sheet, dense, at 700 W"
@@ -378,14 +393,32 @@ def _finish(rec: Dict[str, Any], counter: Counter, hbm_bytes: int, dtype_name: s
 # the LM cells
 # ---------------------------------------------------------------------------
 
+def _opt_specs(state: OptState, pspecs: List[sharding.P], mesh_shape) -> OptState:
+    """The reference dry run's optimizer-state placement: AdamW's moments
+    as their parameters, any other state and the step replicated."""
+    inner = state.inner
+    if isinstance(inner, _AdamMoments):
+        inner = _AdamMoments(list(pspecs), list(pspecs))
+    elif inner is not None:
+        inner = sharding.replicated(mesh_shape, inner)
+    return OptState(sharding.P(), inner)
+
+
+def mesh_name(mesh_shape: Dict[str, int]) -> str:
+    return "x".join(str(v) for v in mesh_shape.values())
+
+
 def lower_cell(
     arch: str,
     shape_name: Union[str, ShapeSpec],
     accum_override: Optional[int] = None,
     config_overrides: Optional[Dict[str, Any]] = None,
+    mesh_shape: Optional[Dict[str, int]] = None,
 ) -> Dict[str, Any]:
     """Count one (arch x shape) cell on fake tensors; return its record.
-    ``shape_name`` is a key of ``SHAPE_SETS`` or a ``ShapeSpec`` of its own."""
+    ``shape_name`` is a key of ``SHAPE_SETS`` or a ``ShapeSpec`` of its own;
+    ``mesh_shape`` (``launch/mesh.py`` ``parse_mesh``) adds the arguments'
+    bytes per card on that mesh."""
     t_start = time.time()
     cfg = get_arch(arch)
     if config_overrides:
@@ -403,11 +436,19 @@ def lower_cell(
         rec.update(status="skipped", reason=reason)
         return rec
 
+    if mesh_shape is not None:
+        rec.update(mesh=mesh_name(mesh_shape), mesh_axes=dict(mesh_shape),
+                   n_devices=sharding._prod(mesh_shape.values()))
     with fake_mode():
         model = fake_model(cfg)
         n_params = model.n_params()
         rec["n_params"] = n_params
         params = _bytes(list(model.parameters()))
+        # the arguments: (tree, its specs on the mesh) a part
+        if mesh_shape is not None:
+            leaves = reference_leaves(model)
+            pspecs = sharding.params_specs(cfg, mesh_shape, leaves)
+            parts = [([leaf.tensors[0].new_empty(leaf.shape) for leaf in leaves], pspecs)]
         if shape.kind == "train":
             accum = accum_override or train_accum_steps(cfg, n_params, shape)
             rec["accum_steps"] = accum
@@ -417,12 +458,19 @@ def lower_cell(
             state = train_step.init_opt_state(model, opt)
             batch = batch_specs(cfg, shape)
             args = params + _bytes(state) + _bytes(batch)
+            if mesh_shape is not None:
+                parts += [(state, _opt_specs(state, pspecs, mesh_shape)),
+                          (batch, sharding.batch_shardings(
+                              mesh_shape, batch, shape.batch,
+                              seq_over_model=cfg.sharding_mode == "fsdp_sp"))]
             _, counter = count(step, state, batch)
             # parameters and optimizer state read and written, the batch read
             hbm = 2 * (params + _bytes(state)) + _bytes(batch)
         elif shape.kind == "prefill":
             batch = batch_specs(cfg, shape)
             args = params + _bytes(batch)
+            if mesh_shape is not None:
+                parts.append((batch, sharding.batch_shardings(mesh_shape, batch, shape.batch)))
             (logits, cache), counter = count(
                 model.prefill, batch["tokens"], image_embeds=batch.get("image_embeds"),
                 encoder_frames=batch.get("encoder_frames"))
@@ -430,13 +478,29 @@ def lower_cell(
         else:
             tokens, cache, pos = decode_specs(cfg, model, shape)
             args = params + _bytes(tokens) + _bytes(cache)
+            if mesh_shape is not None:
+                parts += [(tokens, sharding.batch_shardings(mesh_shape, tokens, shape.batch)),
+                          (cache, sharding.cache_shardings(cfg, mesh_shape, cache,
+                                                           shape.batch, shape.seq))]
             (logits, _), counter = count(model.decode_step, tokens, cache, pos, watched=cache)
             # the whole cache read (pos = S - 1), and what the step writes into it
             rec["cache_write_bytes"] = counter.watched_writes
             hbm = args + counter.watched_writes + _bytes(logits)
-    rec["args_bytes_per_device"] = args
-    rec["fits_one_card"] = args <= mesh.HBM_BYTES
+        if mesh_shape is not None:
+            per_card = sum(sharding.sharded_bytes(tree, specs, mesh_shape)
+                           for tree, specs in parts)
+    if mesh_shape is None:
+        rec["args_bytes_per_device"] = args
+        rec["fits_one_card"] = args <= mesh.HBM_BYTES
+    else:
+        rec["args_bytes_per_device"] = per_card
+        rec["args_bytes_one_card"] = args
+        rec["fits_one_card"] = args <= mesh.HBM_BYTES
+        rec["fits_per_card"] = per_card <= mesh.HBM_BYTES
     _finish(rec, counter, hbm, cfg.dtype_name)
+    if mesh_shape is not None:
+        rec["collective_note"] = ("FLOPs, bytes and the roofline are one card's; the "
+                                  "step's collectives are not counted (ROADMAP)")
 
     # useful-FLOPs ratio: MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE),
     # over the FLOPs the program computes (the reference's HLO count)
@@ -560,19 +624,25 @@ def _line(tag: str, rec: Dict[str, Any]) -> str:
 def table(results: List[Dict[str, Any]]) -> str:
     """The ``ok`` records as a markdown table: the needed and computed
     FLOPs, the bound's bytes and the eager program's, whether the
-    arguments fit one card, and the roofline against the peaks."""
+    arguments fit one card (and, on a mesh, each card of it), and the
+    roofline against the peaks."""
+    on_mesh = any("fits_per_card" in r for r in results)
     head = ("| cell | FLOPs needed | FLOPs computed | hbm_bytes | op_bytes | args_bytes | "
-            "fits one card | dominant | roofline s |")
-    rows = [head, "|" + "---|" * 9]
+            "fits one card | " + ("args_bytes per card | fits per card | " if on_mesh else "")
+            + "dominant | roofline s |")
+    rows = [head, "|" + "---|" * (11 if on_mesh else 9)]
     for r in results:
-        if r.get("status") != "ok":
+        if r.get("status") != "ok" or "roofline" not in r:
             continue
         rf = r["roofline"]
+        one = r.get("args_bytes_one_card", r["args_bytes_per_device"])
+        per_card = (f"{r['args_bytes_per_device']:.4g} | "
+                    f"{'yes' if r['fits_per_card'] else 'no'} | ") if on_mesh else ""
         rows.append(
             f"| {r['arch']} {r['shape']} | {r['flops_per_device']:.4g} | "
             f"{r['flops_computed']:.4g} | {r['hbm_bytes_per_device']:.4g} | "
-            f"{r['op_bytes']:.4g} | {r['args_bytes_per_device']:.4g} | "
-            f"{'yes' if r['fits_one_card'] else 'no'} | {rf['dominant']} | "
+            f"{r['op_bytes']:.4g} | {one:.4g} | "
+            f"{'yes' if r['fits_one_card'] else 'no'} | {per_card}{rf['dominant']} | "
             f"{rf['roofline_step_s']:.4g} |")
     return "\n".join(rows)
 
@@ -586,7 +656,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--spars-rl", action="store_true", help="also run the RL cell")
     ap.add_argument("--device", default=None,
                     help="the RL cell's device (default cuda; the LM cells take none)")
+    ap.add_argument("--mesh", default="1",
+                    help="1 (one card, the default), DxM, PxDxM, or the reference's "
+                         "single (16x16) or multi (2x16x16): per-card bytes on that mesh")
     args = ap.parse_args(argv)
+    mesh_shape = None if args.mesh == "1" else mesh.parse_mesh(args.mesh)
 
     os.makedirs(args.out, exist_ok=True)
     archs = list_archs() if args.arch == "all" else args.arch.split(",")
@@ -595,9 +669,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     results = []
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch}__{shape}"
+            tag = f"{arch}__{shape}" + ("" if mesh_shape is None
+                                        else f"__{mesh_name(mesh_shape)}")
             try:
-                rec = lower_cell(arch, shape, accum_override=args.accum)
+                rec = lower_cell(arch, shape, accum_override=args.accum, mesh_shape=mesh_shape)
             except Exception:
                 rec = {"arch": arch, "shape": shape, "mesh": MESH, "status": "error",
                        "error": traceback.format_exc()}

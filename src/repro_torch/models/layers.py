@@ -192,7 +192,19 @@ class Attention(nn.Module):
 
     ``wq``/``wk``/``wv``/``wo`` are ``nn.Linear``s, so their weights are the
     reference's ``[in, out]`` matrices transposed.
+
+    On a tensor-parallel rank (``training/tensor_parallel.py``) the weights
+    are the rank's shards: ``wq`` (and ``wk``, ``wv`` where the KV heads
+    divide the model axis) column-parallel, ``wo`` row-parallel. The head
+    counts are read from the shards' shapes; ``kv_select`` (first, count)
+    picks the KV heads this rank's query heads read from replicated ``wk``,
+    ``wv``; ``tp`` enters the region (identity forward, a reduce of the
+    gradient) and leaves it (a reduce of ``wo``'s output). Both are None on
+    one device.
     """
+
+    tp = None  # the rank's model group, on a tensor-parallel rank
+    kv_select: Optional[Tuple[int, int]] = None
 
     def __init__(self, d_model, n_heads, n_kv_heads, head_dim, dtype, *, theta: float,
                  qk_norm: bool = False, eps: float = 1e-5):
@@ -222,9 +234,13 @@ class Attention(nn.Module):
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         """The reference's ``attn_qkv``: projections, qk-norm and RoPE."""
         b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, self.n_heads, self.head_dim)
-        k = self.wk(x).reshape(b, s, self.n_kv_heads, self.head_dim)
-        v = self.wv(x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        hd = self.head_dim
+        q = self.wq(x).reshape(b, s, self.wq.weight.shape[0] // hd, hd)
+        k = self.wk(x).reshape(b, s, self.wk.weight.shape[0] // hd, hd)
+        v = self.wv(x).reshape(b, s, self.wv.weight.shape[0] // hd, hd)
+        if self.kv_select is not None:
+            first, n = self.kv_select
+            k, v = k[:, :, first:first + n], v[:, :, first:first + n]
         if self.q_norm is not None:
             q = rms_norm(q, self.q_norm, self.eps)
             k = rms_norm(k, self.k_norm, self.eps)
@@ -257,6 +273,8 @@ class Attention(nn.Module):
         for all layers by :func:`row_offsets`.
         """
         b, s, _ = x.shape
+        if self.tp is not None:
+            x = self.tp.enter(x)
         q, k, v = self.qkv(x, positions)
         if cache is None:
             out = _attend(q, k, v, causal, 0, attn_impl)
@@ -277,7 +295,8 @@ class Attention(nn.Module):
             else:
                 keys, vals = kc[:, :cache_pos + s], vc[:, :cache_pos + s]
             out = _attend(q, keys, vals, True, cache_pos, attn_impl)
-        return self.wo(out.reshape(b, s, self.n_heads * self.head_dim))
+        out = self.wo(out.reshape(b, s, self.wo.weight.shape[1]))
+        return out if self.tp is None else self.tp.exit(out)
 
     def cross(
         self,
@@ -315,6 +334,12 @@ class Attention(nn.Module):
 # ---------------------------------------------------------------------------
 
 class SwiGLU(nn.Module):
+    """``w_down(silu(w_gate(x)) * w_up(x))``; on a tensor-parallel rank
+    ``w_gate``, ``w_up`` column-parallel and ``w_down`` row-parallel shards,
+    entered and left through ``tp`` as :class:`Attention` is."""
+
+    tp = None  # the rank's model group, on a tensor-parallel rank
+
     def __init__(self, d_model: int, d_ff: int, dtype):
         super().__init__()
         self.w_gate = nn.Linear(d_model, d_ff, bias=False, dtype=dtype)
@@ -328,7 +353,10 @@ class SwiGLU(nn.Module):
             lin.weight.copy_(w.t())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        y = self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        return y if self.tp is None else self.tp.exit(y)
 
 
 class GeluMLP(nn.Module):

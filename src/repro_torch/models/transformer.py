@@ -76,6 +76,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -511,7 +512,17 @@ class Transformer(nn.Module):
     ``encoder``, final norm and LM head over the padded vocabulary.
     ``attn_impl`` selects the attention route (see
     :mod:`repro_torch.models.layers`), ``gla_impl`` the GLA route (see
-    :mod:`repro_torch.models.ssm`)."""
+    :mod:`repro_torch.models.ssm`).
+
+    On a tensor-parallel rank (``training/tensor_parallel.py``), ``tp`` is
+    the rank's model group and the embedding and LM head hold the rank's
+    rows of the padded vocabulary: the embedding is a masked lookup of those
+    rows, reduced over the group; the logits are the rank's ``[B, S, Vp /
+    M]`` columns, and :meth:`loss` takes the cross entropy over the whole
+    vocabulary from them (its max, its sum of exps and the gold logit
+    reduced over the group) and counts the targets over the data group."""
+
+    tp = None  # the rank's model group, on a tensor-parallel rank
 
     def __init__(self, cfg: ArchConfig, attn_impl: str = "auto", gla_impl: str = "auto"):
         super().__init__()
@@ -574,10 +585,17 @@ class Transformer(nn.Module):
 
     # ---------------- shared machinery ----------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed(tokens.clamp(0, self.config.padded_vocab - 1))
+        tokens = tokens.clamp(0, self.config.padded_vocab - 1)
+        if self.tp is None:
+            return self.embed(tokens)
+        rows, inside = self.tp.vocab_rows(tokens)
+        x = F.embedding(rows, self.embed.weight) * inside[..., None].to(self.embed.weight.dtype)
+        return self.tp.exit(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, self.final_norm, self.config.norm_eps)
+        if self.tp is not None:
+            x = self.tp.enter(x)
         return self.lm_head(x).float()
 
     def _embed_inputs(self, tokens: torch.Tensor,
@@ -669,7 +687,9 @@ class Transformer(nn.Module):
         entropy of each next token, over targets ``>= 0`` past the first
         ``n_image_embeds`` positions, plus ``moe_aux_weight`` times the MoE
         aux loss. Returns (total, {"ce", "aux", "tokens"}), f32 scalars;
-        ``tokens`` is the count of targets, at least 1."""
+        ``tokens`` is the count of targets, at least 1. On a tensor-parallel
+        rank ``tokens`` counts the whole data group's targets, so ``ce`` is
+        the rank's share of the global batch's mean."""
         cfg = self.config
         tokens = batch["tokens"]
         logits, aux = self(tokens, batch.get("image_embeds"), batch.get("encoder_frames"))
@@ -680,10 +700,15 @@ class Transformer(nn.Module):
             pos_mask = torch.arange(targets.shape[1], device=mask.device) >= cfg.n_image_embeds
             mask = mask * pos_mask[None, :]
         tgt = targets.clamp(0, cfg.padded_vocab - 1).long()
-        logz = torch.logsumexp(lg, -1)
-        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        if self.tp is None:
+            logz = torch.logsumexp(lg, -1)
+            gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+            count = mask.sum()
+        else:
+            logz, gold = self.tp.cross_entropy_terms(lg, tgt)
+            count = self.tp.data_sum(mask.sum())
         nll = (logz - gold) * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = torch.clamp(count, min=1.0)
         ce = nll.sum() / denom
         total = ce + cfg.moe_aux_weight * aux
         return total, {"ce": ce, "aux": aux, "tokens": denom}
@@ -702,7 +727,8 @@ class Transformer(nn.Module):
         """The zero cache of a stage of ``n`` blocks of ``btype`` (the
         reference's ``block_cache`` stacked ``n`` times)."""
         cfg, dev = self.config, self.device
-        kv = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.hd)
+        kv_heads = cfg.n_kv_heads if self.tp is None else self.tp.kv_heads
+        kv = (n, batch_size, cache_len, kv_heads, cfg.hd)
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)

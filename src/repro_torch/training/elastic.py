@@ -7,8 +7,11 @@ state, resume; its state is a pytree of ``jax.Array``\\ s, so a reshard is one
 ``device_put`` against the new mesh. The port's mesh is
 :class:`~repro_torch.core.shard.Mesh`, worker processes, one per card, so:
 
-* :func:`surviving_mesh` is the mesh of the surviving workers (the data
-  axis only: ``model_parallel`` > 1 raises, ROADMAP Queue 1 item 12c.6);
+* :func:`surviving_mesh` is the mesh of the surviving workers, a ``(data,
+  model)`` grid of ``n_devices // model_parallel`` x ``model_parallel``
+  workers (``shard.Mesh.shape``); :func:`reshard` places trees on a mesh
+  without a model axis (model 1): resharding a model-sharded state raises
+  ``NotImplementedError`` naming ROADMAP Queue 1 item 12c.6;
 * :func:`reshard` places a tensor tree in the mesh's workers: each leaf
   split over the workers along its leading axis (:data:`SPLIT`, the
   reference's ``P("data", None)``, cut as ``shard.block_bounds`` cuts) or
@@ -36,7 +39,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.core import shard
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 
 PyTree = Any
 
@@ -89,29 +92,17 @@ def surviving_mesh(
     n_devices: int, model_parallel: int,
     axis_names: Tuple[str, str] = ("data", "model"), device=None,
 ) -> shard.Mesh:
-    """The largest mesh on the surviving devices: ``(n_devices //
-    model_parallel) * model_parallel`` workers on ``device``'s type (``cuda``
-    unless the caller passes ``"cpu"``; raises without a card). The port's
-    mesh has the data axis only, so ``axis_names`` names it and the refused
-    model axis; more workers than visible cards raise, as the sharded
-    sweep's ``devices`` do."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel} shards a model axis of a device mesh; "
-            "the PyTorch port's mesh is data-parallel worker processes "
-            "(ROADMAP Queue 1 item 12c.6)"
-        )
+    """The largest mesh on the surviving devices: ``launch/mesh.py``'s
+    ``make_host_mesh`` grid of ``(n_devices // model_parallel) *
+    model_parallel`` workers under ``axis_names`` (``cuda`` unless the
+    caller passes ``"cpu"``; more workers than visible cards raise)."""
     if model_parallel < 1 or len(axis_names) != 2:
         raise ValueError(f"model_parallel must be >= 1 with two axis names, got "
                          f"{model_parallel} and {axis_names!r}")
-    dev = resolve_device(device)
     usable = (n_devices // model_parallel) * model_parallel
     if usable < 1:
         raise ValueError(f"no device survives: n_devices={n_devices}")
-    if dev.type == "cuda" and usable > shard.visible_cards():
-        raise ValueError(
-            f"devices={usable} exceeds the {shard.visible_cards()} visible device(s)")
-    return shard.mesh(usable, dev)
+    return make_host_mesh(model_parallel, usable, device, axis_names)
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +173,11 @@ def reshard(
     the tree as meta tensors (the reference's ``jax.eval_shape``) and
     returns a tree of the same structure holding :data:`SPLIT` or
     :data:`REPLICATE` for each tensor."""
+    model = list(new_mesh.shape.values())[1:]
+    if any(size > 1 for size in model):
+        raise NotImplementedError(
+            f"resharding onto a mesh of shape {new_mesh.shape}: a model-sharded state "
+            "is ROADMAP Queue 1 item 12c.6 (the port reshards along the data axis)")
     if isinstance(tree, Placed):
         device, tree = tree.device, tree.gather("cpu")
     else:

@@ -61,9 +61,12 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float):
-    """(tensors scaled by ``min(1, max_norm / (norm + 1e-9))``, norm)."""
-    g = global_norm(tensors)
+def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """(tensors scaled by ``min(1, max_norm / (norm + 1e-9))``, norm);
+    ``norm`` defaults to :func:`global_norm` of ``tensors`` (a
+    tensor-parallel rank passes the norm of the whole, unsharded set)."""
+    g = global_norm(tensors) if norm is None else norm
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     return [x * scale.to(x.dtype) for x in tensors], g
 

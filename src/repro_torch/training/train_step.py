@@ -26,8 +26,17 @@ are ``loss`` and ``grad_norm`` (before clipping), and with ``accum_steps ==
 1`` the loss's ``ce``, ``aux`` and ``tokens``, as in the reference: 0-d
 tensors on the model's device, read when the caller reads them.
 
+On a tensor-parallel rank (``model.tp``, ``training/tensor_parallel.py``)
+the same step runs on the rank's shards: after the backward, step 2 first
+reduces the gradients (summed over the data group; a replicated leaf used
+inside a sharded region, also over the model group) and takes the global
+norm over the whole, unsharded set; the metrics are summed over the data
+group. Compression under it raises ``NotImplementedError`` naming ROADMAP
+Queue 1 item 12c.6.
+
 ``batch_axes`` and ``grad_specs`` pin shardings of a device mesh; they
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 12c.6.
+raise ``NotImplementedError`` naming item 12c.6: the rank grid of
+``training/tensor_parallel.py`` takes their place.
 """
 from __future__ import annotations
 
@@ -134,8 +143,14 @@ def make_train_step(
     if cfg.batch_axes is not None or cfg.grad_specs is not None:
         raise NotImplementedError(
             "TrainStepConfig.batch_axes and grad_specs pin shardings of a device mesh; "
-            "the PyTorch port trains on one device (ROADMAP Queue 1 item 12c.6)"
+            "the PyTorch port shards a model over the rank grid of "
+            "training/tensor_parallel.py instead (ROADMAP Queue 1 item 12c.6)"
         )
+    tp = model.tp
+    if tp is not None and cfg.compression:
+        raise NotImplementedError(
+            f"compression {cfg.compression!r} on a tensor-parallel rank "
+            "(ROADMAP Queue 1 item 12c.6)")
     compress = COMPRESSORS[cfg.compression] if cfg.compression else None
     model.requires_grad_(True)
     leaves = reference_leaves(model)
@@ -173,9 +188,15 @@ def make_train_step(
             loss, metrics = lsum / a, {}
         for p in params:
             p.grad = None
+        norm = None
+        if tp is not None:
+            grads = tp.reduce_grads(grads)
+            norm = tp.global_norm(grads)
+            loss = tp.data_sum(loss)
+            metrics = {k: v if k == "tokens" else tp.data_sum(v) for k, v in metrics.items()}
         if compress is not None:
             grads = compress(grads)
-        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm, norm)
         stacked = [leaf.stack() for leaf in leaves]
         updates, opt_state = optimizer.update(grads, opt_state, stacked)
         del grads

@@ -8,8 +8,9 @@ on the CPU, where CPU worker processes stand in for the reference's devices.
   ``test_elastic_reshard_preserves_values``' ``sharding_fn`` shape (split
   the 2-d leaves, replicate the rest) keeps values, dtypes and shapes bit
   for bit, each worker holding its ``shard.block_bounds`` rows;
-- ``surviving_mesh`` refuses ``model_parallel`` > 1 (ROADMAP Queue 1 item
-  12c.6), more workers than visible cards and no card by default;
+- ``surviving_mesh`` sizes a data x model grid, onto whose model axis
+  ``reshard`` refuses to place a state (ROADMAP Queue 1 item 12c.6), and
+  refuses more workers than visible cards and no card by default;
 - a grouped env batch shrunk to 3 envs and grown back to 4 steps once with
   row 3's action row 0's: row 3 equals row 0 bit for bit.
 """
@@ -191,8 +192,13 @@ def test_surviving_mesh_sizes():
 
 
 def test_surviving_mesh_refuses_a_model_axis():
+    # surviving_mesh sizes a data x model grid; resharding onto its model
+    # axis raises (no worker starts)
+    mesh = te.surviving_mesh(9, 2, device=CPU)
+    assert len(mesh) == 8 and mesh.shape == {"data": 4, "model": 2}
+    assert te.surviving_mesh(3, 1, ("dp", "mp"), device=CPU).shape == {"dp": 3, "mp": 1}
     with pytest.raises(NotImplementedError, match="item 12c.6"):
-        te.surviving_mesh(8, 2, device=CPU)
+        te.reshard({"a": torch.zeros(4, 2)}, mesh, lambda m, s: {"a": te.SPLIT})
 
 
 def test_surviving_mesh_refuses_more_than_the_visible_cards(monkeypatch):

@@ -82,11 +82,6 @@ DIFFERENCES = {
         "NEG_INF": "the masked logit, a literal -1e30 in the port's kernels and plain version",
     },
     "launch/mesh.py": {
-        "make_production_mesh": "a JAX device mesh for the multi-device launchers; one LM "
-                                "runs on one card, and the port's mesh is "
-                                "`core/shard.py`'s `Mesh` of worker processes",
-        "make_host_mesh": "a JAX device mesh over the host's devices; the port's mesh is "
-                          "`core/shard.py`'s `Mesh`",
         "ICI_BW_PER_LINK": "the TPU's inter-chip link; the port's collective term is "
                            "`NVLINK_BW` (0 on one card)",
     },

@@ -5,8 +5,8 @@ restored by the other, ``save_async``/``wait`` and ``restore_or_init``,
 and ``python -m repro_torch.launch.train``: a crash at step 12 and a resume
 from step 10 end on the parameters and optimizer state of an
 uninterrupted run bit for bit (on the CPU), in checkpoints the reference
-restores. ``--model-parallel`` and the mesh pins of ``TrainStepConfig``
-raise naming ROADMAP item 12c.6, and no module of the runtime imports JAX
+restores. ``--model-parallel`` on a non-dense arch and the mesh pins of
+``TrainStepConfig`` raise naming ROADMAP item 12c.6, and no module of the runtime imports JAX
 or the reference package.
 """
 import json
@@ -264,8 +264,11 @@ def test_launcher_crash_and_resume_equal_an_uninterrupted_run(tmp_path, capsys):
 
 
 def test_model_parallel_and_mesh_pins_raise_naming_the_roadmap_item():
+    # a dense decoder trains on a rank grid (tests/test_torch_tensor_parallel.py);
+    # a non-dense arch under --model-parallel 2 still raises, before any worker starts
     with pytest.raises(NotImplementedError, match="item 12c.6"):
-        ttrain.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+        ttrain.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--device", "cpu",
+                     "--model-parallel", "2"])
     model = build_model(get_arch(ARCH, reduced=True), "cpu")
     for cfg in (tts.TrainStepConfig(batch_axes=("data",)), tts.TrainStepConfig(grad_specs={})):
         with pytest.raises(NotImplementedError, match="item 12c.6"):
